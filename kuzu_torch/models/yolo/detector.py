@@ -1,0 +1,112 @@
+"""Detector wrapper: graph, BN-folded forward and anchor-free decode
+(counterpart of ``kuzu/models/yolo/detector.py``).
+
+``infer`` returns the per-level raw maps (B, H, W, 4*reg_max + nc) as NHWC
+views; ``decode`` turns them into the (B, 4 + nc, A) tensor that
+``kuzu_torch.ops.nms.non_max_suppression`` consumes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from kuzu_torch.bridge import from_flax
+from kuzu_torch.models.yolo.graph import (
+    GraphSpec,
+    YoloGraph,
+    parse_model_yaml,
+    resolve_model_spec,
+)
+from kuzu_torch.models.yolo.infer import fold_graph, run_graph
+from kuzu_torch.models.yolo.modules import dfl_expectation
+from kuzu_torch.ops.anchors import dist2bbox, make_anchors
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """``None`` means the card; asking for CUDA where there is none raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return device
+
+
+class YoloDetector:
+    """Spec + parameters + folded weights on one device."""
+
+    def __init__(
+        self,
+        model: str | GraphSpec,
+        nc: int | None = None,
+        dtype: torch.dtype = torch.bfloat16,
+        imgsz: int = 640,
+        device: torch.device | str | None = None,
+    ):
+        if dtype != torch.bfloat16:
+            raise NotImplementedError("the folded executor runs in bf16 only")
+        self.device = resolve_device(device)
+        if isinstance(model, GraphSpec):
+            self.spec = model
+        else:
+            path, scale = resolve_model_spec(str(model))
+            self.spec = parse_model_yaml(path, scale=scale, nc=nc)
+        self.graph = YoloGraph(self.spec)
+        self.dtype = dtype
+        self.imgsz = imgsz
+        self.strides = list(self.spec.strides)
+        self.nc = self.spec.nc
+        self.folded: dict | None = None
+
+    # ------------------------------------------------------------ lifecycle
+    def init(self, seed: int = 0) -> "YoloDetector":
+        """Seeded random weights (drawn on the CPU, so every device gets the
+        same ones), then fold."""
+        self.graph.reset_parameters(torch.Generator().manual_seed(seed))
+        return self._load()
+
+    def load_flax(self, variables: dict) -> "YoloDetector":
+        """Weights from a flax ``{params, batch_stats}`` tree of numpy arrays."""
+        self.graph.to("cpu")
+        from_flax(self.graph, variables)
+        return self._load()
+
+    def _load(self) -> "YoloDetector":
+        self.graph.to(self.device)
+        self.folded = fold_graph(self.graph)
+        return self
+
+    def infer(self, images: torch.Tensor) -> list[torch.Tensor]:
+        """BN-folded forward of (B, H, W, 3) images on the detector's device."""
+        if self.folded is None:
+            raise RuntimeError("call init() or load_flax() first")
+        return run_graph(self.spec, self.folded, images.to(self.device))
+
+    # ------------------------------------------------------------- helpers
+    def feat_shapes(self, imgsz: int) -> list[tuple[int, int]]:
+        return [(imgsz // s, imgsz // s) for s in self.strides]
+
+    def anchors(self, imgsz: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(anchor_points (A, 2) grid units, strides (A, 1))."""
+        return make_anchors(self.feat_shapes(imgsz), self.strides, device=self.device)
+
+    def flatten_feats(self, feats: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-level NHWC maps -> (box_dist (B, A, 4*reg_max), cls (B, A, nc))."""
+        cat = torch.cat([f.reshape(f.shape[0], -1, f.shape[-1]) for f in feats], dim=1)
+        rm = self.spec.reg_max
+        return cat[..., : 4 * rm], cat[..., 4 * rm:]
+
+    @torch.no_grad()
+    def decode(self, feats: list[torch.Tensor]) -> torch.Tensor:
+        """Raw maps -> (B, 4 + nc, A): xywh pixel boxes + sigmoid scores.
+
+        DFL runs in the maps' dtype (bf16) and is promoted to f32 at
+        ``dist2bbox``; the class sigmoid runs in f32."""
+        box_dist, cls = self.flatten_feats(feats)
+        shapes = [(f.shape[1], f.shape[2]) for f in feats]
+        anchor_points, stride_t = make_anchors(shapes, self.strides, device=box_dist.device)
+        dist = dfl_expectation(box_dist, self.spec.reg_max)
+        boxes = dist2bbox(dist, anchor_points[None], xywh=True) * stride_t[None]
+        pred = torch.cat([boxes, torch.sigmoid(cls.float())], dim=-1)
+        return pred.transpose(1, 2)
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.graph.parameters())

@@ -1,0 +1,304 @@
+"""YAML model-graph parser and the module tree it describes.
+
+The parser (``make_divisible``, ``NodeSpec``, ``GraphSpec``,
+``parse_model_yaml``, ``resolve_model_spec``) is a copy of
+``kuzu/models/yolo/graph.py``: a model yaml lists ``[from, repeats, module,
+args]`` rows; compound scaling (depth/width/max_channels per scale letter)
+resizes repeats and channels, and channels and strides propagate statically.
+:class:`YoloGraph` builds the ``nn.Module`` tree of a parsed spec with the
+parameter names of the flax graph (``n{i}_{Module}``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any
+
+import torch
+import yaml
+from torch import nn
+
+from kuzu_torch.models.yolo import modules as M
+
+MODEL_DIR = Path(__file__).resolve().parent.parent.parent / "cfg" / "models"
+
+
+def make_divisible(x: float, divisor: int = 8) -> int:
+    return int(math.ceil(x / divisor) * divisor)
+
+
+@dataclass
+class NodeSpec:
+    index: int
+    frm: list[int]  # absolute input indices (-1 resolved)
+    module: str
+    args: list[Any]
+    c_out: int
+    stride: int
+    repeats: int = 1
+
+
+@dataclass
+class GraphSpec:
+    nc: int
+    scale: str
+    nodes: list[NodeSpec]
+    save: list[int]  # indices whose outputs later nodes consume
+    detect_ch: list[int] = field(default_factory=list)
+    strides: list[int] = field(default_factory=list)
+    legacy_head: bool = False  # v8-style Detect cls branch
+    end2end: bool = False  # v10 dual head (NMS-free one2one inference)
+    seg_nm: int = 0  # Segment head: number of mask coefficients (0 = detect)
+    seg_npr: int = 0  # Segment head: prototype channels
+    kpt_shape: tuple[int, int] | None = None  # Pose head (K, D)
+    obb: bool = False  # OBB head (rotated boxes)
+    classify: bool = False  # Classify head (plain logits)
+    # DFL bins per side. Max representable box extent is reg_max*stride px
+    # per side from the anchor; the reference hardcodes 16
+    # (``nn/modules/head.py`` Detect.reg_max), which truncates objects
+    # taller than 2*16*stride px (e.g. book columns). Overridable via the
+    # model yaml key ``reg_max`` or the trainer cfg.
+    reg_max: int = 16
+
+
+def parse_model_yaml(
+    path_or_dict: str | Path | dict, scale: str | None = None, nc: int | None = None
+) -> GraphSpec:
+    if isinstance(path_or_dict, (str, Path)):
+        with open(path_or_dict) as f:
+            d = yaml.safe_load(f)
+    else:
+        d = dict(path_or_dict)
+    scales = d.get("scales", {})
+    scale = scale or d.get("scale") or (next(iter(scales)) if scales else "n")
+    depth, width, max_ch = scales.get(scale, (1.0, 1.0, float("inf")))
+    nc = nc if nc is not None else int(d.get("nc", 80))
+
+    rows = list(d["backbone"]) + list(d["head"])
+    nodes: list[NodeSpec] = []
+    ch: list[int] = []  # output channels per node
+    strides: list[int] = []
+    save: set[int] = set()
+    detect_ch: list[int] = []
+    det_strides: list[int] = []
+
+    for i, (frm, n, mod, args) in enumerate(rows):
+        frm_list = [frm] if isinstance(frm, int) else list(frm)
+        frm_abs = [(i + f) if f < 0 else f for f in frm_list]
+        for f in frm_abs:
+            if f != i - 1:
+                save.add(f)
+        n_scaled = max(round(n * depth), 1) if n > 1 else n
+        args = list(args)
+
+        c_in = ch[frm_abs[0]] if ch else 3
+        s_in = strides[frm_abs[0]] if strides else 1
+
+        if mod in ("Conv", "DWConv"):
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            s = args[2] if len(args) > 2 else 1
+            nodes.append(
+                NodeSpec(i, frm_abs, mod, [c2] + args[1:], c2, s_in * s, n_scaled)
+            )
+        elif mod in ("C3k2",):
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            c3k = bool(args[1]) if len(args) > 1 else False
+            if scale in "mlx":
+                c3k = True
+            e = float(args[2]) if len(args) > 2 else 0.5
+            nodes.append(
+                NodeSpec(i, frm_abs, mod, [c2, c3k, e], c2, s_in, n_scaled)
+            )
+        elif mod == "C2f":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            shortcut = bool(args[1]) if len(args) > 1 else False
+            nodes.append(
+                NodeSpec(i, frm_abs, mod, [c2, shortcut], c2, s_in, n_scaled)
+            )
+        elif mod == "A2C2f":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            a2 = bool(args[1]) if len(args) > 1 else True
+            area = int(args[2]) if len(args) > 2 else 1
+            residual, mlp_ratio = False, 2.0
+            if scale in "lx":
+                residual, mlp_ratio = True, 1.5
+            nodes.append(
+                NodeSpec(
+                    i, frm_abs, mod, [c2, a2, area, residual, mlp_ratio],
+                    c2, s_in, n_scaled,
+                )
+            )
+        elif mod == "RepNCSPELAN4":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            c3 = make_divisible(min(args[1], max_ch) * width)
+            c4 = make_divisible(min(args[2], max_ch) * width)
+            nrep = int(args[3]) if len(args) > 3 else 1
+            nodes.append(
+                NodeSpec(i, frm_abs, mod, [c2, c3, c4, nrep], c2, s_in, 1)
+            )
+        elif mod == "ADown":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            nodes.append(NodeSpec(i, frm_abs, mod, [c2], c2, s_in * 2, 1))
+        elif mod == "SPPELAN":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            c3 = make_divisible(min(args[1], max_ch) * width)
+            nodes.append(NodeSpec(i, frm_abs, mod, [c2, c3], c2, s_in, 1))
+        elif mod == "C2fCIB":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            shortcut = bool(args[1]) if len(args) > 1 else False
+            lk = bool(args[2]) if len(args) > 2 else False
+            nodes.append(
+                NodeSpec(i, frm_abs, mod, [c2, shortcut, lk], c2, s_in, n_scaled)
+            )
+        elif mod == "SCDown":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            k = int(args[1]) if len(args) > 1 else 3
+            st = int(args[2]) if len(args) > 2 else 2
+            nodes.append(NodeSpec(i, frm_abs, mod, [c2, k, st], c2, s_in * st, 1))
+        elif mod == "PSA":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            e = float(args[1]) if len(args) > 1 else 0.5
+            nodes.append(NodeSpec(i, frm_abs, mod, [c2, e], c2, s_in, 1))
+        elif mod == "C2PSA":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            e = float(args[1]) if len(args) > 1 else 0.5
+            nodes.append(NodeSpec(i, frm_abs, mod, [c2, e], c2, s_in, n_scaled))
+        elif mod == "SPPF":
+            c2 = make_divisible(min(args[0], max_ch) * width)
+            k = int(args[1]) if len(args) > 1 else 5
+            nodes.append(NodeSpec(i, frm_abs, mod, [c2, k], c2, s_in, 1))
+        elif mod in ("Upsample", "nn.Upsample"):
+            nodes.append(NodeSpec(i, frm_abs, "Upsample", [], c_in, s_in // 2, 1))
+        elif mod == "Concat":
+            c2 = sum(ch[f] for f in frm_abs)
+            nodes.append(NodeSpec(i, frm_abs, mod, [], c2, s_in, 1))
+        elif mod == "Classify":
+            nodes.append(NodeSpec(i, frm_abs, mod, [nc], 0, s_in, 1))
+        elif mod in ("Detect", "v10Detect", "Segment", "Pose", "OBB"):
+            detect_ch = [ch[f] for f in frm_abs]
+            det_strides = [strides[f] for f in frm_abs]
+            if mod == "OBB":
+                ne = int(args[0]) if args else 1
+                nodes.append(NodeSpec(i, frm_abs, mod, [nc, ne], 0, s_in, 1))
+            elif mod == "Pose":
+                ks = tuple(args[0]) if args else (17, 3)
+                nodes.append(
+                    NodeSpec(i, frm_abs, mod, [nc, list(ks)], 0, s_in, 1)
+                )
+            elif mod == "Segment":
+                # reference Segment(nc, nm=32, npr=256) — npr width-scales
+                seg_nm = int(args[0]) if args else 32
+                seg_npr = make_divisible(
+                    (int(args[1]) if len(args) > 1 else 256) * width
+                )
+                nodes.append(
+                    NodeSpec(i, frm_abs, mod, [nc, seg_nm, seg_npr], 0, s_in, 1)
+                )
+            else:
+                nodes.append(NodeSpec(i, frm_abs, mod, [nc], 0, s_in, 1))
+            save.update(frm_abs)
+        else:
+            raise ValueError(f"unknown module '{mod}' in model yaml")
+        ch.append(nodes[-1].c_out)
+        strides.append(nodes[-1].stride)
+
+    legacy = not any(
+        n.module in ("C3k2", "A2C2f", "v10Detect", "PSA") for n in nodes
+    )
+    seg = next((n for n in nodes if n.module == "Segment"), None)
+    pose = next((n for n in nodes if n.module == "Pose"), None)
+    return GraphSpec(
+        nc=nc,
+        scale=scale,
+        nodes=nodes,
+        save=sorted(save),
+        detect_ch=detect_ch,
+        strides=det_strides,
+        legacy_head=legacy,
+        end2end=any(n.module == "v10Detect" for n in nodes),
+        seg_nm=seg.args[1] if seg else 0,
+        seg_npr=seg.args[2] if seg else 0,
+        kpt_shape=tuple(pose.args[1]) if pose else None,
+        obb=any(n.module == "OBB" for n in nodes),
+        classify=any(n.module == "Classify" for n in nodes),
+        reg_max=int(d.get("reg_max", 16)),
+    )
+
+
+def resolve_model_spec(name: str) -> tuple[Path, str | None]:
+    """'yolov12n' -> (yolov12.yaml path, 'n'); explicit .yaml passes through."""
+    p = Path(name)
+    if p.suffix == ".yaml":
+        if p.exists():
+            return p, None
+        cand = MODEL_DIR / p.name
+        if cand.exists():
+            return cand, None
+        raise FileNotFoundError(f"no model yaml '{name}' (looked in {MODEL_DIR})")
+    stem = name
+    # task-suffixed variants: 'yolov8n-seg' -> yolov8-seg.yaml, scale 'n'
+    for suffix in ("-seg", "-pose", "-obb", "-cls"):
+        if stem.endswith(suffix):
+            core = stem[: -len(suffix)]
+            if core and core[-1] in "nsmlx":
+                base = MODEL_DIR / f"{core[:-1]}{suffix}.yaml"
+                if base.exists():
+                    return base, core[-1]
+    if stem and stem[-1] in "nsmlx":
+        base = MODEL_DIR / f"{stem[:-1]}.yaml"
+        if base.exists():
+            return base, stem[-1]
+    cand = MODEL_DIR / f"{stem}.yaml"
+    if cand.exists():
+        return cand, None
+    raise FileNotFoundError(f"no model yaml for '{name}' (looked in {MODEL_DIR})")
+
+
+# Modules of the yolov12 family; the rest of the zoo is a later slice.
+SUPPORTED = ("Conv", "DWConv", "C3k2", "A2C2f", "Upsample", "Concat", "Detect")
+
+
+class YoloGraph(nn.Module):
+    """The module tree of a parsed GraphSpec (yolov12 subset).
+
+    Holds the parameters only: inference runs through the BN-folded
+    executor ``kuzu_torch.models.yolo.infer.run_graph``."""
+
+    def __init__(self, spec: GraphSpec):
+        super().__init__()
+        self.spec = spec
+        ch: list[int] = []
+        for node in spec.nodes:
+            m, a = node.module, node.args
+            if m not in SUPPORTED:
+                raise NotImplementedError(
+                    f"module '{m}' is not ported yet: the port covers the yolov12 "
+                    "family; the other detector variants are a later slice, "
+                    "after detector training")
+            c1 = ch[node.frm[0]] if ch else 3
+            name = f"n{node.index}_{m}"
+            if m == "Conv":
+                self.add_module(name, M.Conv(
+                    c1, a[0], k=a[1] if len(a) > 1 else 1, s=a[2] if len(a) > 2 else 1,
+                    g=a[4] if len(a) > 4 else 1))
+            elif m == "DWConv":
+                self.add_module(name, M.DWConv(
+                    c1, a[0], k=a[1] if len(a) > 1 else 3, s=a[2] if len(a) > 2 else 1))
+            elif m == "C3k2":
+                self.add_module(name, M.C3k2(c1, a[0], n=node.repeats, c3k=a[1], e=a[2]))
+            elif m == "A2C2f":
+                self.add_module(name, M.A2C2f(
+                    c1, a[0], n=node.repeats, a2=a[1], residual=a[3], mlp_ratio=a[4]))
+            elif m == "Detect":
+                if spec.legacy_head:
+                    raise NotImplementedError(
+                        "the v8-style Detect head is not ported yet (other "
+                        "detector variants, a later slice)")
+                self.add_module(name, M.Detect(spec.nc, spec.detect_ch, spec.reg_max))
+            ch.append(node.c_out)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded init with flax's distributions (see ``modules.init_weights``)."""
+        M.init_weights(self, generator)

@@ -1,0 +1,227 @@
+"""BN-folded inference executor for the YOLO graph (yolov12 subset of
+``kuzu/models/yolo/infer.py``).
+
+:func:`fold_graph` folds every BatchNorm into its conv once, at load:
+weights become bf16 and biases stay f32, as ``_fold_bn`` does. Each ABlock
+also gets its fused-kernel weight list. :func:`run_graph` then walks the
+GraphSpec on bf16 NCHW tensors in ``torch.channels_last``, so the NHWC view
+the attention kernels take is free. Token order is the NHWC row-major
+flatten, so areas are contiguous chunks of H*W as in the reference.
+
+Rounding points kept from JAX: the conv runs in bf16 and adds its bias cast
+to bf16 (``infer.py:85``); SiLU then runs on that bf16 sum.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kuzu_torch.models.yolo import modules as M
+from kuzu_torch.ops.flash_attention import area_attention, area_attention_fits, xla_attention
+from kuzu_torch.ops.fused_ablock import (
+    ablock_weights,
+    fold_conv_bn,
+    fused_ablock,
+    fused_ablock_fits,
+)
+from kuzu_torch.ops.images import from_uint8
+
+
+@torch.no_grad()
+def fold_graph(graph: nn.Module) -> dict[str, object]:
+    """Folded weights keyed by module path: ``(W bf16 OIHW, b f32)`` per conv,
+    ``<A2C2f>.gamma`` and ``<ABlock>.fused`` (the K2 weight list)."""
+    table: dict[str, object] = {}
+    for name, m in graph.named_modules():
+        if isinstance(m, M.Conv):
+            w, b = fold_conv_bn(m.conv.weight, m.bn)
+            # the activations are channels_last; weights in the same format
+            # spare cuDNN a layout conversion of the weights on every call
+            table[name] = (w.contiguous(memory_format=torch.channels_last), b)
+        elif isinstance(m, nn.Conv2d) and m.bias is not None:  # Detect leaves
+            table[name] = (m.weight.detach().to(torch.bfloat16), m.bias.detach().float())
+        elif isinstance(m, M.A2C2f) and m.gamma is not None:
+            table[name + ".gamma"] = m.gamma.detach()
+        if isinstance(m, M.ABlock):
+            table[name + ".fused"] = ablock_weights(m)
+    return table
+
+
+class _P:
+    """Cursor over the folded table at one module path."""
+
+    def __init__(self, table: dict, path: str):
+        self.table, self.path = table, path
+
+    def child(self, name: str) -> "_P":
+        return _P(self.table, f"{self.path}.{name}")
+
+    def get(self, suffix: str = ""):
+        return self.table[self.path + suffix]
+
+
+def conv(p: _P, x: torch.Tensor, s: int = 1, g: int = 1, act: bool = True):
+    """Conv + folded BN (+ SiLU)."""
+    w, b = p.get()
+    y = F.conv2d(x, w, None, s, w.shape[-1] // 2, 1, g)
+    y = y + b.to(y.dtype).view(1, -1, 1, 1)
+    return F.silu(y) if act else y
+
+
+def plain_conv(p: _P, x: torch.Tensor):
+    """Bias-carrying 1x1 conv without BN (Detect leaves)."""
+    w, b = p.get()
+    y = F.conv2d(x, w.to(x.dtype))
+    return y + b.to(y.dtype).view(1, -1, 1, 1)
+
+
+def _nhwc_tokens(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, C, H, W) -> (B*groups, H*W/groups, C), row-major over (H, W)."""
+    b, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(b * groups, h * w // groups, c)
+
+
+def _nchw(t: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
+    return t.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+
+
+def bottleneck(p: _P, x, shortcut: bool = True):
+    y = conv(p.child("cv2"), conv(p.child("cv1"), x))
+    return x + y if shortcut and x.shape[1] == y.shape[1] else y
+
+
+def c3k(p: _P, x, shortcut: bool = True):
+    p = p.child("c3")
+    a = conv(p.child("cv1"), x)
+    for i in range(2):
+        a = bottleneck(p.child(f"m{i}"), a, shortcut)
+    b = conv(p.child("cv2"), x)
+    return conv(p.child("cv3"), torch.cat([a, b], dim=1))
+
+
+def c3k2(p: _P, x, n: int, c3k_flag: bool, shortcut: bool = True):
+    y = conv(p.child("cv1"), x)
+    c = y.shape[1] // 2
+    parts = [y[:, :c], y[:, c:]]
+    for i in range(n):
+        blk = c3k if c3k_flag else bottleneck
+        parts.append(blk(p.child(f"m{i}"), parts[-1], shortcut))
+    return conv(p.child("cv2"), torch.cat(parts, dim=1))
+
+
+def aattn(p: _P, x, num_heads: int, area: int):
+    """Area attention: the K3 kernel route where it fits, else materialised."""
+    b, _, h, w = x.shape
+    qk = conv(p.child("qk"), x, act=False)
+    v = conv(p.child("v"), x, act=False)
+    dim = v.shape[1]
+    hd = dim // num_heads
+    pe = conv(p.child("pe"), v, g=dim, act=False)
+    area = area if area > 0 else 1
+    na = (h * w) // area
+    qk_t = _nhwc_tokens(qk, area)
+    v_t = _nhwc_tokens(v, area)
+    q, k = qk_t[..., :dim], qk_t[..., dim:]
+    if area_attention_fits(na, dim, num_heads):
+        out = area_attention(q, k, v_t, num_heads)
+    else:
+        def fold(t):  # (G, na, C) -> (G*H, na, hd)
+            return t.reshape(-1, na, num_heads, hd).transpose(1, 2).reshape(-1, na, hd)
+
+        out = xla_attention(fold(q), fold(k), fold(v_t))
+        out = out.reshape(-1, num_heads, na, hd).transpose(1, 2).reshape(-1, na, dim)
+    return conv(p.child("proj"), _nchw(out, b, h, w) + pe, act=False)
+
+
+def ablock(p: _P, x, num_heads: int, area: int):
+    b, c, h, w = x.shape
+    ar = max(area, 1)
+    na = (h * w) // ar
+    fused = p.get(".fused")
+    if fused_ablock_fits(na, c, num_heads, fused[4].shape[1]):
+        attn_p = p.child("attn")
+        v = conv(attn_p.child("v"), x, act=False)
+        pe = conv(attn_p.child("pe"), v, g=c, act=False)
+        out = fused_ablock(
+            _nhwc_tokens(x, 1), _nhwc_tokens(v, 1), _nhwc_tokens(pe, 1),
+            fused, ar, num_heads,
+        )
+        return _nchw(out, b, h, w)
+    x = x + aattn(p.child("attn"), x, num_heads, area)
+    y = conv(p.child("mlp2"), conv(p.child("mlp1"), x), act=False)
+    return x + y
+
+
+def a2c2f(p: _P, x, n: int, a2: bool, area: int, residual: bool):
+    w_cv1, _ = p.child("cv1").get()
+    num_heads = max(w_cv1.shape[0] // 32, 1)
+    y = [conv(p.child("cv1"), x)]
+    for i in range(n):
+        if a2:
+            t = ablock(p.child(f"m{i}_0"), y[-1], num_heads, area)
+            t = ablock(p.child(f"m{i}_1"), t, num_heads, area)
+        else:
+            t = c3k(p.child(f"m{i}"), y[-1])
+        y.append(t)
+    out = conv(p.child("cv2"), torch.cat(y, dim=1))
+    if a2 and residual:
+        return x + p.get(".gamma").to(out.dtype).view(1, -1, 1, 1) * out
+    return out
+
+
+def detect(p: _P, feats: list):
+    outs = []
+    for i, x in enumerate(feats):
+        bx = conv(p.child(f"box{i}_1"), conv(p.child(f"box{i}_0"), x))
+        bx = plain_conv(p.child(f"box{i}_2"), bx)
+        c = conv(p.child(f"cls{i}_0dw").child("dw"), x, g=x.shape[1])
+        c = conv(p.child(f"cls{i}_0pw"), c)
+        c = conv(p.child(f"cls{i}_1dw").child("dw"), c, g=c.shape[1])
+        c = conv(p.child(f"cls{i}_1pw"), c)
+        c = plain_conv(p.child(f"cls{i}_2"), c)
+        outs.append(torch.cat([bx, c], dim=1).permute(0, 2, 3, 1))  # NHWC view
+    return outs
+
+
+@torch.no_grad()
+def run_graph(spec, table: dict, images: torch.Tensor) -> list[torch.Tensor]:
+    """Execute the parsed GraphSpec on (B, H, W, 3) images (uint8, or float
+    already in [0, 1]); returns the per-level raw maps (B, H, W, 4*reg_max+nc)
+    as NHWC views. The stem is the plain strided conv."""
+    x = from_uint8(images, dtype=torch.bfloat16).permute(0, 3, 1, 2)
+    x = x.contiguous(memory_format=torch.channels_last)
+    outputs: dict[int, torch.Tensor] = {}
+    cur = x
+    result = None
+    for node in spec.nodes:
+        ins = [cur if f == node.index - 1 else outputs[f] for f in node.frm]
+        m, a = node.module, node.args
+        p = _P(table, f"n{node.index}_{m}")
+        if m == "Conv":
+            cur = conv(p, ins[0], s=a[2] if len(a) > 2 else 1,
+                       g=a[4] if len(a) > 4 else 1, act=a[5] if len(a) > 5 else True)
+        elif m == "DWConv":
+            cur = conv(p.child("dw"), ins[0], s=a[2] if len(a) > 2 else 1,
+                       g=ins[0].shape[1])
+        elif m == "C3k2":
+            cur = c3k2(p, ins[0], n=node.repeats, c3k_flag=a[1])
+        elif m == "A2C2f":
+            cur = a2c2f(p, ins[0], n=node.repeats, a2=a[1], area=a[2], residual=a[3])
+        elif m == "Upsample":
+            cur = M.upsample2x(ins[0])
+        elif m == "Concat":
+            cur = torch.cat(ins, dim=1)
+        elif m == "Detect":
+            result = detect(p, ins)
+            cur = ins[0]
+        else:
+            raise NotImplementedError(
+                f"module '{m}' is not ported yet: the port covers the yolov12 "
+                "family; the other detector variants are a later slice")
+        if node.index in spec.save:
+            outputs[node.index] = cur
+    if result is None:
+        raise ValueError("model yaml has no Detect node")
+    return result

@@ -1,0 +1,177 @@
+"""Fused ABlock: the CUDA kernel ``csrc/fused_ablock.cu`` and its plain version
+(counterpart of ``kuzu/ops/fused_ablock.py``).
+
+Replaces ``kuzu/ops/fused_ablock.py::fused_ablock``. For every (image, area)
+chunk of ``na`` tokens, with BN folded into the weights::
+
+    qk = x·Wqk + b                       per head: o = softmax(q kᵀ/√hd)·v
+    x₁ = x + (o + pe)·Wp + bp            out = x₁ + W₂·silu(W₁·x₁ + b₁) + b₂
+
+``v`` and its 5x5 depthwise ``pe`` are computed outside. :func:`fused_ablock`
+runs :func:`fused_ablock_plain` for a CPU tensor and launches the kernel for
+a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from kuzu_torch import _build
+from kuzu_torch.ops.flash_attention import MAX_HD, SMEM_LIMIT, _r128, attn_smem_bytes
+
+
+def fold_conv_bn(weight: torch.Tensor, bn: torch.nn.BatchNorm2d, eps: float = 1e-3):
+    """Conv weight (OIHW) + BN -> (W bf16 OIHW, b f32) with BN folded, as
+    ``kuzu/ops/fused_c3k2.py::fold_conv_bn``."""
+    mult = bn.weight.detach().float() * torch.rsqrt(bn.running_var.float() + eps)
+    b = bn.bias.detach().float() - bn.running_mean.float() * mult
+    w = weight.detach().float() * mult.view(-1, 1, 1, 1)
+    return w.to(torch.bfloat16), b
+
+
+def ablock_weights(block) -> list[torch.Tensor]:
+    """The kernel's weight list from an ``ABlock`` module: folded qk, proj,
+    mlp1 and mlp2 as (Cin, Cout) bf16 matrices with (1, Cout) f32 biases."""
+    out = []
+    for conv in (block.attn.qk, block.attn.proj, block.mlp1, block.mlp2):
+        w, b = fold_conv_bn(conv.conv.weight, conv.bn)
+        out += [w[:, :, 0, 0].t().contiguous(), b.reshape(1, -1)]
+    return out
+
+
+ROWS = 32  # rows per GEMM tile, kRows in csrc/attention.cuh
+SLAB = 32  # rows of W per cp.async stage, kSlab
+MAX_COLS = 16 * 16 * 3  # 16-column strips: 16 warps x 3 (kMaxStrips)
+SCRATCH = 16 * 2 * 256 * 4  # two f32 16x16 tiles per warp, kScratchBytes
+
+
+def _tile_bytes(cols: int) -> int:
+    """A 32-row bf16 tile in shared memory, rows padded by 8 elements."""
+    return _r128(ROWS * (cols + 8) * 2)
+
+
+def _stages_bytes(cols: int) -> int:
+    """The two weight stages of ``rows_gemm`` for ``cols`` output columns."""
+    return 2 * _r128(SLAB * (cols + 8) * 2)
+
+
+def ablock_smem_bytes(na: int, c: int, heads: int, hidden: int) -> int:
+    """Largest shared memory of the kernel's three launches
+    (``ablock_smem_bytes`` in ``csrc/fused_ablock.cu``): attention, the qk
+    GEMM, and the projection + MLP with its three activation tiles."""
+    qk = _tile_bytes(c) + _stages_bytes(2 * c) + SCRATCH
+    mlp = 2 * _tile_bytes(c) + _tile_bytes(hidden) + _stages_bytes(max(c, hidden)) + SCRATCH
+    return max(attn_smem_bytes(na, c // heads), qk, mlp)
+
+
+def fused_ablock_fits(na: int, c: int, heads: int, hidden: int) -> bool:
+    """Shapes the kernel takes. ``C % 128``, ``hd % 8`` and ``na % 16`` are
+    the reference gate's terms (``infer.py:315-321``), kept so that the port
+    routes each node as the JAX executor does. The kernel adds: head widths
+    of 16-64 in steps of 16 for the attention, ``hidden % 32`` and widths up
+    to 768 (2C and hidden) for its GEMMs, and the block's shared-memory limit
+    in place of the TPU's 8 MiB VMEM term."""
+    hd = c // heads
+    return (
+        c % 128 == 0
+        and c % heads == 0
+        and hd % 16 == 0
+        and hd <= MAX_HD
+        and hidden % SLAB == 0
+        and 2 * c <= MAX_COLS
+        and hidden <= MAX_COLS
+        and na % 16 == 0
+        and ablock_smem_bytes(na, c, heads, hidden) <= SMEM_LIMIT
+    )
+
+
+def fused_ablock_plain(x, v, pe, weights, area: int, heads: int) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, with the bf16 rounding points
+    of ``kuzu/ops/fused_ablock.py:52-85``."""
+    wqk, bqk, wp, bp, w1, b1, w2, b2 = weights
+    b_, n, c = x.shape
+    na = n // area
+    hd = c // heads
+    dt = x.dtype
+
+    def mm(a, w, b):  # bf16 x bf16 products, f32 accumulation, f32 bias
+        return a.float() @ w.float() + b
+
+    xs = x.reshape(b_ * area, na, c)
+    qk = mm(xs, wqk, bqk).to(dt)
+
+    def split(t):  # (G, na, C) -> (G, H, na, hd)
+        return t.float().reshape(b_ * area, na, heads, hd).transpose(1, 2)
+
+    q = split(qk[..., :c]) * (hd**-0.5)
+    s = q @ split(qk[..., c:]).transpose(-1, -2)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    o = (p @ split(v.reshape(b_ * area, na, c))).to(dt)  # each o_h rounded
+    o = o.transpose(1, 2).reshape(b_ * area, na, c)
+    attn = mm(o + pe.reshape(b_ * area, na, c), wp, bp).to(dt)
+    x1 = xs + attn
+    y = mm(x1, w1, b1)
+    hmid = (y * torch.sigmoid(y)).to(dt)
+    out = x1 + mm(hmid, w2, b2).to(dt)
+    return out.reshape(b_, n, c)
+
+
+def _kernel_fn():
+    fn = _build.library("fused_ablock").kuzu_fused_ablock
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_ablock(
+    x: torch.Tensor,  # (B, N, C) bf16, N row-major over (H, W)
+    v: torch.Tensor,  # (B, N, C), the AAttn v conv output
+    pe: torch.Tensor,  # (B, N, C), 5x5 depthwise positional conv of v
+    weights: list[torch.Tensor],
+    area: int,
+    heads: int,
+) -> torch.Tensor:
+    b_, n, c = x.shape
+    if n % area:
+        raise ValueError(f"N={n} is not a multiple of area={area}")
+    if x.device.type == "cpu":
+        fused_ablock.plain_calls += 1
+        return fused_ablock_plain(x, v, pe, weights, area, heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ablock takes CPU or CUDA tensors, got {x.device}")
+    na = n // area
+    wqk, bqk, wp, bp, w1, b1, w2, b2 = weights
+    hidden = w1.shape[1]
+    if not fused_ablock_fits(na, c, heads, hidden):
+        raise ValueError(f"fused_ablock kernel cannot take na={na}, C={c}, "
+                         f"heads={heads}, hidden={hidden}")
+    expect = [(c, 2 * c), (1, 2 * c), (c, c), (1, c), (c, hidden), (1, hidden),
+              (hidden, c), (1, c)]
+    for i, (w, shp) in enumerate(zip(weights, expect)):
+        want = torch.float32 if i % 2 else torch.bfloat16
+        if tuple(w.shape) != shp or w.dtype != want or w.device != x.device:
+            raise ValueError(f"weight {i}: {tuple(w.shape)} {w.dtype} {w.device}, "
+                             f"want {shp} {want} {x.device}")
+    acts = [t.contiguous() for t in (x, v, pe)]
+    if any(t.dtype != torch.bfloat16 or t.shape != x.shape for t in acts):
+        raise ValueError("fused_ablock kernel takes bf16 x/v/pe of one shape")
+    ws = [w.contiguous() for w in weights]
+    qk = torch.empty((b_ * n, 2 * c), dtype=x.dtype, device=x.device)
+    o = torch.empty_like(acts[0])  # the attention output, before pe and proj
+    out = torch.empty_like(acts[0])
+    err = _kernel_fn()(
+        *(_build.ptr(t) for t in (*acts, *ws, qk, o, out)),
+        b_ * area, na, c, heads, hidden, float((c // heads) ** -0.5),
+        _build.stream_ptr(x),
+    )
+    _build.check(err, "kuzu_fused_ablock")
+    fused_ablock.launches += 1
+    return out
+
+
+fused_ablock.launches = 0
+fused_ablock.plain_calls = 0

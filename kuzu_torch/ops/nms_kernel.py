@@ -1,0 +1,84 @@
+"""Greedy NMS keep-mask: the CUDA kernel ``csrc/nms.cu`` and its plain version.
+
+Replaces ``kuzu/ops/pallas_nms.py::pallas_suppress`` (behind
+``kuzu/ops/nms.py::batched_suppress``). :func:`batched_suppress` runs the
+plain PyTorch recurrence :func:`suppress_reference` for a CPU tensor and
+launches the kernel for a CUDA tensor; there is no fallback between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from kuzu_torch import _build
+
+
+def suppress_reference(
+    boxes: torch.Tensor,  # (B, K, 4) f32, score-descending
+    valid: torch.Tensor,  # (B, K) bool
+    iou_threshold: float,
+) -> torch.Tensor:
+    """Greedy keep-mask as the scan of ``kuzu/ops/nms.py:29-46``: row i is
+    kept iff it is valid and no kept row j < i overlaps it above the
+    threshold. The IoU is the f32 expression of the TPU kernel,
+    ``inter / (area_i + area_j - inter + 1e-7)``."""
+    b, k, _ = boxes.shape
+    boxes = boxes.float()
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    iw = (torch.minimum(x2[:, :, None], x2[:, None, :])
+          - torch.maximum(x1[:, :, None], x1[:, None, :])).clamp(min=0)
+    ih = (torch.minimum(y2[:, :, None], y2[:, None, :])
+          - torch.maximum(y1[:, :, None], y1[:, None, :])).clamp(min=0)
+    inter = iw * ih
+    iou = inter / (area[:, :, None] + area[:, None, :] - inter + 1e-7)
+    later = torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
+    over = (iou > iou_threshold) & later & valid[:, None, :] & valid[:, :, None]
+    suppressed = torch.zeros(b, k, dtype=torch.bool, device=boxes.device)
+    for i in range(k):
+        kept_i = valid[:, i] & ~suppressed[:, i]
+        suppressed |= over[:, i, :] & kept_i[:, None]
+    return valid & ~suppressed
+
+
+def _kernel_fn():
+    fn = _build.library("nms").kuzu_nms
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def batched_suppress(
+    boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
+) -> torch.Tensor:
+    """Batched greedy keep-mask (B, K) bool for score-sorted (B, K, 4) boxes.
+
+    Any K: the kernel masks the ragged tail itself, so the 128-padding the
+    TPU kernel needs is gone."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
+        raise ValueError(f"bad shapes {tuple(boxes.shape)} / {tuple(valid.shape)}")
+    if boxes.device.type == "cpu":
+        batched_suppress.plain_calls += 1
+        return suppress_reference(boxes, valid, iou_threshold)
+    if boxes.device.type != "cuda" or valid.device != boxes.device:
+        raise ValueError(f"batched_suppress takes CPU or CUDA tensors, got {boxes.device}")
+    b, k, _ = boxes.shape
+    boxes = boxes.float().contiguous()
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    words = (k + 63) // 64
+    mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
+    keep = torch.empty((b, k), dtype=torch.uint8, device=boxes.device)
+    err = _kernel_fn()(
+        _build.ptr(boxes), _build.ptr(valid_u8), _build.ptr(mask), _build.ptr(keep),
+        b, k, float(iou_threshold), _build.stream_ptr(boxes),
+    )
+    _build.check(err, "kuzu_nms")
+    batched_suppress.launches += 1
+    return keep.bool()
+
+
+batched_suppress.launches = 0
+batched_suppress.plain_calls = 0
