@@ -9,16 +9,28 @@ Phases, each raising on failure:
 2. build of every kernel in ``kuzu_torch/csrc`` (one nvcc per source, in
    parallel), with the build seconds and ptxas' register / spill lines;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes: error against a stated tolerance, and CUDA-event times of
-   the kernel, the plain version and, where one exists, one PyTorch call
-   computing the same function (a yardstick the port never calls);
-4. slice check: yolov12n@640, batch 2, seeded weights, infer -> decode ->
-   NMS on the card (kernels) and on the CPU (plain versions), compared
-   under the CPU tests' rules; the kernels' launch counts are checked;
-5. full width: yolov12x@640, batch 8, bf16, conf 0.001, launch counts,
-   finite outputs and the end-to-end time per image;
-6. the ``kernels`` JSON line, then the card's name and power limit;
-7. last line: ``{"ok": true, "device": {...}}``.
+   paths' shapes (K3 at C=64 and at the training shape C=384, K4 at
+   G=32, N=400, C=384, and the AreaAttention pair's gradients against
+   autograd through the plain forward): error against a stated tolerance,
+   and CUDA-event times of the kernel, the plain version and, where one
+   exists, one PyTorch call computing the same function (a yardstick the
+   port never calls);
+4. inference slice check: yolov12n@640, batch 2, seeded weights, infer ->
+   decode -> NMS on the card (kernels) and on the CPU (plain versions),
+   compared under the CPU tests' rules; the kernels' launch counts are
+   checked;
+5. inference at full width: yolov12x@640, batch 8, bf16, conf 0.001,
+   launch counts, finite outputs and the end-to-end time per image;
+6. training slice check: one train step of yolov12n@128, batch 2, bf16, on
+   the card and on the CPU: loss, gradients, BatchNorm statistics and the
+   launch counts (8 K3 + 8 K4);
+7. training at full width: ``DetectTrainer(cfg).train()`` for
+   yolov12-p2x@640, batch 8, bf16 over synthetic pages: 16 K3 + 16 K4
+   launches per step, validation through K2/K1, finite losses, EMA and
+   BatchNorm statistics moved, ``last`` restores; ms/step, images/s, peak
+   memory and a profiled step's breakdown;
+8. the ``kernels`` JSON line, then the card's name and power limit;
+9. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -129,27 +141,36 @@ def kernel_phase(dev) -> dict:
         plain_ms=time_ms(lambda: suppress_reference(boxes, valid, thr), reps=3, warmup=1),
         bound_ms=bnd, bound_by=by, library_ms=None)
 
-    # K3: area attention, G=32, N=400, C=64, 2 heads
-    g, n, c, heads = 32, 400, 64, 2
+    # K3: area attention at the inference shape of yolov12n@640 node 6
+    # (G=32, N=400, C=64, 2 heads) and at the training shape of yolov12-p2x
+    # (C=384, 12 heads, q and k column slices of one qk tensor as the
+    # training route passes them); the kernels line carries the latter
     gen = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = (torch.randn((g, n, c), generator=gen, device=dev).to(torch.bfloat16)
-               for _ in range(3))
-    out = area_attention(q, k, v, heads)
-    refo = area_attention_plain(q, k, v, heads, (c // heads) ** -0.5)
-    err = (out.float() - refo.float()).abs()
-    tol = 1e-2 + 1e-2 * refo.float().abs()  # one bf16 rounding (2^-8 relative) apart
-    print(f"K3 area_attention G=32 N=400 C=64 h=2: max_abs_err {float(err.max()):.3e}, "
-          f"over tolerance (1e-2 + 1e-2|ref|): {int((err > tol).sum())}")
-    require(bool((err <= tol).all()), "K3 within tolerance")
-    hd = c // heads
-    sd = [t.reshape(g, n, heads, hd).transpose(1, 2).contiguous() for t in (q, k, v)]
-    bnd, by = bound(4 * g * n * c * 2, 4 * g * n * n * c, PEAK_BF16)
-    res["area_attention"] = dict(
-        max_abs_err=float(err.max()),
-        ms=time_ms(lambda: area_attention(q, k, v, heads)),
-        plain_ms=time_ms(lambda: area_attention_plain(q, k, v, heads, hd ** -0.5)),
-        bound_ms=bnd, bound_by=by,
-        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*sd)))
+    for g, n, c, heads in ((32, 400, 64, 2), (32, 400, 384, 12)):
+        qk, v = (torch.randn((g, n, w), generator=gen, device=dev).to(torch.bfloat16)
+                 for w in (2 * c, c))
+        q, k = qk[..., :c], qk[..., c:]
+        out = area_attention(q, k, v, heads)
+        refo = area_attention_plain(q, k, v, heads, (c // heads) ** -0.5)
+        err = (out.float() - refo.float()).abs()
+        tol = 1e-2 + 1e-2 * refo.float().abs()  # one bf16 rounding (2^-8 relative) apart
+        print(f"K3 area_attention G={g} N={n} C={c} h={heads}: max_abs_err "
+              f"{float(err.max()):.3e}, over tolerance (1e-2 + 1e-2|ref|): "
+              f"{int((err > tol).sum())}")
+        require(bool((err <= tol).all()), f"K3 within tolerance at C={c}")
+        hd = c // heads
+        sd = [t.reshape(g, n, heads, hd).transpose(1, 2).contiguous() for t in (q, k, v)]
+        bnd, by = bound(4 * g * n * c * 2, 4 * g * n * n * c, PEAK_BF16)
+        r = dict(
+            max_abs_err=float(err.max()),
+            ms=time_ms(lambda: area_attention(q, k, v, heads)),
+            plain_ms=time_ms(lambda: area_attention_plain(q, k, v, heads, hd ** -0.5)),
+            bound_ms=bnd, bound_by=by,
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*sd)))
+        print(f"  K3 at C={c}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} by {by}, SDPA {r['library_ms']:.4f})")
+    res["area_attention"] = r
+    res["area_attention_bwd"] = k4_check(dev, gen, qk, v, heads)
 
     # K2: fused ABlock, G=32 chunks of na=400, C=384, 12 heads, hidden 576
     g, na, c, heads, hid = 32, 400, 384, 12, 576
@@ -189,17 +210,97 @@ def kernel_phase(dev) -> dict:
     return res
 
 
+def k4_check(dev, gen, qk, v, heads) -> dict:
+    """K4 against its plain version, and the AreaAttention pair's gradients
+    against autograd through the plain forward, at G=32, N=400, C=384."""
+    from kuzu_torch.ops.flash_attention import (
+        AreaAttention,
+        area_attention_bwd,
+        area_attention_bwd_plain,
+        area_attention_plain,
+    )
+
+    g, n, c = v.shape
+    hd = c // heads
+    scale = hd ** -0.5
+    q, k = qk[..., :c], qk[..., c:]
+    do = torch.randn((g, n, c), generator=gen, device=dev).to(torch.bfloat16)
+    got = area_attention_bwd(q, k, v, do, heads)
+    ref = area_attention_bwd_plain(q, k, v, do, heads, scale)
+    torch.cuda.synchronize()
+
+    def check(name, a, b):
+        # Both sides are f32 arithmetic rounded once to bf16; the kernel sums
+        # in another order and feeds P and dS to the tensor cores with ~16
+        # significant bits, so they stay one bf16 rounding (2^-8 relative)
+        # apart, plus f32-size absolute noise where a sum cancels: tolerance
+        # 1e-2 |ref| + 1e-3 max|ref| per tensor.
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        tol = 1e-2 * b.abs() + 1e-3 * float(b.abs().max())
+        over = int((err > tol).sum())
+        print(f"  {name}: max_abs_err {float(err.max()):.3e} (max|ref| "
+              f"{float(b.abs().max()):.3e}), over tolerance {over}, identical share "
+              f"{float((a == b).float().mean()):.4f}")
+        require(over == 0, f"{name} within tolerance")
+        return float(err.max())
+
+    print(f"K4 area_attention_bwd G={g} N={n} C={c} h={heads}, q/k column slices:")
+    errs = [check(nm, a, b) for nm, a, b in zip(("dq", "dk", "dv"), got, ref)]
+    for gs, ns, cs, hs in ((8, 16, 64, 2), (2, 16, 128, 4)):  # yolov12n@128 nodes 6, 8
+        qks = torch.randn((gs, ns, 2 * cs), generator=gen, device=dev).to(torch.bfloat16)
+        vs, dos = (torch.randn((gs, ns, cs), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(2))
+        args = (qks[..., :cs], qks[..., cs:], vs, dos, hs)
+        print(f"K4 at G={gs} N={ns} C={cs} h={hs}:")
+        for nm, a, b in zip(("dq", "dk", "dv"), area_attention_bwd(*args),
+                            area_attention_bwd_plain(*args, (cs // hs) ** -0.5)):
+            check(nm, a, b)
+
+    # the autograd pair (K3 forward, K4 backward) against autograd through
+    # the plain forward, same tolerance
+    qk_a = qk.detach().clone().requires_grad_()
+    v_a = v.detach().clone().requires_grad_()
+    grads = torch.autograd.grad(AreaAttention.apply(qk_a, v_a, heads), (qk_a, v_a), do)
+    qk_p = qk.detach().clone().requires_grad_()
+    v_p = v.detach().clone().requires_grad_()
+    out_p = area_attention_plain(qk_p[..., :c], qk_p[..., c:], v_p, heads, scale)
+    grads_p = torch.autograd.grad(out_p, (qk_p, v_p), do)
+    print("AreaAttention pair vs autograd through area_attention_plain:")
+    check("d(qk)", grads[0], grads_p[0])
+    check("dv", grads[1], grads_p[1])
+
+    def heads_split(t):
+        return t.reshape(g, n, heads, hd).transpose(1, 2).contiguous()
+
+    sd = [heads_split(t).requires_grad_() for t in (q, k, v)]
+    sd_out = torch.nn.functional.scaled_dot_product_attention(*sd)
+    sd_do = heads_split(do)
+    bnd, by = bound(7 * g * n * c * 2, 10 * g * n * n * c, PEAK_BF16)
+    r = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: area_attention_bwd(q, k, v, do, heads)),
+        plain_ms=time_ms(lambda: area_attention_bwd_plain(q, k, v, do, heads, scale)),
+        bound_ms=bnd, bound_by=by,
+        library_ms=time_ms(
+            lambda: torch.autograd.grad(sd_out, sd, sd_do, retain_graph=True)))
+    print(f"  K4: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {bnd:.5f} by {by}, "
+          f"SDPA backward {r['library_ms']:.4f})")
+    return r
+
+
 # ------------------------------------------------------------- phases 4, 5
 
-COUNTERS = ("nms", "area_attention", "fused_ablock")
+COUNTERS = ("nms", "area_attention", "fused_ablock", "area_attention_bwd")
 
 
 def counters():
-    from kuzu_torch.ops.flash_attention import area_attention
+    from kuzu_torch.ops.flash_attention import area_attention, area_attention_bwd
     from kuzu_torch.ops.fused_ablock import fused_ablock
     from kuzu_torch.ops.nms_kernel import batched_suppress
 
-    return dict(zip(COUNTERS, (batched_suppress, area_attention, fused_ablock)))
+    return dict(zip(COUNTERS, (batched_suppress, area_attention, fused_ablock,
+                               area_attention_bwd)))
 
 
 def zero_counts() -> None:
@@ -237,8 +338,8 @@ def slice_check(dev, launches: dict) -> None:
     cmaps, cpred, cdets = pipeline(cpu, imgs)
     print(f"yolov12n@640 b2 launches on the card: {counts} (want nms 1, "
           f"area_attention 4, fused_ablock 4); CPU run {time.perf_counter() - t0:.1f} s")
-    require(counts == {"nms": 1, "area_attention": 4, "fused_ablock": 4},
-            "yolov12n launch counts")
+    require(counts == {"nms": 1, "area_attention": 4, "fused_ablock": 4,
+                       "area_attention_bwd": 0}, "yolov12n launch counts")
     for name, n in counts.items():
         launches[name] += n
     for lvl, (cm, gm) in enumerate(zip(cmaps, gmaps)):
@@ -276,8 +377,8 @@ def full_width(dev, launches: dict) -> dict:
     counts = launch_counts()
     print(f"yolov12x@640 b8 launches: {counts} (want nms 1, area_attention 0, "
           f"fused_ablock 16)")
-    require(counts == {"nms": 1, "area_attention": 0, "fused_ablock": 16},
-            "yolov12x launch counts")
+    require(counts == {"nms": 1, "area_attention": 0, "fused_ablock": 16,
+                       "area_attention_bwd": 0}, "yolov12x launch counts")
     for name, n in counts.items():
         launches[name] += n
     require(all(bool(torch.isfinite(m).all()) for m in maps), "finite maps")
@@ -300,6 +401,318 @@ def full_width(dev, launches: dict) -> dict:
           f"decode {decode:.3f}, nms {nms:.3f} ms/batch), peak memory {peak:.2f} GiB")
     r["breakdown"] = device_breakdown(lambda: pipeline(det, imgs))
     return r
+
+
+# ------------------------------------------------------------ phases 6, 7
+
+
+def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    den = float(a.norm() * b.norm())
+    return float(a @ b) / den if den > 0 else float(torch.equal(a, b))
+
+
+def train_slice_check(dev, launches: dict) -> None:
+    """One train step of yolov12n@128, batch 2, seeded weights, on the card
+    and on the CPU, compared: in bf16 (the card through K3/K4, the CPU
+    through their plain versions; launches counted) and in f32 (the card's
+    materialised attention, since the kernels take bf16: the whole step's
+    arithmetic held across devices).
+
+    The step runs with grad_clip 0 here so that the gradients it leaves are
+    the raw ones; clipping is held against JAX on the CPU."""
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
+    from kuzu_torch.data.loader import default_collate
+    from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
+    from kuzu_torch.ops.detect_loss import detection_loss
+    from kuzu_torch.testing import SyntheticDetectionDataset
+
+    path, scale = resolve_model_spec("yolov12n")
+    spec = parse_model_yaml(path, scale=scale, nc=3)
+    ds = SyntheticDetectionDataset(2, 128, max_boxes=24, nc=3, seed=5)
+    batch = default_collate([ds[0], ds[1]])
+    cfg = load_config(overrides=dict(warmup_epochs=0, epochs=1, grad_clip=0))
+
+    def run(d, dtype):
+        graph = YoloGraph(spec, dtype=dtype)
+        graph.reset_parameters(torch.Generator().manual_seed(0))
+        graph.to(d)
+        tx = build_optimizer(cfg, graph, 1)
+        state = TrainState(graph, tx)
+
+        def loss_fn(model, b):
+            return detection_loss(model(b["image"]), b["gt_labels"], b["gt_boxes"],
+                                  b["mask_gt"], nc=3, imgsz=128, strides=spec.strides,
+                                  reg_max=spec.reg_max)
+
+        grads = {}
+        update = tx.step
+
+        def snapshot_then_step(count, grad_norm):
+            # the gradients as the step hands them to the optimizer (torch's
+            # foreach SGD may update .grad in place)
+            grads.update({n: p.grad.detach().double().cpu()
+                          for n, p in graph.named_parameters()})
+            update(count, grad_norm)
+
+        tx.step = snapshot_then_step
+        step = make_train_step(loss_fn, tx)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        zero_counts()
+        metrics = step(state, b)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        return dict(
+            counts=launch_counts(), metrics={k: float(v) for k, v in metrics.items()},
+            grads=grads, stats={n: t.detach().float().cpu() for n, t in graph.named_buffers()
+                                if "running" in n})
+
+    cpu = torch.device("cpu")
+    r = {(d.type, str(dt)[6:]): run(d, dt) for dt in (torch.bfloat16, torch.float32)
+         for d in (dev, cpu)}
+    counts = r["cuda", "bfloat16"]["counts"]
+    print(f"train step yolov12n@128 b2: card launches in bf16 {counts} (want "
+          f"area_attention 8, area_attention_bwd 8), in f32 {r['cuda', 'float32']['counts']}")
+    require(counts == {"nms": 0, "area_attention": 8, "fused_ablock": 0,
+                       "area_attention_bwd": 8}, "yolov12n train-step launch counts")
+    for name, n in counts.items():
+        launches[name] += n
+    names = list(r["cpu", "float32"]["grads"])
+
+    def whole(a, b):
+        return _cos(torch.cat([r[a]["grads"][n].flatten() for n in names]),
+                    torch.cat([r[b]["grads"][n].flatten() for n in names]))
+
+    def stats_rel(a, b):  # batch means of activations: max |diff| / max(|ref|, 1)
+        return max(float(((r[a]["stats"][n] - t).abs() / t.abs().clamp(min=1.0)).max())
+                   for n, t in r[b]["stats"].items())
+
+    # f32: the same arithmetic on both devices up to the order of sums
+    # (TF32 off): loss within 1e-4, the whole gradient cosine >= 0.9999, every
+    # leaf whose norm is above 1e-3 of the largest (BatchNorm biases ahead of
+    # a conv + BatchNorm have gradients that are zero but for rounding)
+    # cosine >= 0.999, running statistics within 1e-3
+    g32, c32 = r["cuda", "float32"], r["cpu", "float32"]
+    rel = abs(g32["metrics"]["loss"] - c32["metrics"]["loss"]) / abs(c32["metrics"]["loss"])
+    top = max(float(t.norm()) for t in c32["grads"].values())
+    leaf = min(_cos(g32["grads"][n], c32["grads"][n]) for n in names
+               if float(c32["grads"][n].norm()) > 1e-3 * top)
+    w32, s32 = whole(("cuda", "float32"), ("cpu", "float32")), stats_rel(("cuda", "float32"),
+                                                                        ("cpu", "float32"))
+    print(f"  f32: loss rel {rel:.2e} (<= 1e-4), whole-gradient cosine {w32:.7f} (>= 0.9999), "
+          f"worst leaf cosine {leaf:.5f} (>= 0.999), BN statistics {s32:.2e} (<= 1e-3)")
+    require(rel <= 1e-4 and w32 >= 0.9999 and leaf >= 0.999 and s32 <= 1e-3,
+            "card vs CPU f32 train step")
+    # bf16: at random init the bf16 gradients are noisy (BatchNorm's backward
+    # cancels over every position, each layer rounding to bf16): on one card
+    # the bf16 and f32 gradients have cosine ~0.8, and the kernels against
+    # their plain versions ~0.97 (one-ulp output changes). So: loss within
+    # 2%, card vs CPU whole cosine >= 0.8, the card's bf16 gradient no
+    # farther from the f32 one than the CPU's bf16 gradient is (by 0.1), and
+    # the running statistics within 5%
+    gb, cb = r["cuda", "bfloat16"], r["cpu", "bfloat16"]
+    rel = abs(gb["metrics"]["loss"] - cb["metrics"]["loss"]) / abs(cb["metrics"]["loss"])
+    wb = whole(("cuda", "bfloat16"), ("cpu", "bfloat16"))
+    card_f32 = whole(("cuda", "bfloat16"), ("cpu", "float32"))
+    cpu_f32 = whole(("cpu", "bfloat16"), ("cpu", "float32"))
+    sb = stats_rel(("cuda", "bfloat16"), ("cpu", "bfloat16"))
+    print(f"  bf16: loss card {gb['metrics']['loss']:.5f} CPU {cb['metrics']['loss']:.5f} "
+          f"(rel {rel:.2e}, <= 2e-2); whole-gradient cosine card vs CPU {wb:.4f} (>= 0.8); "
+          f"against the f32 gradient: card {card_f32:.4f}, CPU {cpu_f32:.4f} (card >= CPU - "
+          f"0.1); BN statistics {sb:.4f} (< 0.05)")
+    require(rel <= 2e-2 and wb >= 0.8 and card_f32 >= cpu_f32 - 0.1 and sb < 0.05,
+            "card vs CPU bf16 train step")
+
+
+class StepRecorder:
+    """Trainer callbacks: CUDA events and launch counts per step, metrics,
+    launch counts of the validation pass, the initial weights."""
+
+    def __init__(self):
+        self.events, self.counts, self.metrics = [], [], []
+        self.val_counts = None
+
+    def start(self, trainer):
+        m = trainer.state.model
+        self.p0 = {n: p.detach().clone() for n, p in m.named_parameters()}
+        self.b0 = {n: t.detach().clone() for n, t in m.named_buffers() if "running" in n}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        self._event()
+
+    def _event(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events.append(e)
+
+    def step(self, trainer, metrics):
+        self._event()
+        self.counts.append(launch_counts())
+        self.metrics.append(metrics)
+        zero_counts()
+
+    def val_start(self, trainer):
+        self.peak = torch.cuda.max_memory_allocated()
+        zero_counts()
+
+    def val_end(self, trainer, metrics):
+        self.val_counts = launch_counts()
+        self.val_metrics = metrics
+
+
+WARM_STEPS, TIMED_STEPS = 3, 8
+
+
+def train_full_width(dev, launches: dict) -> dict:
+    """``DetectTrainer(cfg).train()`` for yolov12-p2x@640, batch 8, bf16,
+    nc=1, max_boxes 400, remat off, default hyperparameters (the character
+    detector of ``kuzu/tools/production.py:512-524``): one epoch of a few
+    steps over the synthetic pages, one validation batch, checkpoints saved."""
+    import tempfile
+
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.tasks.detect import trainer_for
+    from kuzu_torch.testing import SyntheticDetectionDataset
+
+    steps = WARM_STEPS + TIMED_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(overrides=dict(
+            model="yolov12-p2x", imgsz=640, batch=8, dtype="bfloat16", remat=False,
+            epochs=1, workers=2, project=tmp, name="p2x", exist_ok=True, save=True))
+        train_ds = SyntheticDetectionDataset(8 * steps, 640, max_boxes=400, nc=1, seed=0)
+        val_ds = SyntheticDetectionDataset(8, 640, max_boxes=400, nc=1, seed=1)
+        trainer = trainer_for((train_ds, val_ds, 1))(cfg, device=dev)
+        rec = StepRecorder()
+        for ev, fn in (("on_train_start", rec.start), ("on_step_end", rec.step),
+                       ("on_val_start", rec.val_start), ("on_val_end", rec.val_end)):
+            trainer.callbacks.add(ev, fn)
+        t0 = time.perf_counter()
+        final = trainer.train()
+        wall = time.perf_counter() - t0
+        state = trainer.state
+        print(f"yolov12-p2x@640 b8 bf16 DetectTrainer.train(): {len(rec.counts)} steps + "
+              f"validation in {wall:.1f} s, {sum(p.numel() for p in state.model.parameters())} "
+              f"params; final {final}")
+        require(len(rec.counts) == steps, "step count")
+        want = {"nms": 0, "area_attention": 16, "fused_ablock": 0, "area_attention_bwd": 16}
+        require(all(c == want for c in rec.counts), f"per-step launches {rec.counts[0]} "
+                f"(want {want})")
+        print(f"  launches per step: {rec.counts[0]} (every step); validation: "
+              f"{rec.val_counts} (want fused_ablock 16, area_attention 0, nms 1)")
+        require(rec.val_counts == {"nms": 1, "area_attention": 0, "fused_ablock": 16,
+                                   "area_attention_bwd": 0}, "validation launches")
+        for c in rec.counts + [rec.val_counts]:
+            for name, n in c.items():
+                launches[name] += n
+        losses = [float(m["loss"]) for m in rec.metrics]
+        norms = [float(m["grad_norm"]) for m in rec.metrics]
+        print(f"  losses {[round(x, 3) for x in losses]}\n  grad norms "
+              f"{[round(x, 2) for x in norms]}")
+        require(all(np.isfinite(losses)) and all(np.isfinite(norms)), "finite losses")
+        m = state.model
+        ema_moved = max(float((state.ema[n] - p).abs().max()) for n, p in rec.p0.items())
+        bn_moved = max(float((t - rec.b0[n]).abs().max())
+                       for n, t in m.named_buffers() if "running" in n)
+        print(f"  EMA max move {ema_moved:.3e}, BN statistics max move {bn_moved:.3e}, "
+              f"val {rec.val_metrics}")
+        require(ema_moved > 0 and bn_moved > 0, "EMA and BatchNorm statistics moved")
+        sd = trainer.ckpt.restore("last")
+        live = m.state_dict()
+        same = sd["step"] == state.step and all(
+            torch.equal(sd["model"][k], live[k].cpu()) for k in live)
+        trainer.ckpt.restore("last", like=state)
+        print(f"  last checkpoint: step {sd['step']}, restores equal: {same}; best exists "
+              f"{trainer.ckpt.exists('best')}")
+        require(same and trainer.ckpt.exists("best"), "last checkpoint restores")
+
+        times = [a.elapsed_time(b) for a, b in zip(rec.events[:-1], rec.events[1:])]
+        timed = times[WARM_STEPS:]
+        ms = statistics.median(timed)
+        r = dict(ms_per_step=ms, images_per_s=8 / ms * 1e3, step_ms=timed,
+                 warmup_ms=times[:WARM_STEPS], peak_gib=rec.peak / 2**30,
+                 train_wall_s=wall)
+        print(f"  ms/step {ms:.3f} (median of {len(timed)} after {WARM_STEPS} warm-up; "
+              f"steps {[round(t, 2) for t in timed]}), {r['images_per_s']:.2f} images/s, "
+              f"peak memory {r['peak_gib']:.2f} GiB")
+        r["breakdown"] = train_step_breakdown(trainer, train_ds)
+    return r
+
+
+def train_step_breakdown(trainer, ds) -> dict:
+    """One training step taken apart: CUDA events between its phases
+    (forward, assigner + loss, backward, optimizer + EMA) and, under
+    torch.profiler, kernel time by group, with the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kuzu_torch.core.train import ema_decay_at, ema_update, global_norm
+    from kuzu_torch.data.loader import default_collate
+
+    dev = trainer.device
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in default_collate([ds[i] for i in range(8)]).items()}
+    state, model, tx = trainer.state, trainer.state.model, trainer.state.optimizer
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+
+    def step():
+        ev[0].record()
+        tx.zero_grad()
+        feats = model(b["image"])
+        ev[1].record()
+        loss, _ = trainer.loss_fn(lambda _: feats, b)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        grad_norm = global_norm([p.grad for p in tx.params()])
+        tx.step(state.step, grad_norm)
+        state.step += 1
+        ema_update(state.ema, model, ema_decay_at(state.step, 0.9999, 2000.0))
+        ev[4].record()
+
+    step()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    phases = dict(zip(("forward", "assigner + loss", "backward", "optimizer + EMA"),
+                      (a.elapsed_time(c) for a, c in zip(ev[:-1], ev[1:]))))
+    groups: dict[str, float] = {}
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0) or 0
+        if us <= 0:
+            continue
+        name = evt.key
+        kernels.append((us / 1e3, evt.count, name[:70]))
+        low = name.lower()
+        if "attention_bwd_kernel" in name:
+            group = "K4 area_attention_bwd"
+        elif "attention_kernel" in name:
+            group = "K3 area_attention"
+        elif "batchnorm" in low or "batch_norm" in low or "welford" in low:
+            group = "BatchNorm normalisation (f32)"
+        elif any(t in low for t in ("conv", "xmma", "implicit", "cudnn", "gemm", "dgrad",
+                                    "wgrad", "nchw", "nhwc")):
+            group = "convolutions (cuDNN)"
+        elif "foreach" in low or "multi_tensor" in low:
+            group = "optimizer + EMA (foreach)"
+        else:
+            group = "other (elementwise, reductions, copies)"
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+    busy = sum(groups.values())
+    out = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+               phases_ms=phases, groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])))
+    print(f"  profile of one step: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms, device idle "
+          f"share {out['idle_share']:.3f}; phases (CUDA events) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    for group, ms in out["groups_ms"].items():
+        print(f"    {group}: {ms:.3f} ms")
+    for ms, count, name in sorted(kernels, reverse=True)[:10]:
+        print(f"    top kernel {ms:.3f} ms x{count}: {name}")
+    return out
 
 
 def device_breakdown(fn) -> dict:
@@ -350,6 +763,8 @@ KERNELS = {
     "nms": ("kuzu_torch/csrc/nms.cu", "kuzu/ops/pallas_nms.py:314"),
     "area_attention": ("kuzu_torch/csrc/area_attention.cu", "kuzu/ops/flash_attention.py:148"),
     "fused_ablock": ("kuzu_torch/csrc/fused_ablock.cu", "kuzu/ops/fused_ablock.py:117"),
+    "area_attention_bwd": ("kuzu_torch/csrc/area_attention_bwd.cu",
+                           "kuzu/ops/flash_attention.py:247"),
 }
 
 
@@ -378,6 +793,8 @@ def main() -> int:
     launches = dict.fromkeys(COUNTERS, 0)
     slice_check(dev, launches)
     e2e = full_width(dev, launches)
+    train_slice_check(dev, launches)
+    train = train_full_width(dev, launches)
 
     kernels = [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
@@ -385,6 +802,7 @@ def main() -> int:
         for name in COUNTERS
     ]
     print(json.dumps({"e2e_yolov12x_640_b8": e2e, "card": card}))
+    print(json.dumps({"train_yolov12p2x_640_b8": train, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -398,16 +816,19 @@ def _check_smem_formulas() -> None:
     import ctypes
 
     from kuzu_torch import _build
-    from kuzu_torch.ops.flash_attention import attn_smem_bytes
+    from kuzu_torch.ops.flash_attention import attn_bwd_smem_bytes, attn_smem_bytes
     from kuzu_torch.ops.fused_ablock import ablock_smem_bytes
 
     fa = _build.library("area_attention").kuzu_area_attention_smem
+    fab = _build.library("area_attention_bwd").kuzu_area_attention_bwd_smem
     fb = _build.library("fused_ablock").kuzu_fused_ablock_smem
-    fa.restype = fb.restype = ctypes.c_size_t
-    fa.argtypes = [ctypes.c_int] * 2
+    fa.restype = fab.restype = fb.restype = ctypes.c_size_t
+    fa.argtypes = fab.argtypes = [ctypes.c_int] * 2
     fb.argtypes = [ctypes.c_int] * 4
     for n, hd in ((400, 32), (16, 32), (256, 64)):
         require(fa(n, hd) == attn_smem_bytes(n, hd), f"attention smem n={n} hd={hd}")
+        require(fab(n, hd) == attn_bwd_smem_bytes(n, hd),
+                f"attention backward smem n={n} hd={hd}")
     for na, c, h, hid in ((400, 384, 12, 576), (400, 128, 4, 256), (16, 128, 4, 256)):
         require(fb(na, c, h, hid) == ablock_smem_bytes(na, c, h, hid), f"ablock smem {na}")
 

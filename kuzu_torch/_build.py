@@ -31,7 +31,7 @@ BASE_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC"
 # Per-source extra flags. The NMS IoU must round exactly as the f32
 # expression of the reference, so contraction into FMA is off there.
 EXTRA_FLAGS = {"nms": ["--fmad=false"]}
-SOURCES = ("nms", "area_attention", "fused_ablock")
+SOURCES = ("nms", "area_attention", "fused_ablock", "area_attention_bwd")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -1,0 +1,73 @@
+"""Checkpoint / resume with best/last tracking (counterpart of
+``kuzu/core/checkpoint.py``, written with ``torch.save`` instead of orbax).
+
+A checkpoint is ``<dir>/<name>/state.pt`` holding the train state's
+``state_dict()`` (step, model with its BatchNorm statistics, EMA, optimizer)
+beside ``kuzu_meta.json`` (epoch, fitness); ``last`` is written every epoch
+and copied to ``best`` when its fitness is the highest so far.
+``partial_load`` (the P2-head graft) and ``load_inference_params`` are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+from typing import Any
+
+import torch
+
+
+class CheckpointManager:
+    """``save(state, fitness, metadata)`` into ``last`` (and ``best``);
+    ``restore``, ``exists``, ``metadata`` by name."""
+
+    def __init__(self, directory: str | Path):
+        self.dir = Path(directory).resolve()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.best_fitness = -float("inf")
+        self._meta_path = self.dir / "meta.json"
+        if self._meta_path.exists():
+            meta = json.loads(self._meta_path.read_text())
+            self.best_fitness = meta.get("best_fitness", -float("inf"))
+
+    def save(self, state: Any, fitness: float | None = None, metadata: dict | None = None,
+             name: str = "last") -> None:
+        """Write ``state.state_dict()`` to ``<dir>/<name>``; update ``best``."""
+        target = self.dir / name
+        tmp = self.dir / f".tmp_{name}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+        torch.save(state.state_dict(), tmp / "state.pt")
+        meta = dict(metadata or {})
+        if fitness is not None:
+            meta["fitness"] = float(fitness)
+        (tmp / "kuzu_meta.json").write_text(json.dumps(meta))
+        if target.exists():
+            shutil.rmtree(target)
+        tmp.rename(target)
+        if fitness is not None and fitness >= self.best_fitness:
+            self.best_fitness = float(fitness)
+            best = self.dir / "best"
+            if best.exists():
+                shutil.rmtree(best)
+            shutil.copytree(target, best)
+        self._meta_path.write_text(json.dumps({"best_fitness": self.best_fitness}))
+
+    def restore(self, name: str = "last", like: Any | None = None) -> Any:
+        """The saved state dict; with ``like`` (a train state) loaded into it
+        in place and ``like`` returned."""
+        sd = torch.load(self.dir / name / "state.pt", map_location="cpu", weights_only=True)
+        if like is None:
+            return sd
+        like.load_state_dict(sd)
+        return like
+
+    def metadata(self, name: str = "last") -> dict:
+        p = self.dir / name / "kuzu_meta.json"
+        return json.loads(p.read_text()) if p.exists() else {}
+
+    def exists(self, name: str = "last") -> bool:
+        return (self.dir / name / "state.pt").exists()

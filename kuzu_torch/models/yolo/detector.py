@@ -69,6 +69,13 @@ class YoloDetector:
         from_flax(self.graph, variables)
         return self._load()
 
+    def load_state_dict(self, state_dict: dict[str, torch.Tensor]) -> "YoloDetector":
+        """Weights from a ``YoloGraph`` state dict (parameters and BatchNorm
+        statistics, e.g. a trainer's EMA with the live statistics), then
+        fold."""
+        self.graph.load_state_dict(state_dict)
+        return self._load()
+
     def _load(self) -> "YoloDetector":
         self.graph.to(self.device)
         self.folded = fold_graph(self.graph)

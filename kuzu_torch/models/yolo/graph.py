@@ -6,7 +6,8 @@ The parser (``make_divisible``, ``NodeSpec``, ``GraphSpec``,
 args]`` rows; compound scaling (depth/width/max_channels per scale letter)
 resizes repeats and channels, and channels and strides propagate statically.
 :class:`YoloGraph` builds the ``nn.Module`` tree of a parsed spec with the
-parameter names of the flax graph (``n{i}_{Module}``).
+parameter names of the flax graph (``n{i}_{Module}``) and runs it as the
+flax graph's ``__call__`` does (the training forward).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import yaml
 from torch import nn
 
 from kuzu_torch.models.yolo import modules as M
+from kuzu_torch.ops.images import from_uint8
 
 MODEL_DIR = Path(__file__).resolve().parent.parent.parent / "cfg" / "models"
 
@@ -263,12 +265,15 @@ SUPPORTED = ("Conv", "DWConv", "C3k2", "A2C2f", "Upsample", "Concat", "Detect")
 class YoloGraph(nn.Module):
     """The module tree of a parsed GraphSpec (yolov12 subset).
 
-    Holds the parameters only: inference runs through the BN-folded
-    executor ``kuzu_torch.models.yolo.infer.run_graph``."""
+    ``forward`` is the flax graph's ``__call__`` (``kuzu/models/yolo/graph.py``)
+    in ``dtype`` (master weights stay f32), following ``self.training``: the
+    training path. Inference runs through the BN-folded executor
+    ``kuzu_torch.models.yolo.infer.run_graph``."""
 
-    def __init__(self, spec: GraphSpec):
+    def __init__(self, spec: GraphSpec, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.spec = spec
+        self.dtype = dtype
         ch: list[int] = []
         for node in spec.nodes:
             m, a = node.module, node.args
@@ -282,7 +287,7 @@ class YoloGraph(nn.Module):
             if m == "Conv":
                 self.add_module(name, M.Conv(
                     c1, a[0], k=a[1] if len(a) > 1 else 1, s=a[2] if len(a) > 2 else 1,
-                    g=a[4] if len(a) > 4 else 1))
+                    g=a[4] if len(a) > 4 else 1, act=a[5] if len(a) > 5 else True))
             elif m == "DWConv":
                 self.add_module(name, M.DWConv(
                     c1, a[0], k=a[1] if len(a) > 1 else 3, s=a[2] if len(a) > 2 else 1))
@@ -290,7 +295,8 @@ class YoloGraph(nn.Module):
                 self.add_module(name, M.C3k2(c1, a[0], n=node.repeats, c3k=a[1], e=a[2]))
             elif m == "A2C2f":
                 self.add_module(name, M.A2C2f(
-                    c1, a[0], n=node.repeats, a2=a[1], residual=a[3], mlp_ratio=a[4]))
+                    c1, a[0], n=node.repeats, a2=a[1], residual=a[3], mlp_ratio=a[4],
+                    area=a[2]))
             elif m == "Detect":
                 if spec.legacy_head:
                     raise NotImplementedError(
@@ -298,6 +304,33 @@ class YoloGraph(nn.Module):
                         "detector variants, a later slice)")
                 self.add_module(name, M.Detect(spec.nc, spec.detect_ch, spec.reg_max))
             ch.append(node.c_out)
+
+    def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
+        """(B, H, W, 3) images (uint8, or float in [0, 1]) -> the per-level
+        raw maps (B, H, W, 4*reg_max + nc) as NHWC views. Pixels become f32
+        ``x / 255`` and then ``dtype``, as the flax graph's first conv casts
+        them; activations are NCHW in ``channels_last``."""
+        x = from_uint8(images).to(self.dtype).permute(0, 3, 1, 2)
+        cur = x.contiguous(memory_format=torch.channels_last)
+        outputs: dict[int, torch.Tensor] = {}
+        result = None
+        for node in self.spec.nodes:
+            ins = [cur if f == node.index - 1 else outputs[f] for f in node.frm]
+            m = node.module
+            if m == "Upsample":
+                cur = M.upsample2x(ins[0])
+            elif m == "Concat":
+                cur = torch.cat(ins, dim=1)
+            elif m == "Detect":
+                result = self.get_submodule(f"n{node.index}_{m}")(ins)
+                cur = ins[0]
+            else:
+                cur = self.get_submodule(f"n{node.index}_{m}")(ins[0])
+            if node.index in self.spec.save:
+                outputs[node.index] = cur
+        if result is None:
+            raise ValueError("model yaml has no Detect node")
+        return result
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with flax's distributions (see ``modules.init_weights``)."""

@@ -19,7 +19,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from kuzu_torch.models.yolo import modules as M
-from kuzu_torch.ops.flash_attention import area_attention, area_attention_fits, xla_attention
+from kuzu_torch.ops.flash_attention import (
+    area_attention,
+    area_attention_fits,
+    materialised_area_attention,
+)
 from kuzu_torch.ops.fused_ablock import (
     ablock_weights,
     fold_conv_bn,
@@ -77,16 +81,6 @@ def plain_conv(p: _P, x: torch.Tensor):
     return y + b.to(y.dtype).view(1, -1, 1, 1)
 
 
-def _nhwc_tokens(x: torch.Tensor, groups: int) -> torch.Tensor:
-    """(B, C, H, W) -> (B*groups, H*W/groups, C), row-major over (H, W)."""
-    b, c, h, w = x.shape
-    return x.permute(0, 2, 3, 1).reshape(b * groups, h * w // groups, c)
-
-
-def _nchw(t: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
-    return t.reshape(b, h, w, -1).permute(0, 3, 1, 2)
-
-
 def bottleneck(p: _P, x, shortcut: bool = True):
     y = conv(p.child("cv2"), conv(p.child("cv1"), x))
     return x + y if shortcut and x.shape[1] == y.shape[1] else y
@@ -117,22 +111,17 @@ def aattn(p: _P, x, num_heads: int, area: int):
     qk = conv(p.child("qk"), x, act=False)
     v = conv(p.child("v"), x, act=False)
     dim = v.shape[1]
-    hd = dim // num_heads
     pe = conv(p.child("pe"), v, g=dim, act=False)
     area = area if area > 0 else 1
     na = (h * w) // area
-    qk_t = _nhwc_tokens(qk, area)
-    v_t = _nhwc_tokens(v, area)
+    qk_t = M.nhwc_tokens(qk, area)
+    v_t = M.nhwc_tokens(v, area)
     q, k = qk_t[..., :dim], qk_t[..., dim:]
     if area_attention_fits(na, dim, num_heads):
         out = area_attention(q, k, v_t, num_heads)
     else:
-        def fold(t):  # (G, na, C) -> (G*H, na, hd)
-            return t.reshape(-1, na, num_heads, hd).transpose(1, 2).reshape(-1, na, hd)
-
-        out = xla_attention(fold(q), fold(k), fold(v_t))
-        out = out.reshape(-1, num_heads, na, hd).transpose(1, 2).reshape(-1, na, dim)
-    return conv(p.child("proj"), _nchw(out, b, h, w) + pe, act=False)
+        out = materialised_area_attention(q, k, v_t, num_heads)
+    return conv(p.child("proj"), M.nchw(out, b, h, w) + pe, act=False)
 
 
 def ablock(p: _P, x, num_heads: int, area: int):
@@ -145,10 +134,10 @@ def ablock(p: _P, x, num_heads: int, area: int):
         v = conv(attn_p.child("v"), x, act=False)
         pe = conv(attn_p.child("pe"), v, g=c, act=False)
         out = fused_ablock(
-            _nhwc_tokens(x, 1), _nhwc_tokens(v, 1), _nhwc_tokens(pe, 1),
+            M.nhwc_tokens(x, 1), M.nhwc_tokens(v, 1), M.nhwc_tokens(pe, 1),
             fused, ar, num_heads,
         )
-        return _nchw(out, b, h, w)
+        return M.nchw(out, b, h, w)
     x = x + aattn(p.child("attn"), x, num_heads, area)
     y = conv(p.child("mlp2"), conv(p.child("mlp1"), x), act=False)
     return x + y

@@ -40,3 +40,13 @@ def dist2bbox(
     if xywh:
         return torch.cat([(x1y1 + x2y2) * 0.5, x2y2 - x1y1], dim=-1)
     return torch.cat([x1y1, x2y2], dim=-1)
+
+
+def bbox2dist(
+    bbox: torch.Tensor, anchor_points: torch.Tensor, reg_max: float
+) -> torch.Tensor:
+    """xyxy boxes -> (l, t, r, b) distances clamped to [0, reg_max - 0.01],
+    the DFL targets."""
+    x1y1, x2y2 = bbox[..., :2], bbox[..., 2:4]
+    dist = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1)
+    return dist.clamp(0, reg_max - 0.01)

@@ -1,0 +1,238 @@
+"""BaseTrainer — the task-agnostic training engine on one device
+(counterpart of ``kuzu/tasks/base.py``).
+
+Experiment directory with an ``args.yaml`` snapshot, the ``auto`` optimizer
+rule, the epoch loop with ``set_epoch``, a one-deep host-to-device prefetch
+on a side stream, per-epoch validation with a fitness scalar, a CSV row per
+epoch, last/best checkpoints, early stop, resume, the time limit and
+``final.json``. Subclasses supply the model, the data, the loss and the
+validation.
+
+One device only: the data-parallel mesh, tensor parallelism and LoRA raise
+``NotImplementedError`` naming the later slice that ports them.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from datetime import datetime
+from pathlib import Path
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from kuzu_torch.core.callbacks import LOGGER, CallbackRegistry, CSVLogger, EarlyStopping
+from kuzu_torch.core.checkpoint import CheckpointManager
+from kuzu_torch.core.config import Config
+from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
+from kuzu_torch.models.yolo.detector import resolve_device
+
+
+def resolve_val_batches(cfg: Config, loader: Any, key: str = "val_batches") -> int:
+    """The full split unless the config caps it (an explicit cap is logged)."""
+    try:
+        total = len(loader)
+    except TypeError:
+        total = None
+    cap = cfg.get(key)
+    if cap in (None, "", -1, "None"):
+        return total if total is not None else 10**9
+    cap = int(cap)
+    if total is not None and cap < total:
+        LOGGER.info(f"validate: capped at {cap}/{total} batches ({key}={cap})")
+    return cap
+
+
+def _check_one_device(cfg: Config) -> None:
+    mesh = cfg.get("mesh") or {}
+    if int(mesh.get("data", -1)) not in (-1, 1):
+        raise NotImplementedError(
+            "data parallelism (mesh.data > 1) is not ported yet: a later slice "
+            "(DDP, ROADMAP section 1 item 12)")
+    if int(mesh.get("model", 1)) > 1 or cfg.get("tp_rules"):
+        raise NotImplementedError(
+            "tensor parallelism (mesh.model > 1, tp_rules) is not ported yet: a later "
+            "slice (the recognizer and LM families, ROADMAP section 1 item 14)")
+    if int(cfg.get("lora_rank", 0) or 0):
+        raise NotImplementedError(
+            "LoRA (lora_rank) is not ported yet: a later slice (core/lora.py, "
+            "ROADMAP section 1 item 15)")
+
+
+class BaseTrainer:
+    # optimizer='auto' resolution for this task family
+    auto_optimizer = "sgd"
+
+    def __init__(self, cfg: Config, device: torch.device | str | None = None):
+        """``device``: the card by default (raises where there is none);
+        ``"cpu"`` runs the plain versions of the kernels."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        _check_one_device(cfg)
+        if str(cfg.get("optimizer", "auto")).lower() == "auto":
+            # resolved here so args.yaml records the actual optimizer
+            cfg.optimizer = self.auto_optimizer
+            if self.auto_optimizer == "adamw" and float(cfg.get("lr0", 0.01)) == 0.01:
+                cfg.lr0 = 3e-4  # 0.01 is the SGD default, far too hot for Adam
+        self.callbacks = CallbackRegistry()
+        self.save_dir = self._setup_dir()
+        self.ckpt = CheckpointManager(self.save_dir / "weights")
+        self.csv = CSVLogger(self.save_dir / "results.csv")
+        self.stopper = EarlyStopping(int(cfg.get("patience", 100)))
+        self.epoch = 0
+        self.state: TrainState | None = None
+
+    # ------------------------------------------------------------- plumbing
+    def _setup_dir(self) -> Path:
+        name = self.cfg.get("name") or datetime.now().strftime("%Y%m%d_%H%M%S")
+        d = Path(self.cfg.get("project", "runs")) / str(self.cfg.get("task", "task")) / name
+        if d.exists() and not self.cfg.get("exist_ok", False):
+            stem = d
+            i = 2
+            while d.exists():
+                d = stem.parent / f"{stem.name}{i}"
+                i += 1
+        d.mkdir(parents=True, exist_ok=True)
+        self.cfg.to_yaml(d / "args.yaml")
+        return d
+
+    # ------------------------------------------------------- subclass hooks
+    def build_model(self) -> torch.nn.Module:
+        """The model on ``self.device`` (and model refs stashed on self)."""
+        raise NotImplementedError
+
+    def build_datasets(self) -> tuple[Any, Any]:
+        """(train_loader, val_loader-or-None)."""
+        raise NotImplementedError
+
+    def loss_fn(self, model: torch.nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(loss, metrics) for one batch of device tensors."""
+        raise NotImplementedError
+
+    def validate(self, state: TrainState) -> dict[str, float]:
+        """Metrics incl. ``fitness`` (higher better). Default: none."""
+        return {}
+
+    def preprocess_batch(self, batch: dict) -> dict:
+        return batch
+
+    def _device_prefetch(self, loader: Any) -> Iterator[dict[str, torch.Tensor]]:
+        """Batches as device tensors, batch N+1 copied on a side stream (from
+        pinned memory) while the step of batch N runs: the counterpart of the
+        JAX trainer's one-deep ``device_put`` double buffering."""
+        dev = self.device
+
+        def host(batch):
+            return {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in self.preprocess_batch(batch).items()}
+
+        if dev.type != "cuda":
+            for batch in loader:
+                yield {k: v.to(dev) for k, v in host(batch).items()}
+            return
+        side = torch.cuda.Stream(dev)
+
+        def ready(batch):
+            cur = torch.cuda.current_stream(dev)
+            cur.wait_stream(side)
+            for t in batch.values():
+                t.record_stream(cur)  # the allocator must not reuse it early
+            return batch
+
+        pending = None
+        for batch in loader:
+            with torch.cuda.stream(side):
+                nxt = {k: v.pin_memory().to(dev, non_blocking=True)
+                       for k, v in host(batch).items()}
+            if pending is not None:
+                yield ready(pending)
+            pending = nxt
+        if pending is not None:
+            yield ready(pending)
+
+    # ------------------------------------------------------------ the loop
+    def train(self) -> dict:
+        cfg = self.cfg
+        if cfg.get("debug_nans"):
+            torch.autograd.set_detect_anomaly(True)
+        if cfg.get("deterministic", True):
+            torch.backends.cudnn.deterministic = True
+        t0 = time.perf_counter()
+        train_loader, self.val_loader = self.build_datasets()
+        steps_per_epoch = max(len(train_loader), 1)
+        model = self.build_model()
+        tx = build_optimizer(cfg, model, steps_per_epoch)
+        self.state = TrainState(model, tx, use_ema=bool(cfg.get("ema", True)))
+        self._step = make_train_step(
+            self.loss_fn, tx,
+            ema_decay=float(cfg.get("ema_decay", 0.9999)),
+            ema_tau=float(cfg.get("ema_tau", 2000)),
+            accumulate=max(int(cfg.get("accumulate", 1)), 1),
+        )
+
+        start_epoch = 0
+        if cfg.get("resume") and self.ckpt.exists("last"):
+            self.ckpt.restore("last", like=self.state)
+            start_epoch = int(self.ckpt.metadata("last").get("epoch", -1)) + 1
+            LOGGER.info(f"resumed from epoch {start_epoch}")
+
+        n_params = sum(p.numel() for p in model.parameters())
+        LOGGER.info(
+            f"kuzu_torch {cfg.get('task')} train: {n_params / 1e6:.2f}M params, "
+            f"{steps_per_epoch} steps/epoch, device {self.device}, save_dir {self.save_dir}")
+        self.callbacks.run("on_train_start", self)
+
+        epochs = int(cfg.get("epochs", 1))
+        time_limit_h = cfg.get("time")
+        final_metrics: dict = {}
+        for epoch in range(start_epoch, epochs):
+            self.epoch = epoch
+            train_loader.set_epoch(epoch)
+            self.callbacks.run("on_epoch_start", self)
+            agg: dict[str, torch.Tensor] = {}
+            n_steps = 0
+            te = time.perf_counter()
+            for batch in self._device_prefetch(train_loader):
+                metrics = self._step(self.state, batch)
+                n_steps += 1
+                for k, v in metrics.items():  # summed on the device, read once
+                    agg[k] = agg[k] + v if k in agg else v
+                self.callbacks.run("on_step_end", self, metrics)
+            train_metrics = {k: float(v) / max(n_steps, 1) for k, v in agg.items()}
+
+            self.callbacks.run("on_val_start", self)
+            val_metrics = self.validate(self.state) if cfg.get("val", True) else {}
+            self.callbacks.run("on_val_end", self, val_metrics)
+            fitness = float(val_metrics.get("fitness", -train_metrics.get("loss", 0.0)))
+
+            row = {
+                "epoch": epoch,
+                **{f"train/{k}": v for k, v in train_metrics.items()},
+                **{f"val/{k}": v for k, v in val_metrics.items()},
+                "fitness": fitness,
+                "time_s": time.perf_counter() - te,
+            }
+            self.csv.log(row)
+            if cfg.get("verbose", True):
+                LOGGER.info(f"epoch {epoch}/{epochs - 1}: " + " ".join(
+                    f"{k}={v:.4g}" for k, v in row.items() if k != "epoch"))
+            if cfg.get("save", True):
+                self.ckpt.save(self.state, fitness=fitness, metadata={"epoch": epoch})
+                self.callbacks.run("on_checkpoint_save", self)
+            final_metrics = {**train_metrics, **val_metrics, "fitness": fitness}
+
+            if self.stopper(epoch, fitness):
+                LOGGER.info(f"early stop at epoch {epoch} (best "
+                            f"{self.stopper.best_fitness:.4g} @ {self.stopper.best_epoch})")
+                break
+            if time_limit_h and (time.perf_counter() - t0) > float(time_limit_h) * 3600:
+                LOGGER.info("time limit reached")
+                break
+
+        self.callbacks.run("on_train_end", self)
+        final_metrics["train_time_s"] = time.perf_counter() - t0
+        (self.save_dir / "final.json").write_text(
+            json.dumps({k: float(v) for k, v in final_metrics.items()}))
+        return final_metrics

@@ -1,4 +1,5 @@
-"""Comparison rules shared by the parity tests and ``chip_smoke.py``.
+"""Comparison rules and the synthetic dataset shared by the parity tests and
+``chip_smoke.py``.
 
 Two runs of the detector that differ only in where bf16 rounds (the JAX
 package against the port, or the card against the CPU) are held to these
@@ -65,3 +66,44 @@ def detections_match(ref: dict, out: dict, min_iou: float = 0.5) -> float:
             hit += int((iou.max(1) >= min_iou).sum())
         total += len(rb)
     return hit / max(total, 1)
+
+
+class SyntheticDetectionDataset:
+    """Seeded synthetic character pages, to the ``Dataset`` protocol of
+    ``kuzu_torch.data.loader``: glyph-like dark rectangles of 8-40 px on a
+    light page, 100-300 per 640x640 image (scaled by area at other sizes, at
+    least one), so the assigner sees a character page's number of GTs.
+
+    Sample ``i`` is drawn from ``seed`` and ``i`` alone: ``image`` uint8
+    (imgsz, imgsz, 3), ``gt_boxes`` (max_boxes, 4) xyxy px, ``gt_labels``
+    (max_boxes,) int32 and ``mask_gt`` (max_boxes,) bool, zero-padded."""
+
+    def __init__(self, n: int, imgsz: int = 640, max_boxes: int = 400, nc: int = 1,
+                 seed: int = 0, boxes: tuple[int, int] = (100, 300),
+                 size: tuple[int, int] = (8, 40)):
+        self.n, self.imgsz, self.max_boxes, self.nc, self.seed = n, imgsz, max_boxes, nc, seed
+        frac = (imgsz / 640) ** 2
+        self.boxes = (max(1, round(boxes[0] * frac)), max(1, round(boxes[1] * frac)))
+        self.size = (size[0], min(size[1], imgsz // 2))
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed, i))
+        s = self.imgsz
+        img = rng.integers(215, 250, (s, s, 3), dtype=np.uint8)  # paper and grain
+        k = min(int(rng.integers(self.boxes[0], self.boxes[1] + 1)), self.max_boxes)
+        wh = rng.integers(self.size[0], self.size[1] + 1, (k, 2))
+        x1 = (rng.random(k) * (s - wh[:, 0])).astype(np.int64)
+        y1 = (rng.random(k) * (s - wh[:, 1])).astype(np.int64)
+        boxes = np.zeros((self.max_boxes, 4), np.float32)
+        labels = np.zeros((self.max_boxes,), np.int32)
+        mask = np.zeros((self.max_boxes,), bool)
+        for j in range(k):
+            x, y, w, h = x1[j], y1[j], wh[j, 0], wh[j, 1]
+            img[y:y + h, x:x + w] = rng.integers(10, 90)  # ink
+            boxes[j] = (x, y, x + w, y + h)
+        labels[:k] = rng.integers(0, self.nc, k)
+        mask[:k] = True
+        return {"image": img, "gt_boxes": boxes, "gt_labels": labels, "mask_gt": mask}

@@ -88,6 +88,11 @@ def test_yaml_copies_are_identical(name):
     assert port.read_bytes() == (REPO / "kuzu" / "cfg" / "models" / name).read_bytes()
 
 
+def test_default_cfg_copy_is_identical():
+    port = REPO / "kuzu_torch" / "cfg" / "default.yaml"
+    assert port.read_bytes() == (REPO / "kuzu" / "cfg" / "default.yaml").read_bytes()
+
+
 def test_chip_smoke_fails_without_card(tmp_path):
     """No card: chip_smoke.py exits non-zero and prints no result line; in a
     directory holding only the script it fails as well."""

@@ -21,6 +21,24 @@ def numpy_tree(tree):
     return np.asarray(tree)
 
 
+def flax_variables(graph) -> dict:
+    """The inverse of ``kuzu_torch.bridge.from_flax``: a port module's
+    weights as a flax ``{params, batch_stats}`` tree of numpy arrays, so a
+    JAX model can run the port's seeded weights without a JAX init."""
+    from kuzu_torch.bridge import _targets
+
+    tree: dict = {}
+    for path, tensor, is_kernel in _targets(graph):
+        arr = tensor.detach().float().cpu().numpy()
+        if is_kernel:
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree
+
+
 def jax_and_port_detector(name: str, nc: int = 3, imgsz: int = 128, seed: int = 0):
     """(JAX YoloDetector, its variables, port YoloDetector on the CPU with the
     same weights)."""
