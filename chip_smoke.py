@@ -21,16 +21,31 @@ Phases, each raising on failure:
    checked;
 5. inference at full width: yolov12x@640, batch 8, bf16, conf 0.001,
    launch counts, finite outputs and the end-to-end time per image;
-6. training slice check: one train step of yolov12n@128, batch 2, bf16, on
+6. the fused C3k2 (K6) at the phase-5 detector, before the training phases
+   so that their peak memory counts training alone: the NHWC inputs of
+   nodes 2, 4 and 20 captured from one forward, the kernel against its
+   plain version and both against the executor's node output, with the
+   kernel's, the plain version's and the executor's times; then the same
+   nodes with random BatchNorm statistics and x ~ N(0, 1), kernel against
+   plain;
+7. training slice check: one train step of yolov12n@128, batch 2, bf16, on
    the card and on the CPU: loss, gradients, BatchNorm statistics and the
    launch counts (8 K3 + 8 K4);
-7. training at full width: ``DetectTrainer(cfg).train()`` for
+8. training at full width: ``DetectTrainer(cfg).train()`` for
    yolov12-p2x@640, batch 8, bf16 over synthetic pages: 16 K3 + 16 K4
    launches per step, validation through K2/K1, finite losses, EMA and
    BatchNorm statistics moved, ``last`` restores; ms/step, images/s, peak
    memory and a profiled step's breakdown;
-8. the ``kernels`` JSON line, then the card's name and power limit;
-9. last line: ``{"ok": true, "device": {...}}``.
+9. flash attention (K5) through its entry points: the kernel against its
+   plain version at BH=16, N=8192, D=64 bf16 (``flash_attention_auto``'s
+   crossover), BH=384, N=400, D=32 bf16 (yolov12x node 6's area attention
+   with the heads folded, the short regime), BH=16, N=2048, D=64 f32,
+   logits scaled by 30 in both dtypes, and every head width it is built
+   for at N=256 and 400 in both dtypes; planted faults against the bf16
+   tolerance at the crossover; ``flash_attention_auto`` launches K5 once
+   at N=8192 and never at N=4096; times beside SDPA's forward;
+10. the ``kernels`` JSON line, then the card's name and power limit;
+11. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -291,16 +306,27 @@ def k4_check(dev, gen, qk, v, heads) -> dict:
 
 # ------------------------------------------------------------- phases 4, 5
 
-COUNTERS = ("nms", "area_attention", "fused_ablock", "area_attention_bwd")
+COUNTERS = ("nms", "area_attention", "fused_ablock", "area_attention_bwd", "flash_attention",
+            "fused_c3k2")
 
 
 def counters():
-    from kuzu_torch.ops.flash_attention import area_attention, area_attention_bwd
+    from kuzu_torch.ops.flash_attention import (
+        area_attention,
+        area_attention_bwd,
+        flash_attention,
+    )
     from kuzu_torch.ops.fused_ablock import fused_ablock
+    from kuzu_torch.ops.fused_c3k2 import fused_c3k2
     from kuzu_torch.ops.nms_kernel import batched_suppress
 
     return dict(zip(COUNTERS, (batched_suppress, area_attention, fused_ablock,
-                               area_attention_bwd)))
+                               area_attention_bwd, flash_attention, fused_c3k2)))
+
+
+def want(**counts) -> dict:
+    """Expected launch counts: the ones named, 0 for every other kernel."""
+    return {name: counts.get(name, 0) for name in COUNTERS}
 
 
 def zero_counts() -> None:
@@ -338,8 +364,7 @@ def slice_check(dev, launches: dict) -> None:
     cmaps, cpred, cdets = pipeline(cpu, imgs)
     print(f"yolov12n@640 b2 launches on the card: {counts} (want nms 1, "
           f"area_attention 4, fused_ablock 4); CPU run {time.perf_counter() - t0:.1f} s")
-    require(counts == {"nms": 1, "area_attention": 4, "fused_ablock": 4,
-                       "area_attention_bwd": 0}, "yolov12n launch counts")
+    require(counts == want(nms=1, area_attention=4, fused_ablock=4), "yolov12n launch counts")
     for name, n in counts.items():
         launches[name] += n
     for lvl, (cm, gm) in enumerate(zip(cmaps, gmaps)):
@@ -363,7 +388,9 @@ def slice_check(dev, launches: dict) -> None:
             "card vs CPU detections")
 
 
-def full_width(dev, launches: dict) -> dict:
+def full_width(dev, launches: dict):
+    """Phase 5; returns its results, the detector and the images, which
+    phase 6 reuses."""
     from kuzu_torch.models.yolo.detector import YoloDetector
 
     det = YoloDetector("yolov12x", nc=80, imgsz=640, device=dev).init(0)
@@ -377,8 +404,7 @@ def full_width(dev, launches: dict) -> dict:
     counts = launch_counts()
     print(f"yolov12x@640 b8 launches: {counts} (want nms 1, area_attention 0, "
           f"fused_ablock 16)")
-    require(counts == {"nms": 1, "area_attention": 0, "fused_ablock": 16,
-                       "area_attention_bwd": 0}, "yolov12x launch counts")
+    require(counts == want(nms=1, fused_ablock=16), "yolov12x launch counts")
     for name, n in counts.items():
         launches[name] += n
     require(all(bool(torch.isfinite(m).all()) for m in maps), "finite maps")
@@ -400,10 +426,10 @@ def full_width(dev, launches: dict) -> dict:
     print(f"  end to end {e2e:.3f} ms/batch = {e2e / 8:.4f} ms/img (infer {infer:.3f}, "
           f"decode {decode:.3f}, nms {nms:.3f} ms/batch), peak memory {peak:.2f} GiB")
     r["breakdown"] = device_breakdown(lambda: pipeline(det, imgs))
-    return r
+    return r, det, imgs
 
 
-# ------------------------------------------------------------ phases 6, 7
+# ------------------------------------------------------------ phases 7, 8
 
 
 def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -474,8 +500,8 @@ def train_slice_check(dev, launches: dict) -> None:
     counts = r["cuda", "bfloat16"]["counts"]
     print(f"train step yolov12n@128 b2: card launches in bf16 {counts} (want "
           f"area_attention 8, area_attention_bwd 8), in f32 {r['cuda', 'float32']['counts']}")
-    require(counts == {"nms": 0, "area_attention": 8, "fused_ablock": 0,
-                       "area_attention_bwd": 8}, "yolov12n train-step launch counts")
+    require(counts == want(area_attention=8, area_attention_bwd=8),
+            "yolov12n train-step launch counts")
     for name, n in counts.items():
         launches[name] += n
     names = list(r["cpu", "float32"]["grads"])
@@ -596,13 +622,12 @@ def train_full_width(dev, launches: dict) -> dict:
               f"validation in {wall:.1f} s, {sum(p.numel() for p in state.model.parameters())} "
               f"params; final {final}")
         require(len(rec.counts) == steps, "step count")
-        want = {"nms": 0, "area_attention": 16, "fused_ablock": 0, "area_attention_bwd": 16}
-        require(all(c == want for c in rec.counts), f"per-step launches {rec.counts[0]} "
-                f"(want {want})")
+        per_step = want(area_attention=16, area_attention_bwd=16)
+        require(all(c == per_step for c in rec.counts), f"per-step launches {rec.counts[0]} "
+                f"(want {per_step})")
         print(f"  launches per step: {rec.counts[0]} (every step); validation: "
               f"{rec.val_counts} (want fused_ablock 16, area_attention 0, nms 1)")
-        require(rec.val_counts == {"nms": 1, "area_attention": 0, "fused_ablock": 16,
-                                   "area_attention_bwd": 0}, "validation launches")
+        require(rec.val_counts == want(nms=1, fused_ablock=16), "validation launches")
         for c in rec.counts + [rec.val_counts]:
             for name, n in c.items():
                 launches[name] += n
@@ -757,6 +782,291 @@ def device_breakdown(fn) -> dict:
     return out
 
 
+
+# ------------------------------------------------------------ phases 6, 9
+
+
+def flash_phase(dev, launches: dict) -> dict:
+    """K5: the kernel against its plain version at the shapes of its entry
+    points and over every head width it is built for, planted faults
+    against the same tolerance, the entry points' routing, and times beside
+    SDPA's forward (a yardstick the port never calls)."""
+    from kuzu_torch.ops.flash_attention import (
+        FLASH_DS,
+        FLASH_KEYS,
+        flash_attention,
+        flash_attention_auto,
+        flash_attention_plain,
+        xla_attention,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def qkv(bh, n, d, dtype, q_scale=1.0):
+        q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev) for _ in range(3))
+        return (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+
+    def k5_tol(ref, large_logits):
+        if ref.dtype == bf16:
+            # f32 arithmetic rounded once to bf16 on both sides; the kernel's
+            # P enters P V with ~16 bits and its key tiles are 64, not 128,
+            # so a sum on a rounding edge flips one ulp: two ulps of the
+            # largest output (2^-7 max|ref|) plus one of the value (2^-8 |ref|)
+            r = ref.float().abs()
+            return 2.0**-7 * float(r.max()) + 2.0**-8 * r, "2^-7 max|ref| + 2^-8|ref|"
+        # f32 FMAs in another order (TF32 off on the plain side); the JAX
+        # tests' 2e-5, and 1e-4 with logits scaled by 30
+        a = 1e-4 if large_logits else 2e-5
+        return torch.full_like(ref, a), f"{a:g}"
+
+    def over(out, ref, large_logits=False):
+        err = (out.float() - ref.float()).abs()
+        tol, what = k5_tol(ref, large_logits)
+        return err, int((err > tol).sum()), what
+
+    # (label, BH, N, D, dtype, q scale); the first is the kernels line's shape
+    cases = [("crossover", 16, 8192, 64, bf16, 1.0), ("area node 6", 384, 400, 32, bf16, 1.0),
+             ("f32", 16, 2048, 64, f32, 1.0), ("large logits bf16", 16, 1024, 64, bf16, 30.0),
+             ("large logits f32", 2, 128, 64, f32, 30.0)]
+    rows, errs = {}, []
+    for label, bh, n, d, dtype, q_scale in cases:
+        q, k, v = qkv(bh, n, d, dtype, q_scale)
+        out = flash_attention(q, k, v)
+        ref = flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err, n_over, what = over(out, ref, q_scale != 1.0)
+        finite = bool(torch.isfinite(out.float()).all())
+        print(f"K5 flash_attention {label} BH={bh} N={n} D={d} {str(dtype)[6:]}: max_abs_err "
+              f"{float(err.max()):.3e} (max|ref| {float(ref.float().abs().max()):.3e}), over "
+              f"tolerance ({what}): {n_over}, finite {finite}")
+        require(finite and n_over == 0, f"K5 within tolerance, {label}")
+        errs.append(float(err.max()))
+        if label == "crossover":
+            planted_faults(q, k, v, ref, over, FLASH_KEYS)
+        if q_scale != 1.0:
+            continue
+        # q, k, v read once, o written once; 4 N^2 D operations per head
+        bnd, by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d,
+                        PEAK_BF16 if dtype == bf16 else PEAK_F32)
+        sd = [t[None] for t in (q, k, v)]  # (1, BH, N, D)
+        r = dict(ms=time_ms(lambda: flash_attention(q, k, v)),
+                 plain_ms=time_ms(lambda: flash_attention_plain(q, k, v), reps=5, warmup=1),
+                 bound_ms=bnd, bound_by=by,
+                 library_ms=time_ms(
+                     lambda: torch.nn.functional.scaled_dot_product_attention(*sd)))
+        print(f"  {label}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {bnd:.5f} by "
+              f"{by}, SDPA {r['library_ms']:.4f})")
+        rows[label] = r
+
+    # every head width the kernel is built for, in both dtypes, in both
+    # regimes: streamed (N=256) and one ragged block (N=400)
+    worst = {}
+    for dtype in (bf16, f32):
+        for d in FLASH_DS:
+            for n in (256, 400):
+                q, k, v = qkv(4, n, d, dtype)
+                err, n_over, what = over(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+                require(n_over == 0, f"K5 within tolerance at D={d} N={n} {dtype}")
+                worst[dtype] = max(worst.get(dtype, 0.0), float(err.max()))
+    print(f"K5 at BH=4, N in (256, 400), D in {FLASH_DS}: every case within tolerance; "
+          f"max_abs_err bf16 {worst[bf16]:.3e}, f32 {worst[f32]:.3e}")
+
+    # the entry point: the kernel exactly once at N=8192, never at N=4096
+    q, k, v = qkv(16, 8192, 64, bf16)
+    q4, k4, v4 = qkv(16, 4096, 64, bf16)
+    zero_counts()
+    out = flash_attention_auto(q, k, v)
+    torch.cuda.synchronize()
+    at_8192 = launch_counts()
+    zero_counts()
+    out4 = flash_attention_auto(q4, k4, v4)
+    torch.cuda.synchronize()
+    at_4096 = launch_counts()
+    print(f"flash_attention_auto launches: N=8192 {at_8192['flash_attention']} (want 1), "
+          f"N=4096 {at_4096['flash_attention']} (want 0)")
+    require(at_8192 == want(flash_attention=1) and at_4096 == want(),
+            "flash_attention_auto routing")
+    require(torch.equal(out, flash_attention(q, k, v)), "auto at N=8192 is the kernel")
+    require(torch.equal(out4, xla_attention(q4, k4, v4)), "auto at N=4096 is xla_attention")
+    launches["flash_attention"] += at_8192["flash_attention"]
+    res = dict(rows["crossover"], max_abs_err=max(errs))
+    res["shapes"] = rows
+    return res
+
+
+def planted_faults(q, k, v, ref, over, keys: int) -> None:
+    """K5's tolerance against faults the kernel could have, each computed in
+    f32 and rounded to q's dtype: the last key tile skipped and the scale of
+    the TPU's padded D (128^-1/2) must exceed it; P entering P V as one bf16
+    part (not two) is only reported: where the softmax spreads over many
+    keys, its error is expected below the output's rounding."""
+    from kuzu_torch.ops.flash_attention import flash_attention_plain
+
+    d = q.shape[-1]
+    scale = d ** -0.5
+
+    def attention(qq, kk, vv, p_bf16=False):
+        outs = []
+        for h in range(0, qq.shape[0], 4):  # 4 heads at a time: N x N in f32
+            s = (qq[h:h + 4].float() * scale) @ kk[h:h + 4].float().transpose(-1, -2)
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            pv = p.to(torch.bfloat16).float() if p_bf16 else p
+            outs.append((pv @ vv[h:h + 4].float()) / p.sum(-1, keepdim=True))
+        return torch.cat(outs).to(qq.dtype)
+
+    faults = (("last key tile skipped", attention(q, k[:, :-keys], v[:, :-keys]), True),
+              ("padded-D scale", flash_attention_plain(q, k, v, 128 ** -0.5), True),
+              ("P as one bf16 part", attention(q, k, v, p_bf16=True), False))
+    for name, out, must_fail in faults:
+        err, n_over, what = over(out, ref)
+        print(f"  planted fault, {name}: max_abs_err {float(err.max()):.3e}, over tolerance "
+              f"({what}): {n_over} of {err.numel()}"
+              + (" (must be > 0)" if must_fail else " (reported)"))
+        if must_fail:
+            require(n_over > 0, f"K5's tolerance rejects the fault: {name}")
+
+
+def k6_against_plain(label: str, o: torch.Tensor, r: torch.Tensor) -> float:
+    """K6's output against its plain version's (both f32 views of bf16)."""
+    torch.cuda.synchronize()
+    err = (o - r).abs()
+    # the same rounding points; an f32 sum landing on a bf16 rounding edge
+    # flips one ulp and the flip travels down the 16 convs. Random init
+    # leaves the activations of deep nodes small, so the tolerance scales
+    # with the output: one bf16 ulp of the largest value (2^-7 max|ref|)
+    # plus two ulps of the value itself (2^-6 |ref|)
+    top = float(r.abs().max())
+    tol = 2.0**-7 * top + 2.0**-6 * r.abs()
+    ulp = float((err <= 2.0**-7 * r.abs() + 2.0**-9 * top).float().mean())
+    same = float((o == r).float().mean())
+    print(f"K6 {label}: kernel vs plain max_abs_err {float(err.max()):.3e} (max|ref| "
+          f"{top:.3e}), over 2^-7 max|ref| + 2^-6|ref|: {int((err > tol).sum())}, within "
+          f"one ulp: {ulp:.6f}, identical {same:.4f}")
+    require(top > 0 and bool(torch.isfinite(o).all()) and bool((err <= tol).all()),
+            f"K6 {label} within tolerance of its plain version")
+    return float(err.max())
+
+
+C3K2_NODES = (2, 4, 20)  # yolov12x's C3k2 nodes, all c3k=True with n=2
+
+
+def c3k2_phase(dev, det, imgs, launches: dict) -> dict:
+    """K6 on the NHWC inputs of yolov12x's C3k2 nodes, captured from one
+    forward of the phase-5 detector: the kernel against its plain version
+    and both against the executor's node output; times of all three; then
+    the same nodes with random BatchNorm statistics, kernel against plain."""
+    from kuzu_torch.models.yolo import infer
+    from kuzu_torch.ops.fused_c3k2 import (
+        c3k2_weights,
+        fused_c3k2,
+        fused_c3k2_fits,
+        fused_c3k2_plain,
+    )
+
+    seen = {}
+    executor_c3k2 = infer.c3k2
+
+    def capture(p, x, n, c3k_flag, shortcut=True):
+        y = executor_c3k2(p, x, n, c3k_flag, shortcut)
+        seen[p.path] = (p, x, y, n, c3k_flag)
+        return y
+
+    infer.c3k2 = capture
+    try:
+        det.infer(imgs)
+    finally:
+        infer.c3k2 = executor_c3k2
+    torch.cuda.synchronize()
+    nodes = {}
+    for idx in C3K2_NODES:
+        path = f"n{idx}_C3k2"
+        p, x, y, n, flag = seen[path]
+        require(flag and n == 2, f"node {idx} is a C3k2 with c3k=True, n=2")
+        w = c3k2_weights(det.graph.get_submodule(path))
+        xh = x.permute(0, 2, 3, 1)  # channels_last NCHW is contiguous NHWC
+        cin, c, hid, c2 = xh.shape[-1], w[0].shape[1] // 2, w[2].shape[1], w[-2].shape[1]
+        fits = fused_c3k2_fits(cin, c, hid, c2)
+        print(f"K6 node {idx}: x {tuple(xh.shape)} contiguous {xh.is_contiguous()}, c {c}, "
+              f"hid {hid}, c2 {c2}: kernel takes it: {fits}")
+        if fits:
+            nodes[idx] = (p, x, xh.contiguous(), y, w)
+    require(len(nodes) > 0, "the kernel takes a yolov12x node")
+
+    zero_counts()
+    outs = {idx: fused_c3k2(xh, w) for idx, (_, _, xh, _, w) in nodes.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"fused_c3k2 on nodes {list(nodes)}: launches {counts['fused_c3k2']} "
+          f"(want {len(nodes)})")
+    require(counts == want(fused_c3k2=len(nodes)), "fused_c3k2 launch counts")
+    launches["fused_c3k2"] += counts["fused_c3k2"]
+
+    res, errs = {}, []
+    for idx, (p, x, xh, y, w) in nodes.items():
+        out = outs[idx]
+        plain = fused_c3k2_plain(xh, w)
+        execd = y.permute(0, 2, 3, 1)
+        o, r = out.float(), plain.float()
+        err = k6_against_plain(f"node {idx}", o, r)
+        for name, t in (("kernel", o), ("plain", r)):
+            # the JAX test's tolerance (tests/test_yolo_infer.py:101-103) and,
+            # since it is loose where activations are small, the largest error
+            # against the largest output: the executor rounds each conv before
+            # its bf16 bias, a few bf16 ulps of the top value (2^-5)
+            e = execd.float()
+            d = (t - e).abs()
+            ok_all = bool((d <= 0.08 + 0.08 * e.abs()).all())
+            share = float((d <= 0.05 + 0.05 * e.abs()).float().mean())
+            rel_top = float(d.max()) / float(e.abs().max())
+            print(f"  {name} vs executor: max_abs_err {float(d.max()):.3e}, within 0.08 + "
+                  f"0.08|ref|: {ok_all}, within 0.05 + 0.05|ref|: {share:.6f} (> 0.999), max "
+                  f"err / max|ref| {rel_top:.2e} (<= 2^-5)")
+            require(ok_all and share > 0.999 and rel_top <= 2.0**-5,
+                    f"K6 node {idx}: {name} vs executor")
+        errs.append(err)
+        m = xh.shape[0] * xh.shape[1] * xh.shape[2]
+        flops = 2 * m * sum(t.shape[0] * t.shape[1] for t in w[0::2])
+        nbytes = (xh.numel() + out.numel()) * 2 + sum(t.numel() * t.element_size() for t in w)
+        bnd, by = bound(nbytes, flops, PEAK_BF16)
+        with torch.no_grad():
+            r = dict(ms=time_ms(lambda: fused_c3k2(xh, w)),
+                     plain_ms=time_ms(lambda: fused_c3k2_plain(xh, w), reps=3, warmup=1),
+                     bound_ms=bnd, bound_by=by, library_ms=None,
+                     executor_ms=time_ms(lambda: executor_c3k2(p, x, 2, True)))
+        print(f"  node {idx}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, executor "
+              f"{r['executor_ms']:.4f}, bound {bnd:.5f} by {by})")
+        res[idx] = r
+    # the same nodes with random BatchNorm statistics and x ~ N(0, 1): the
+    # seeded detector's BatchNorm is the identity, so its activations shrink
+    # with depth to where SiLU is nearly linear; here each conv's running
+    # variance is its output variance for unit inputs (times 0.5-2), so
+    # activations stay O(1) through all 16 convs
+    import copy
+
+    from kuzu_torch.models.yolo.modules import Conv
+
+    g = torch.Generator().manual_seed(9)
+    for idx, (_, _, xh, _, _) in nodes.items():
+        mod = copy.deepcopy(det.graph.get_submodule(f"n{idx}_C3k2"))
+        with torch.no_grad():
+            for conv in (m for m in mod.modules() if isinstance(m, Conv)):
+                bn, co = conv.bn, conv.bn.num_features
+                w2 = conv.conv.weight.float().pow(2).sum((1, 2, 3)).cpu()
+                bn.running_var.copy_(w2 * (0.5 + 1.5 * torch.rand(co, generator=g)))
+                bn.running_mean.copy_(0.1 * torch.randn(co, generator=g) * w2.sqrt())
+                bn.weight.copy_(0.5 + torch.rand(co, generator=g))
+                bn.bias.copy_(0.5 * torch.randn(co, generator=g))
+        w = c3k2_weights(mod)
+        xr = torch.randn(xh.shape, generator=g).to(dev, torch.bfloat16)
+        errs.append(k6_against_plain(f"node {idx}, random BN, x ~ N(0, 1)",
+                                     fused_c3k2(xr, w).float(),
+                                     fused_c3k2_plain(xr, w).float()))
+    first = min(nodes)
+    out = dict(res[first], max_abs_err=max(errs))
+    out["nodes"] = res
+    return out
+
 # ------------------------------------------------------------------- main
 
 KERNELS = {
@@ -765,6 +1075,8 @@ KERNELS = {
     "fused_ablock": ("kuzu_torch/csrc/fused_ablock.cu", "kuzu/ops/fused_ablock.py:117"),
     "area_attention_bwd": ("kuzu_torch/csrc/area_attention_bwd.cu",
                            "kuzu/ops/flash_attention.py:247"),
+    "flash_attention": ("kuzu_torch/csrc/flash_attention.cu", "kuzu/ops/flash_attention.py:68"),
+    "fused_c3k2": ("kuzu_torch/csrc/fused_c3k2.cu", "kuzu/ops/fused_c3k2.py:194"),
 }
 
 
@@ -792,15 +1104,22 @@ def main() -> int:
     res = kernel_phase(dev)
     launches = dict.fromkeys(COUNTERS, 0)
     slice_check(dev, launches)
-    e2e = full_width(dev, launches)
+    e2e, det, imgs = full_width(dev, launches)
+    res["fused_c3k2"] = c3k2_phase(dev, det, imgs, launches)
+    del det, imgs  # the training phases' peak memory counts training alone
+    torch.cuda.empty_cache()
     train_slice_check(dev, launches)
     train = train_full_width(dev, launches)
+    res["flash_attention"] = flash_phase(dev, launches)
 
     kernels = [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
-             launches=launches[name], **res[name])
+             launches=launches[name],
+             **{k: v for k, v in res[name].items() if k not in ("shapes", "nodes")})
         for name in COUNTERS
     ]
+    print(json.dumps({"flash_attention_shapes": res["flash_attention"]["shapes"],
+                      "fused_c3k2_nodes": res["fused_c3k2"]["nodes"], "card": card}))
     print(json.dumps({"e2e_yolov12x_640_b8": e2e, "card": card}))
     print(json.dumps({"train_yolov12p2x_640_b8": train, "card": card}))
     print(json.dumps({"kernels": kernels}))
@@ -816,8 +1135,14 @@ def _check_smem_formulas() -> None:
     import ctypes
 
     from kuzu_torch import _build
-    from kuzu_torch.ops.flash_attention import attn_bwd_smem_bytes, attn_smem_bytes
+    from kuzu_torch.ops.flash_attention import (
+        FLASH_DS,
+        attn_bwd_smem_bytes,
+        attn_smem_bytes,
+        flash_attention_smem_bytes,
+    )
     from kuzu_torch.ops.fused_ablock import ablock_smem_bytes
+    from kuzu_torch.ops.fused_c3k2 import fused_c3k2_smem_bytes
 
     fa = _build.library("area_attention").kuzu_area_attention_smem
     fab = _build.library("area_attention_bwd").kuzu_area_attention_bwd_smem
@@ -831,6 +1156,16 @@ def _check_smem_formulas() -> None:
                 f"attention backward smem n={n} hd={hd}")
     for na, c, h, hid in ((400, 384, 12, 576), (400, 128, 4, 256), (16, 128, 4, 256)):
         require(fb(na, c, h, hid) == ablock_smem_bytes(na, c, h, hid), f"ablock smem {na}")
+    ff = _build.library("flash_attention").kuzu_flash_attention_smem
+    fc = _build.library("fused_c3k2").kuzu_fused_c3k2_smem
+    ff.restype = fc.restype = ctypes.c_size_t
+    ff.argtypes = [ctypes.c_int] * 2
+    fc.argtypes = []
+    for d in FLASH_DS:
+        for f32, dtype in ((0, torch.bfloat16), (1, torch.float32)):
+            require(ff(d, f32) == flash_attention_smem_bytes(d, dtype),
+                    f"flash attention smem d={d} f32={f32}")
+    require(fc() == fused_c3k2_smem_bytes(), "fused C3k2 smem")
 
 
 if __name__ == "__main__":

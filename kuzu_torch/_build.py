@@ -31,7 +31,8 @@ BASE_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC"
 # Per-source extra flags. The NMS IoU must round exactly as the f32
 # expression of the reference, so contraction into FMA is off there.
 EXTRA_FLAGS = {"nms": ["--fmad=false"]}
-SOURCES = ("nms", "area_attention", "fused_ablock", "area_attention_bwd")
+SOURCES = ("nms", "area_attention", "fused_ablock", "area_attention_bwd", "flash_attention",
+           "fused_c3k2")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -123,3 +124,10 @@ def stream_ptr(t) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def aligned(t):
+    """``t`` contiguous and on a 16-byte boundary, copied where it is not:
+    kernels that move 16-byte vectors fault on a view at an odd offset."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -1,4 +1,5 @@
-// Device building blocks shared by area_attention.cu and fused_ablock.cu.
+// Device building blocks shared by area_attention.cu, area_attention_bwd.cu,
+// fused_ablock.cu, flash_attention.cu and fused_c3k2.cu.
 //
 //   attention_kernel: o = softmax(scale * q_h k_h^T) v_h over head-packed
 //       (G, N, C) tensors, one block per (64 query rows, head, group);
@@ -242,6 +243,34 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int Pending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// 16-byte copy into shared memory that writes zeros where !valid (source
+// size 0); src must still be a valid address.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+               : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory (lanes 8i..8i+7 address the rows
+// of matrix i); lane 4g + t receives row g, columns 2t and 2t + 1 of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// The same, transposed: lane 4g + t receives rows 2t and 2t + 1 of column g.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
 }
 
 // Start copying W rows [k0, k0 + kSlab) into a stage (16-byte vectors).

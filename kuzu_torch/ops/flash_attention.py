@@ -1,14 +1,17 @@
-"""Area attention forward and backward: the CUDA kernels
-``csrc/area_attention.cu`` and ``csrc/area_attention_bwd.cu`` and their plain
-versions (counterpart of ``kuzu/ops/flash_attention.py``).
+"""Attention kernels: area attention forward and backward
+(``csrc/area_attention.cu``, ``csrc/area_attention_bwd.cu``) and flash
+attention (``csrc/flash_attention.cu``), each with its plain version
+(counterpart of ``kuzu/ops/flash_attention.py``).
 
-Replaces ``kuzu/ops/flash_attention.py::area_attention`` (forward) and
-``::area_attention_bwd`` (backward); :class:`AreaAttention` pairs them as
-``area_attention_trainable`` does. q, k, v are head-packed ``(G, N, C)``:
-head h owns channels ``[h*hd, (h+1)*hd)``. Each wrapper runs its plain
-version for a CPU tensor and launches its kernel for a CUDA tensor.
-:func:`xla_attention` is the materialised attention used where the kernels'
-gate fails.
+Replaces ``kuzu/ops/flash_attention.py::area_attention`` (forward),
+``::area_attention_bwd`` (backward) and ``::flash_attention``;
+:class:`AreaAttention` pairs the first two as ``area_attention_trainable``
+does. For area attention q, k, v are head-packed ``(G, N, C)``: head h owns
+channels ``[h*hd, (h+1)*hd)``; flash attention takes ``(BH, N, D)`` with the
+heads folded into the batch. Each wrapper runs its plain version for a CPU
+tensor and launches its kernel for a CUDA tensor. :func:`xla_attention` is
+the materialised attention used where the kernels' gate fails, and the route
+:func:`flash_attention_auto` takes below its crossover.
 """
 
 from __future__ import annotations
@@ -234,11 +237,16 @@ class AreaAttention(torch.autograd.Function):
         return torch.cat([dq, dk], dim=-1), dv, None
 
 
-def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Materialised softmax(QK^T / sqrt(D))V over (BH, N, D), the reference
+def xla_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+) -> torch.Tensor:
+    """Materialised softmax(QK^T * scale)V over (BH, N, D), the reference
     path of ``kuzu/ops/flash_attention.py::xla_attention``: f32 scores,
-    softmax cast to v's dtype, f32 accumulation, output in q's dtype."""
-    s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / (q.shape[-1] ** 0.5))
+    softmax cast to v's dtype, f32 accumulation, output in q's dtype. The
+    default scale is D^-1/2."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return (p.float() @ v.float()).to(q.dtype)
 
@@ -256,3 +264,125 @@ def materialised_area_attention(
 
     out = xla_attention(fold(q), fold(k), fold(v))
     return out.reshape(g, num_heads, n, hd).transpose(1, 2).reshape(g, n, c)
+
+
+# ------------------------------------------------------------ flash attention
+
+BLOCK_K = 128  # the TPU kernel's key tile where N % 128 == 0
+NEG_INF = -1e30  # the running maximum's start value, as the TPU kernel's
+FLASH_ROWS = 64  # query rows per block, kRows in csrc/flash_attention.cu
+FLASH_KEYS = 64  # keys per streamed tile, kKeys
+FLASH_DS = tuple(range(16, 129, 16))  # head widths the kernel is built for
+
+
+def _key_block(n: int) -> int:
+    """The TPU kernel's key tile for sequence length ``n``: 128 where N is a
+    multiple of 128, else one block of all N keys, which it allows for
+    N <= 1024 with N % 16 == 0 (``kuzu/ops/flash_attention.py:88-95``)."""
+    if n % BLOCK_K == 0:
+        return BLOCK_K
+    if n <= 1024 and n % 16 == 0:
+        return n
+    raise ValueError(f"flash_attention takes N % 128 == 0, or N <= 1024 with N % 16 == 0; "
+                     f"got N={n}")
+
+
+def flash_attention_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Shared memory of one flash-attention block (``flash_smem_bytes`` in
+    ``csrc/flash_attention.cu``). bf16: two cp.async stages of a K and a V
+    tile, 64 keys each, rows padded to D + 8. f32: the scaled Q tile and one
+    K and one V tile, rows padded to D + 1, and the 64 x 64 tile of P."""
+    if dtype == torch.float32:
+        return (3 * FLASH_ROWS * (d + 1) + FLASH_ROWS * (FLASH_KEYS + 1)) * 4
+    return 2 * 2 * FLASH_KEYS * (d + 8) * 2
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+) -> torch.Tensor:
+    """The TPU kernel's arithmetic (``_flash_kernel``) in plain PyTorch: q
+    cast to f32 and scaled, f32 scores against each key tile in turn, the
+    running maximum m (from -1e30) and sum l with acc rescaled by
+    exp(m - m_new), f32 P V, then acc / max(l, 1e-30) cast to q's dtype."""
+    bh, n, d = q.shape
+    bk = _key_block(n)
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    qs = q.float() * scale
+    acc = torch.zeros((bh, n, d), dtype=torch.float32, device=q.device)
+    m = torch.full((bh, n, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh, n, 1), dtype=torch.float32, device=q.device)
+    for j0 in range(0, n, bk):
+        s = qs @ k[:, j0:j0 + bk].float().transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p @ v[:, j0:j0 + bk].float()
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def _flash_kernel_fn():
+    fn = _build.library("flash_attention").kuzu_flash_attention
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(
+    q: torch.Tensor,  # (BH, N, D), bf16 or f32
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Non-causal softmax(q k^T * scale) v with no N x N tensor anywhere,
+    (BH, N, D) in q's dtype. Takes the shapes the TPU kernel takes (N a
+    multiple of 128, or N <= 1024 with N % 16 == 0) and raises on the rest;
+    the default scale is D^-1/2 of the unpadded D."""
+    bh, n, d = q.shape
+    _key_block(n)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    if q.device.type == "cpu":
+        flash_attention.plain_calls += 1
+        return flash_attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention takes CPU or CUDA tensors, got {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != q.dtype or t.device != q.device for t in (k, v)):
+        raise ValueError("flash_attention kernel takes bf16 or f32 q/k/v of one dtype "
+                         "on one device")
+    if d not in FLASH_DS:
+        raise ValueError(f"flash_attention kernel takes D in {FLASH_DS}, got D={d}")
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    err = _flash_kernel_fn()(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), bh, n, d,
+        int(q.dtype == torch.float32), float(scale), _build.stream_ptr(q),
+    )
+    _build.check(err, "kuzu_flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+flash_attention.plain_calls = 0
+
+
+def flash_attention_auto(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, min_seq: int = 8192
+) -> torch.Tensor:
+    """The flash kernel only where its O(N) memory matters, as
+    ``kuzu/ops/flash_attention.py::flash_attention_auto``: for a tensor on
+    the card with N >= ``min_seq`` and N % 128 == 0; :func:`xla_attention`
+    otherwise (the JAX function's "backend is the TPU" term becomes "the
+    tensor is on the card", so the CPU takes the materialised path in both
+    packages)."""
+    n = q.shape[1]
+    if q.is_cuda and n >= min_seq and n % BLOCK_K == 0:
+        return flash_attention(q, k, v)
+    return xla_attention(q, k, v)

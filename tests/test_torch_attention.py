@@ -7,13 +7,16 @@ agree to one bf16 rounding: atol/rtol 2e-2 on values of order 1, and most
 entries are bit-identical.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from kuzu_torch.ops import flash_attention as t_fa
+# the module itself: the package attribute of that name is the function it exports
+t_fa = importlib.import_module("kuzu_torch.ops.flash_attention")
 from kuzu_torch.ops import fused_ablock as t_fb
 from kuzu_torch.testing import f32
 from torch_parity import numpy_tree

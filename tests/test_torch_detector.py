@@ -6,13 +6,16 @@ route and node 8 (C=128, na=16) the fused-ABlock route, on both sides.
 NMS runs at conf_thres=0.001: random-init scores are ~sigmoid(-4.6) ~ 0.01.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from kuzu_torch.ops import flash_attention as t_fa
+# the module itself: the package attribute of that name is the function it exports
+t_fa = importlib.import_module("kuzu_torch.ops.flash_attention")
 from kuzu_torch.ops import fused_ablock as t_fb
 from kuzu_torch.ops import nms_kernel as t_nk
 from kuzu_torch.ops.nms import non_max_suppression as t_nms

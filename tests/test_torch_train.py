@@ -11,13 +11,16 @@ Tolerances, each with its reason:
 - the assigner's masks, indices and labels are decisions: identical.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from kuzu_torch.ops import flash_attention as t_fa
+# the module itself: the package attribute of that name is the function it exports
+t_fa = importlib.import_module("kuzu_torch.ops.flash_attention")
 from kuzu_torch.testing import SyntheticDetectionDataset, f32
 
 
