@@ -10,7 +10,8 @@ importing the package needs neither ``nvcc`` nor a GPU.
 
 Binding: every C entry takes pointers and the CUDA stream as
 ``ctypes.c_void_p``, launches on that stream, and returns
-``cudaGetLastError()``; :func:`check` raises on anything but 0.
+``cudaGetLastError()``; :func:`function` binds it once, :func:`check` raises
+on anything but 0.
 """
 
 from __future__ import annotations
@@ -29,12 +30,16 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 # Per-source extra flags. The NMS IoU must round exactly as the f32
-# expression of the reference, so contraction into FMA is off there.
-EXTRA_FLAGS = {"nms": ["--fmad=false"]}
+# expression of the reference, so contraction into FMA is off there. The
+# sources of attention_fwd.cuh take cuTensorMapEncodeTiled from the driver
+# through dlopen.
+EXTRA_FLAGS = {"nms": ["--fmad=false"], "area_attention": ["-ldl"], "fused_ablock": ["-ldl"],
+               "flash_attention": ["-ldl"]}
 SOURCES = ("nms", "area_attention", "fused_ablock", "area_attention_bwd", "flash_attention",
            "fused_c3k2")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -108,6 +113,18 @@ def library(name: str) -> ctypes.CDLL:
             _finish(name, job)
         _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return _libs[name]
+
+
+def function(name: str, symbol: str, argtypes: list, restype=ctypes.c_int):
+    """C function ``symbol`` of ``csrc/<name>.cu`` with its ctypes signature,
+    bound once per library and kept (so a launch pays no binding)."""
+    key = (name, symbol)
+    if key not in _fns:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _fns[key] = fn
+    return _fns[key]
 
 
 def check(err: int, what: str) -> None:

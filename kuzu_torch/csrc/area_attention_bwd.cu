@@ -276,10 +276,12 @@ template <int HD>
 int launch_bwd(const void* q, int q_stride, const void* k, int k_stride, const void* v,
                int v_stride, const void* dout, int do_stride, void* dq, void* dk, void* dv,
                int g, int n, int c, int heads, float scale, cudaStream_t stream) {
+  // once per instantiation: allow any block size up to the limit (each
+  // launch still asks only for what its N needs)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (attr != cudaSuccess) return (int)attr;
   const size_t smem = attn_bwd_smem_bytes(n, HD);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   attention_bwd_kernel<HD><<<dim3(heads, g), 32 * kBwdWarps, smem, stream>>>(
       static_cast<const bf16*>(q), q_stride, static_cast<const bf16*>(k), k_stride,
       static_cast<const bf16*>(v), v_stride, static_cast<const bf16*>(dout), do_stride,

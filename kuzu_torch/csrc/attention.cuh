@@ -1,16 +1,15 @@
 // Device building blocks shared by area_attention.cu, area_attention_bwd.cu,
-// fused_ablock.cu, flash_attention.cu and fused_c3k2.cu.
+// fused_ablock.cu, flash_attention.cu and fused_c3k2.cu (the forward
+// attention kernel itself is attention_fwd.cuh):
 //
-//   attention_kernel: o = softmax(scale * q_h k_h^T) v_h over head-packed
-//       (G, N, C) tensors, one block per (64 query rows, head, group);
+//   bf16 helpers, mma.sync m16n8k16, cp.async and ldmatrix wrappers;
 //   rows_gemm: acc = A W + bias for a tile of 32 rows, A (bf16) in shared
 //       memory, W (bf16, K x N row-major) streamed from global memory (it
 //       stays in L2: every block reads the same weights) through a two-stage
 //       cp.async pipeline, the epilogue given as a functor.
 // Products run on the tensor cores in bf16 with f32 accumulation. bf16 x bf16
 // products are exact in f32, so against the reference's f32 arithmetic only
-// the order of the sums differs, plus a few f32-rounding-size steps in the
-// attention (see attention_kernel).
+// the order of the sums differs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,22 +27,15 @@ __device__ __forceinline__ bf16 to_bf(const float x) { return __float2bfloat16_r
 // bf16 + bf16 rounded to bf16, as an elementwise add in bf16 does.
 __device__ __forceinline__ bf16 add_bf(const bf16 a, const bf16 b) { return to_bf(bf(a) + bf(b)); }
 
+// Shared memory one block may use on Hopper (227 KB).
+constexpr int kSmemLimit = 232448;
+
 // Shared-memory parts start on 128-byte boundaries (WMMA wants 32).
 __host__ __device__ inline size_t r128(size_t b) { return (b + 127) / 128 * 128; }
 
-// ------------------------------------------------------------ attention_kernel
-
-constexpr int kAttnWarps = 4;                  // warps per attention block
-constexpr int kAttnRows = 16 * kAttnWarps;     // query rows per block
-constexpr int kMaxHd = 64;                     // head width: 16, 32, 48 or 64
-
-// Row stride of K_h / V_h in shared memory: hd + 8 bf16, so the eight rows a
-// warp reads at once fall in different banks.
+// Row stride of a K_h / V_h tile in shared memory (area_attention_bwd.cu):
+// hd + 8 bf16, so the eight rows a warp reads at once fall in different banks.
 __host__ __device__ inline int kv_stride(int hd) { return hd + 8; }
-
-__host__ __device__ inline size_t attn_smem_bytes(int n, int hd) {
-  return r128((size_t)2 * n * kv_stride(hd) * 2);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -65,155 +57,6 @@ __device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4], uint32
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// o[g, :, h] = softmax(scale * q[g, :, h] k[g, :, h]^T) v[g, :, h] for query
-// rows [64 * blockIdx.x, + 64), head h = blockIdx.y, group g = blockIdx.z;
-// heads are packed along the channels (head h owns columns [h*hd, (h+1)*hd)),
-// token j of tensor t is at t + (g * n + j) * t_stride. n % 16 == 0,
-// hd % 16 == 0, hd <= 64. Shared memory: attn_smem_bytes(n, hd).
-//
-// K_h and V_h of the group go to shared memory once per block; each warp then
-// owns 16 query rows and keeps its scores in registers (FlashAttention-2's
-// register layout, two passes over the keys instead of a running rescale):
-//   pass 1: S = Q K^T tile by tile, the row maxima m;
-//   pass 2: S again, e = exp(scale * S - m), the row sums, and O += e V, e
-//           entering the tensor cores as two bf16 parts (e_hi + e_lo, about
-//           16 significant bits);
-//   o = bf16(O * (1 / sum)).
-// Against the reference (q scaled first, p = e / sum, o = p V in f32) the
-// scale multiplies the dot product, the normalisation comes after P V as a
-// reciprocal multiply, and e carries ~16 bits: differences of f32-rounding
-// size before the single bf16 rounding of o.
-__global__ void __launch_bounds__(32 * kAttnWarps)
-attention_kernel(const bf16* __restrict__ q, int q_stride, const bf16* __restrict__ k,
-                 int k_stride, const bf16* __restrict__ v, int v_stride,
-                 bf16* __restrict__ o, int o_stride, int n, int hd, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y, col = h * hd, ks = kv_stride(hd);
-  const size_t tok0 = (size_t)blockIdx.z * n;
-  bf16* kh = reinterpret_cast<bf16*>(smem);
-  bf16* vh = kh + (size_t)n * ks;
-
-  // K_h, V_h -> shared memory, in 16-byte vectors where all is aligned
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(k + col) |
-                         reinterpret_cast<uintptr_t>(v + col);
-  const int vw = (k_stride % 8 == 0 && v_stride % 8 == 0 && addr % 16 == 0) ? 8 : 1;
-  const int hv = hd / vw;
-  for (int i = threadIdx.x; i < n * hv; i += 32 * kAttnWarps) {
-    const int j = i / hv, d = (i - j * hv) * vw;
-    const bf16* ksrc = k + (tok0 + j) * k_stride + col + d;
-    const bf16* vsrc = v + (tok0 + j) * v_stride + col + d;
-    if (vw == 8) {
-      *reinterpret_cast<int4*>(kh + j * ks + d) = *reinterpret_cast<const int4*>(ksrc);
-      *reinterpret_cast<int4*>(vh + j * ks + d) = *reinterpret_cast<const int4*>(vsrc);
-    } else {
-      kh[j * ks + d] = *ksrc;
-      vh[j * ks + d] = *vsrc;
-    }
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kAttnRows + warp * 16;
-  if (r0 >= n) return;  // no barrier follows
-  const int hk = hd / 16;
-
-  // this warp's 16 query rows as A fragments (rows past n are zero)
-  uint32_t qa[kMaxHd / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kMaxHd / 16; ++kk) {
-    if (kk >= hk) break;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + g + 8 * (e & 1), c = col + kk * 16 + 2 * t + 8 * (e >> 1);
-      qa[kk][e] = r < n ? *reinterpret_cast<const uint32_t*>(q + (tok0 + r) * q_stride + c)
-                        : 0u;
-    }
-  }
-
-  // S for keys [j0, j0 + 8): rows g, g+8 x keys 2t, 2t+1
-  auto score_tile = [&](int j0, float s[4]) {
-    s[0] = s[1] = s[2] = s[3] = 0.0f;
-    const bf16* krow = kh + (size_t)(j0 + g) * ks + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < kMaxHd / 16; ++kk) {
-      if (kk >= hk) break;
-      mma16816(s, qa[kk], *reinterpret_cast<const uint32_t*>(krow + kk * 16),
-               *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8));
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[e] = __fmul_rn(s[e], scale);
-  };
-
-  // pass 1: row maxima (each row's 4 lanes share them through shuffles)
-  float m0 = __int_as_float(0xff800000), m1 = m0;  // -inf
-  for (int j0 = 0; j0 < n; j0 += 8) {
-    float s[4];
-    score_tile(j0, s);
-    m0 = fmaxf(m0, fmaxf(s[0], s[1]));
-    m1 = fmaxf(m1, fmaxf(s[2], s[3]));
-  }
-#pragma unroll
-  for (int x = 1; x <= 2; x <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, x));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, x));
-  }
-
-  // pass 2: e = exp(s - m), sums, O += e V over 16-key blocks
-  float acc[kMaxHd / 8][4] = {};
-  float sum0 = 0.0f, sum1 = 0.0f;
-  for (int j0 = 0; j0 < n; j0 += 16) {
-    float s[2][4];
-    score_tile(j0, s[0]);
-    score_tile(j0 + 8, s[1]);
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      s[u][0] = expf(s[u][0] - m0);
-      s[u][1] = expf(s[u][1] - m0);
-      s[u][2] = expf(s[u][2] - m1);
-      s[u][3] = expf(s[u][3] - m1);
-      sum0 += s[u][0] + s[u][1];
-      sum1 += s[u][2] + s[u][3];
-    }
-    // the two score tiles' layout is the A layout of e over this key block
-    uint32_t ahi[4], alo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x0 = s[e >> 1][2 * (e & 1)], x1 = s[e >> 1][2 * (e & 1) + 1];
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-      ahi[e] = *reinterpret_cast<const uint32_t*>(&hi);
-      alo[e] = pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
-    }
-    const bf16* vrow = vh + (size_t)(j0 + 2 * t) * ks + g;
-#pragma unroll
-    for (int dt = 0; dt < kMaxHd / 8; ++dt) {
-      if (dt >= hd / 8) break;
-      const bf16* vp = vrow + dt * 8;
-      const uint32_t b0 = pack_bf16(vp[0], vp[ks]);
-      const uint32_t b1 = pack_bf16(vp[8 * ks], vp[9 * ks]);
-      mma16816(acc[dt], ahi, b0, b1);
-      mma16816(acc[dt], alo, b0, b1);
-    }
-  }
-#pragma unroll
-  for (int x = 1; x <= 2; x <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
-  }
-  const float inv0 = __frcp_rn(sum0), inv1 = __frcp_rn(sum1);
-#pragma unroll
-  for (int dt = 0; dt < kMaxHd / 8; ++dt) {
-    if (dt >= hd / 8) break;
-    const int c = col + dt * 8 + 2 * t;
-    if (r0 + g < n)
-      *reinterpret_cast<uint32_t*>(o + (tok0 + r0 + g) * o_stride + c) =
-          pack_bf16(__fmul_rn(acc[dt][0], inv0), __fmul_rn(acc[dt][1], inv0));
-    if (r0 + g + 8 < n)
-      *reinterpret_cast<uint32_t*>(o + (tok0 + r0 + g + 8) * o_stride + c) =
-          pack_bf16(__fmul_rn(acc[dt][2], inv1), __fmul_rn(acc[dt][3], inv1));
-  }
 }
 
 // ---------------------------------------------------------------- rows_gemm

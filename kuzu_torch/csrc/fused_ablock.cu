@@ -13,18 +13,18 @@
 // and the attention needs every key of its chunk before any query row can go
 // on, so the block is three launches:
 //   1. qk_gemm_kernel: qk for all tokens, 32 rows per block;
-//   2. attention_kernel (attention.cuh, shared with area_attention.cu): o for
-//      every (64 query rows, head, chunk), scores in registers;
+//   2. attention_fwd_kernel (attention_fwd.cuh, shared with K3 and K5): o
+//      for every (128 query rows, head, chunk), wgmma and TMA, online softmax;
 //   3. mlp_kernel: per 32-row tile, o + pe, the projection, both residuals
 //      and the MLP with the tile's activations in shared memory.
 // qk and o pass through global memory (2 x 9.8 MB at yolov12x@640 batch 8).
 // Weights stream from L2 through the cp.async pipeline of rows_gemm. Every
-// product is this file's own tensor-core code (WMMA / mma.sync). What bounds
+// product is this repository's own tensor-core code (WMMA, wgmma). What bounds
 // it on this card: operations, about 2 (2C^2 + C^2 + 2 C h) FLOPs per token
 // plus 4 na C per token of attention. The bf16 rounding points are those of
 // the reference kernel (fused_ablock.py:52-85).
 
-#include "attention.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
@@ -52,8 +52,8 @@ __host__ __device__ inline size_t mlp_smem_bytes(int c, int hidden) {
   return 2 * tile_bytes(c) + tile_bytes(hidden) + 2 * wslab_bytes(wide) + kScratchBytes;
 }
 
-__host__ __device__ inline size_t ablock_smem_bytes(int na, int c, int hd, int hidden) {
-  const size_t a = kuzu::attn_smem_bytes(na, hd), b = qk_smem_bytes(c),
+__host__ __device__ inline size_t ablock_smem_bytes(int c, int hd, int hidden) {
+  const size_t a = kuzu::fwd::attn_fwd_smem_bytes(hd), b = qk_smem_bytes(c),
                m = mlp_smem_bytes(c, hidden);
   return a > b ? (a > m ? a : m) : (b > m ? b : m);
 }
@@ -129,8 +129,8 @@ mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ o,
 
 }  // namespace
 
-extern "C" size_t kuzu_fused_ablock_smem(int na, int c, int heads, int hidden) {
-  return ablock_smem_bytes(na, c, c / heads, hidden);
+extern "C" size_t kuzu_fused_ablock_smem(int c, int heads, int hidden) {
+  return ablock_smem_bytes(c, c / heads, hidden);
 }
 
 extern "C" int kuzu_fused_ablock(const void* x, const void* v, const void* pe,
@@ -142,30 +142,27 @@ extern "C" int kuzu_fused_ablock(const void* x, const void* v, const void* pe,
   if (g <= 0 || na <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = g * na, hd = c / heads;
+  // once per kernel: allow any block size up to the limit (each launch
+  // still asks only for what its shape needs)
+  static const cudaError_t attr1 = cudaFuncSetAttribute(
+      qk_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kuzu::kSmemLimit);
+  static const cudaError_t attr3 = cudaFuncSetAttribute(
+      mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kuzu::kSmemLimit);
+  if (attr1 != cudaSuccess) return (int)attr1;
+  if (attr3 != cudaSuccess) return (int)attr3;
   const size_t smem1 = qk_smem_bytes(c);
-  cudaError_t err = cudaFuncSetAttribute(
-      qk_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
   qk_gemm_kernel<<<(m + kRows - 1) / kRows, kThreads, smem1, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqk),
       static_cast<const float*>(bqk), static_cast<bf16*>(qk), m, c);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const size_t smem2 = kuzu::attn_smem_bytes(na, hd);
-  err = cudaFuncSetAttribute(kuzu::attention_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (err != cudaSuccess) return (int)err;
   const bf16* qkp = static_cast<const bf16*>(qk);
-  dim3 grid2((na + kuzu::kAttnRows - 1) / kuzu::kAttnRows, heads, g);
-  kuzu::attention_kernel<<<grid2, 32 * kuzu::kAttnWarps, smem2, s>>>(
-      qkp, 2 * c, qkp + c, 2 * c, static_cast<const bf16*>(v), c, static_cast<bf16*>(o), c,
-      na, hd, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = (cudaError_t)kuzu::attention_fwd(qkp, 2 * c, qkp + c, 2 * c, v, c, o, c, g, na, heads,
+                                          hd, scale, s);
+  if (err != cudaSuccess) return (int)err;
 
   const size_t smem3 = mlp_smem_bytes(c, hidden);
-  err = cudaFuncSetAttribute(mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem3);
-  if (err != cudaSuccess) return (int)err;
   mlp_kernel<<<(m + kRows - 1) / kRows, kThreads, smem3, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(o), static_cast<const bf16*>(pe),
       static_cast<const bf16*>(wp), static_cast<const float*>(bp),

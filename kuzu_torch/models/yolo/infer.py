@@ -21,7 +21,7 @@ from torch import nn
 from kuzu_torch.models.yolo import modules as M
 from kuzu_torch.ops.flash_attention import (
     area_attention,
-    area_attention_fits,
+    area_attention_fwd_fits,
     materialised_area_attention,
 )
 from kuzu_torch.ops.fused_ablock import (
@@ -117,7 +117,7 @@ def aattn(p: _P, x, num_heads: int, area: int):
     qk_t = M.nhwc_tokens(qk, area)
     v_t = M.nhwc_tokens(v, area)
     q, k = qk_t[..., :dim], qk_t[..., dim:]
-    if area_attention_fits(na, dim, num_heads):
+    if area_attention_fwd_fits(na, dim, num_heads):
         out = area_attention(q, k, v_t, num_heads)
     else:
         out = materialised_area_attention(q, k, v_t, num_heads)

@@ -37,7 +37,7 @@ from torch import nn
 
 from kuzu_torch.ops.flash_attention import (
     AreaAttention,
-    area_attention_fits,
+    area_attention_train_fits,
     materialised_area_attention,
 )
 
@@ -180,7 +180,7 @@ class AAttn(nn.Module):
     """Area attention: qk and v 1x1 convs, 5x5 depthwise ``pe`` on v, and the
     ``proj`` 1x1 conv; areas are contiguous chunks of the row-major H*W axis.
 
-    Route: where :func:`area_attention_fits` holds, :class:`AreaAttention`
+    Route: where :func:`area_attention_train_fits` holds, :class:`AreaAttention`
     (the K3 forward and K4 backward kernels on the card for bf16, their plain
     versions on the CPU), in training as in evaluation; elsewhere, and for
     other dtypes on the card (the kernels take bf16), the materialised
@@ -206,7 +206,7 @@ class AAttn(nn.Module):
         area = self.area if self.area > 0 else 1
         na = (h * w) // area
         qk_t, v_t = nhwc_tokens(qk, area), nhwc_tokens(v, area)
-        if area_attention_fits(na, dim, heads) and (
+        if area_attention_train_fits(na, dim, heads) and (
                 x.device.type == "cpu" or x.dtype == torch.bfloat16):
             out = AreaAttention.apply(qk_t, v_t, heads)
         else:

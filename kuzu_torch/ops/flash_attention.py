@@ -24,17 +24,26 @@ from kuzu_torch import _build
 
 # Shared memory one block may use on Hopper (232,448 bytes).
 SMEM_LIMIT = 227 * 1024
-MAX_HD = 64  # kMaxHd in csrc/attention.cuh
+FWD_DS = tuple(range(16, 129, 16))  # head widths of the forward kernel (attention_fwd.cuh)
+MAX_HD = 64  # the backward kernel's widest head (launch_bwd in csrc/area_attention_bwd.cu)
+FWD_ROWS = 128  # query rows per forward block, kRowsQ
+FWD_KEYS = 64  # keys per streamed K/V tile, kKeys
+FWD_STAGES = 3  # depth of the K/V ring, kStages
+# the reference executor's term for its area-attention kernel: the N x N f32
+# scores of one group within 8 MiB of VMEM (kuzu/models/yolo/infer.py:279-283)
+JAX_SCORES_BYTES = 8 * 2**20
 
 
 def _r128(b: int) -> int:
     return (b + 127) // 128 * 128
 
 
-def attn_smem_bytes(n: int, hd: int) -> int:
-    """Shared memory of one attention block (``attn_smem_bytes`` in
-    ``csrc/attention.cuh``): K_h and V_h in bf16, rows padded to hd + 8."""
-    return _r128(2 * n * (hd + 8) * 2)
+def attn_fwd_smem_bytes(hd: int) -> int:
+    """Shared memory of one forward-attention block (``attn_fwd_smem_bytes``
+    in ``csrc/attention_fwd.cuh``): 1024 bytes to align the swizzled panels,
+    the 128-row Q tile, FWD_STAGES K and V tiles of 64 keys, 128 bytes of
+    barriers. It does not depend on N."""
+    return 1024 + FWD_ROWS * hd * 2 + FWD_STAGES * 2 * FWD_KEYS * hd * 2 + 128
 
 
 def attn_bwd_smem_bytes(n: int, hd: int) -> int:
@@ -44,20 +53,32 @@ def attn_bwd_smem_bytes(n: int, hd: int) -> int:
     return 4 * _r128(n * (hd + 8) * 2) + _r128(3 * n * 4)
 
 
-def area_attention_fits(n: int, c: int, num_heads: int) -> bool:
-    """Shapes both kernels take: head widths of 16, 32, 48 or 64 and N a
-    multiple of 16 (the tensor-core tiles), and each kernel's block within
-    the shared memory (the forward's K_h and V_h, the backward's Q_h, K_h,
-    V_h and dO_h). ``n % 16`` is also the reference gate's term, so the port
-    routes each node as the JAX executor does; the TPU's 8 MiB VMEM term
-    becomes the shared-memory limit."""
+def area_attention_fwd_fits(n: int, c: int, num_heads: int) -> bool:
+    """The inference route's gate (``infer.aattn``): the reference
+    executor's terms for its kernel, ``N % 16 == 0`` and ``N^2 * 4 <= 8 MiB``
+    (``kuzu/models/yolo/infer.py:279-283``), so both executors route every
+    node alike, and the forward kernel's own: head widths of 16-128 in steps
+    of 16, its block within the shared memory."""
     hd = c // num_heads
     return (
         c % num_heads == 0
-        and hd % 16 == 0
-        and hd <= MAX_HD
+        and hd in FWD_DS
         and n % 16 == 0
-        and max(attn_smem_bytes(n, hd), attn_bwd_smem_bytes(n, hd)) <= SMEM_LIMIT
+        and n * n * 4 <= JAX_SCORES_BYTES
+        and attn_fwd_smem_bytes(hd) <= SMEM_LIMIT
+    )
+
+
+def area_attention_train_fits(n: int, c: int, num_heads: int) -> bool:
+    """The training route's gate (``AAttn.forward``, the forward and backward
+    kernels as a pair): :func:`area_attention_fwd_fits` and the backward
+    kernel's limits, head widths up to 64 and its block (Q_h, K_h, V_h, dO_h
+    of the whole group) within the shared memory."""
+    hd = c // num_heads
+    return (
+        area_attention_fwd_fits(n, c, num_heads)
+        and hd <= MAX_HD
+        and attn_bwd_smem_bytes(n, hd) <= SMEM_LIMIT
     )
 
 
@@ -82,12 +103,9 @@ def area_attention_plain(
 
 
 def _kernel_fn():
-    fn = _build.library("area_attention").kuzu_area_attention
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("area_attention", "kuzu_area_attention", [
+        ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p])
 
 
 def _row_stride(t: torch.Tensor, n: int) -> int:
@@ -95,6 +113,16 @@ def _row_stride(t: torch.Tensor, n: int) -> int:
     if t.stride(2) != 1 or t.stride(0) != n * t.stride(1):
         raise ValueError(f"unsupported strides {t.stride()} for area_attention")
     return t.stride(1)
+
+
+def _tma_stride(t: torch.Tensor, n: int) -> int:
+    """Row stride of a forward kernel input: the kernel reads it through a
+    TMA tensor map, which takes a 16-byte aligned base and row stride."""
+    stride = _row_stride(t, n)
+    if t.data_ptr() % 16 or (stride * t.element_size()) % 16:
+        raise ValueError(f"area_attention kernel takes 16-byte aligned rows; got base "
+                         f"{t.data_ptr() % 16} bytes past a boundary, row stride {stride}")
+    return stride
 
 
 def area_attention(
@@ -115,13 +143,13 @@ def area_attention(
         raise ValueError(f"area_attention takes CPU or CUDA tensors, got {q.device}")
     if not all(t.dtype == torch.bfloat16 and t.device == q.device for t in (q, k, v)):
         raise ValueError("area_attention kernel takes bf16 q/k/v on one device")
-    if not area_attention_fits(n, c, num_heads):
+    if not area_attention_fwd_fits(n, c, num_heads):
         raise ValueError(f"area_attention kernel cannot take N={n}, C={c}, "
                          f"heads={num_heads}")
     out = torch.empty((g, n, c), dtype=q.dtype, device=q.device)
     err = _kernel_fn()(
-        _build.ptr(q), _row_stride(q, n), _build.ptr(k), _row_stride(k, n),
-        _build.ptr(v), _row_stride(v, n), _build.ptr(out), g, n, c, num_heads,
+        _build.ptr(q), _tma_stride(q, n), _build.ptr(k), _tma_stride(k, n),
+        _build.ptr(v), _tma_stride(v, n), _build.ptr(out), g, n, c, num_heads,
         float(scale), _build.stream_ptr(q),
     )
     _build.check(err, "kuzu_area_attention")
@@ -165,11 +193,9 @@ def area_attention_bwd_plain(
 
 
 def _bwd_kernel_fn():
-    fn = _build.library("area_attention_bwd").kuzu_area_attention_bwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("area_attention_bwd", "kuzu_area_attention_bwd", [
+        ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p])
 
 
 def area_attention_bwd(
@@ -191,7 +217,7 @@ def area_attention_bwd(
         raise ValueError(f"area_attention_bwd takes CPU or CUDA tensors, got {q.device}")
     if not all(t.dtype == torch.bfloat16 and t.device == q.device for t in (q, k, v, do)):
         raise ValueError("area_attention_bwd kernel takes bf16 q/k/v/do on one device")
-    if not area_attention_fits(n, c, num_heads):
+    if not area_attention_train_fits(n, c, num_heads):
         raise ValueError(f"area_attention_bwd kernel cannot take N={n}, C={c}, "
                          f"heads={num_heads}")
     if do.stride(2) != 1 or do.stride(0) != n * do.stride(1):
@@ -270,9 +296,8 @@ def materialised_area_attention(
 
 BLOCK_K = 128  # the TPU kernel's key tile where N % 128 == 0
 NEG_INF = -1e30  # the running maximum's start value, as the TPU kernel's
-FLASH_ROWS = 64  # query rows per block, kRows in csrc/flash_attention.cu
-FLASH_KEYS = 64  # keys per streamed tile, kKeys
-FLASH_DS = tuple(range(16, 129, 16))  # head widths the kernel is built for
+FLASH_ROWS = 64  # query rows per f32 block, kRows in csrc/flash_attention.cu
+FLASH_DS = FWD_DS  # head widths the kernels are built for
 
 
 def _key_block(n: int) -> int:
@@ -289,12 +314,13 @@ def _key_block(n: int) -> int:
 
 def flash_attention_smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Shared memory of one flash-attention block (``flash_smem_bytes`` in
-    ``csrc/flash_attention.cu``). bf16: two cp.async stages of a K and a V
-    tile, 64 keys each, rows padded to D + 8. f32: the scaled Q tile and one
-    K and one V tile, rows padded to D + 1, and the 64 x 64 tile of P."""
+    ``csrc/flash_attention.cu``). bf16: the forward-attention kernel's
+    (:func:`attn_fwd_smem_bytes`). f32: the scaled Q tile, two cp.async
+    stages of a K and a V tile, rows padded to D + 4, and the 64 x 64 tile of
+    P, rows padded to 68."""
     if dtype == torch.float32:
-        return (3 * FLASH_ROWS * (d + 1) + FLASH_ROWS * (FLASH_KEYS + 1)) * 4
-    return 2 * 2 * FLASH_KEYS * (d + 8) * 2
+        return (5 * FLASH_ROWS * (d + 4) + FLASH_ROWS * (FWD_KEYS + 4)) * 4
+    return attn_fwd_smem_bytes(d)
 
 
 def flash_attention_plain(
@@ -324,11 +350,8 @@ def flash_attention_plain(
 
 
 def _flash_kernel_fn():
-    fn = _build.library("flash_attention").kuzu_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                                ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("flash_attention", "kuzu_flash_attention", [
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention(

@@ -19,7 +19,13 @@ import ctypes
 import torch
 
 from kuzu_torch import _build
-from kuzu_torch.ops.flash_attention import MAX_HD, SMEM_LIMIT, _r128, attn_smem_bytes
+from kuzu_torch.ops.flash_attention import (
+    FWD_DS,
+    JAX_SCORES_BYTES,
+    SMEM_LIMIT,
+    _r128,
+    attn_fwd_smem_bytes,
+)
 
 
 def fold_conv_bn(weight: torch.Tensor, bn: torch.nn.BatchNorm2d, eps: float = 1e-3):
@@ -57,33 +63,35 @@ def _stages_bytes(cols: int) -> int:
     return 2 * _r128(SLAB * (cols + 8) * 2)
 
 
-def ablock_smem_bytes(na: int, c: int, heads: int, hidden: int) -> int:
+def ablock_smem_bytes(c: int, heads: int, hidden: int) -> int:
     """Largest shared memory of the kernel's three launches
-    (``ablock_smem_bytes`` in ``csrc/fused_ablock.cu``): attention, the qk
-    GEMM, and the projection + MLP with its three activation tiles."""
+    (``ablock_smem_bytes`` in ``csrc/fused_ablock.cu``), none of which
+    depends on the chunk's length: attention, the qk GEMM, and the
+    projection + MLP with its three activation tiles."""
     qk = _tile_bytes(c) + _stages_bytes(2 * c) + SCRATCH
     mlp = 2 * _tile_bytes(c) + _tile_bytes(hidden) + _stages_bytes(max(c, hidden)) + SCRATCH
-    return max(attn_smem_bytes(na, c // heads), qk, mlp)
+    return max(attn_fwd_smem_bytes(c // heads), qk, mlp)
 
 
 def fused_ablock_fits(na: int, c: int, heads: int, hidden: int) -> bool:
-    """Shapes the kernel takes. ``C % 128``, ``hd % 8`` and ``na % 16`` are
-    the reference gate's terms (``infer.py:315-321``), kept so that the port
-    routes each node as the JAX executor does. The kernel adds: head widths
-    of 16-64 in steps of 16 for the attention, ``hidden % 32`` and widths up
-    to 768 (2C and hidden) for its GEMMs, and the block's shared-memory limit
-    in place of the TPU's 8 MiB VMEM term."""
+    """Shapes the kernel takes. ``C % 128``, ``hd % 8``, ``na % 16`` and
+    ``na^2 * 4 <= 8 MiB`` are the reference gate's terms
+    (``kuzu/models/yolo/infer.py:315-321``), kept so that the port routes
+    each node as the JAX executor does. The kernel adds: head widths of
+    16-128 in steps of 16 for the attention, ``hidden % 32`` and widths up to
+    768 (2C and hidden) for its GEMMs, and each launch's block within the
+    shared memory."""
     hd = c // heads
     return (
         c % 128 == 0
         and c % heads == 0
-        and hd % 16 == 0
-        and hd <= MAX_HD
+        and hd in FWD_DS
         and hidden % SLAB == 0
         and 2 * c <= MAX_COLS
         and hidden <= MAX_COLS
         and na % 16 == 0
-        and ablock_smem_bytes(na, c, heads, hidden) <= SMEM_LIMIT
+        and na * na * 4 <= JAX_SCORES_BYTES
+        and ablock_smem_bytes(c, heads, hidden) <= SMEM_LIMIT
     )
 
 
@@ -120,11 +128,8 @@ def fused_ablock_plain(x, v, pe, weights, area: int, heads: int) -> torch.Tensor
 
 
 def _kernel_fn():
-    fn = _build.library("fused_ablock").kuzu_fused_ablock
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("fused_ablock", "kuzu_fused_ablock", [ctypes.c_void_p] * 14 + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def fused_ablock(
@@ -156,7 +161,7 @@ def fused_ablock(
         if tuple(w.shape) != shp or w.dtype != want or w.device != x.device:
             raise ValueError(f"weight {i}: {tuple(w.shape)} {w.dtype} {w.device}, "
                              f"want {shp} {want} {x.device}")
-    acts = [t.contiguous() for t in (x, v, pe)]
+    acts = [_build.aligned(t) for t in (x, v, pe)]  # v goes through a TMA tensor map
     if any(t.dtype != torch.bfloat16 or t.shape != x.shape for t in acts):
         raise ValueError("fused_ablock kernel takes bf16 x/v/pe of one shape")
     ws = [w.contiguous() for w in weights]

@@ -175,10 +175,8 @@ def fused_c3k2_fits(cin: int, c: int, hid: int, c2: int) -> bool:
 
 
 def _kernel_fn():
-    fn = _build.library("fused_c3k2").kuzu_fused_c3k2
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("fused_c3k2", "kuzu_fused_c3k2",
+                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def fused_c3k2(x: torch.Tensor, weights: list[torch.Tensor], n: int = N_C3K,

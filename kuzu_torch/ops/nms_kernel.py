@@ -44,11 +44,8 @@ def suppress_reference(
 
 
 def _kernel_fn():
-    fn = _build.library("nms").kuzu_nms
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function("nms", "kuzu_nms", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
 def batched_suppress(

@@ -107,3 +107,74 @@ class SyntheticDetectionDataset:
         labels[:k] = rng.integers(0, self.nc, k)
         mask[:k] = True
         return {"image": img, "gt_boxes": boxes, "gt_labels": labels, "mask_gt": mask}
+
+
+# Attention in bf16 (K3, K5): both sides are f32 arithmetic rounded once to
+# bf16, but the kernel sums in another order, runs an online softmax over
+# 64-key tiles and feeds P to the tensor cores as one bf16 part, so a sum on
+# a rounding edge flips an ulp: two ulps of the largest output plus one of
+# the value. At N=400 the outputs are ~0.05 in size, so an absolute 1e-2
+# would let a kernel that skips its last key tile pass; this does not.
+ATTN_TOL = "2^-7 max|ref| + 2^-8|ref|"
+
+
+def attention_over(out, ref) -> tuple[float, int, int]:
+    """(max abs error, entries over ``ATTN_TOL``, entries) of ``out``
+    against ``ref`` (torch tensors of one shape)."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    tol = 2.0**-7 * float(r.abs().max()) + 2.0**-8 * r.abs()
+    return float(err.max()), int((err > tol).sum()), err.numel()
+
+
+def attention_exact(q, k, v, num_heads: int, scale: float, p_bf16: bool = False):
+    """softmax(scale q_h k_h^T) v_h over head-packed (G, N, C) tensors in f32
+    with one maximum over all keys, rounded once to q's dtype: the function
+    both kernels compute. ``p_bf16`` rounds P to bf16 before P V (reported
+    beside the tolerance, not a fault: it is what the kernel does)."""
+    import torch
+
+    g, n, c = q.shape
+    hd = c // num_heads
+    outs = []
+    for i in range(0, g, 4):  # 4 groups at a time: N x N in f32
+
+        def heads(t):
+            return t[i:i + 4].float().reshape(-1, t.shape[1], num_heads, hd).transpose(1, 2)
+
+        s = (heads(q) * scale) @ heads(k).transpose(-1, -2)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        pv = p.to(torch.bfloat16).float() if p_bf16 else p
+        o = (pv @ heads(v)) / p.sum(-1, keepdim=True)
+        outs.append(o.transpose(1, 2).reshape(-1, n, c))
+    return torch.cat(outs).to(q.dtype)
+
+
+def attention_faults(q, k, v, num_heads: int, keys: int = 64) -> dict:
+    """Outputs of kernels with a fault, each computed exactly (f32, rounded
+    once to q's dtype) on the inputs of a check, keyed by the fault; each
+    must exceed ``ATTN_TOL`` against the sound output:
+
+    - the last key tile (``keys`` keys, or the ragged rest of N) skipped;
+    - each head's columns read one head over (the last head wraps to the
+      first; only where there is more than one head);
+    - the scale of a head padded to the TPU's 128 lanes, 128^-1/2, in place
+      of hd^-1/2 (where hd < 128)."""
+    import torch
+
+    n, c = q.shape[1], q.shape[2]
+    hd = c // num_heads
+    scale = hd**-0.5
+    last = (n - 1) // keys * keys  # first key of the last tile
+    out = {"last key tile skipped": attention_exact(q, k[:, :last], v[:, :last], num_heads,
+                                                    scale)}
+    if num_heads > 1:
+        def shift(t):
+            return torch.roll(t, -hd, dims=-1)
+
+        # head h's output columns hold head h + 1's attention
+        out["head columns read one head over"] = attention_exact(shift(q), shift(k), shift(v),
+                                                                 num_heads, scale)
+    if hd < 128:
+        out["padded scale 128^-1/2"] = attention_exact(q, k, v, num_heads, 128**-0.5)
+    return out

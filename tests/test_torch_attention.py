@@ -18,7 +18,7 @@ import torch
 # the module itself: the package attribute of that name is the function it exports
 t_fa = importlib.import_module("kuzu_torch.ops.flash_attention")
 from kuzu_torch.ops import fused_ablock as t_fb
-from kuzu_torch.testing import f32
+from kuzu_torch.testing import ATTN_TOL, attention_faults, attention_over, f32
 from torch_parity import numpy_tree
 
 
@@ -39,6 +39,56 @@ def test_area_attention_plain_matches_pallas(rng):
     assert out.dtype == torch.bfloat16 and out.shape == (g, n, heads * hd)
     np.testing.assert_allclose(f32(out), ref, atol=2e-2, rtol=2e-2)
     assert (f32(out) == ref).mean() > 0.9
+
+
+# (kernel, G or BH, N, C, heads): N=400 is one ragged key block on the TPU and
+# seven 64-key tiles on the card (the last 16 keys); N=128 and 256 stream whole tiles
+ATTN_CASES = {
+    "k3_n400": ("area", 2, 400, 64, 2),
+    "k3_n128": ("area", 2, 128, 64, 2),
+    "k5_n400": ("flash", 2, 400, 32, 1),
+    "k5_n256": ("flash", 2, 256, 64, 1),
+}
+
+
+@pytest.fixture(scope="module", params=list(ATTN_CASES))
+def attn_case(request):
+    """Inputs, the Pallas kernel's output (interpret mode) and the port's
+    plain version's, for one of ``ATTN_CASES``."""
+    j_fa = importlib.import_module("kuzu.ops.flash_attention")
+
+    kind, g, n, c, heads = ATTN_CASES[request.param]
+    rng = np.random.default_rng(11)
+    pairs = [_bf16_pair(rng, (g, n, c)) for _ in range(3)]
+    jq, jk, jv = (p[0] for p in pairs)
+    tq, tk, tv = (p[1] for p in pairs)
+    if kind == "area":
+        ref = j_fa.area_attention(jq, jk, jv, heads, interpret=True)
+        out = t_fa.area_attention(tq, tk, tv, heads)
+    else:
+        ref = j_fa.flash_attention(jq, jk, jv, interpret=True)
+        out = t_fa.flash_attention(tq, tk, tv)
+    return (tq, tk, tv, heads), torch.from_numpy(f32(ref)).to(torch.bfloat16), out
+
+
+def test_attention_plain_meets_the_kernels_tolerance(attn_case):
+    """The plain versions of K3 and K5 against the Pallas kernels, under the
+    bf16 tolerance the card holds the kernels to (ATTN_TOL)."""
+    _, ref, out = attn_case
+    err, n_over, _ = attention_over(out, ref)
+    assert n_over == 0, f"{n_over} over {ATTN_TOL}, max error {err}"
+
+
+def test_attention_faults_exceed_the_tolerance(attn_case):
+    """Each planted fault (last key tile skipped, a head's columns read one
+    head over, the 128-lane padded scale) puts outputs over ATTN_TOL, at
+    N=400 and at a streamed N, so the card's check would catch it."""
+    (q, k, v, heads), ref, _ = attn_case
+    faults = attention_faults(q, k, v, heads)
+    assert len(faults) == (3 if heads > 1 else 2)
+    for name, out in faults.items():
+        err, n_over, total = attention_over(out, ref)
+        assert n_over > total // 10, f"{name}: only {n_over} of {total} over, max error {err}"
 
 
 def test_area_attention_takes_column_slices(rng):
@@ -127,12 +177,29 @@ def test_fused_ablock_plain_matches_pallas(ablock_case):
         (400, 64, 2, 128, False, True),     # yolov12n@640 node 6: the K3 route
         (16, 64, 2, 128, False, True),      # yolov12n@128 node 6
         (100, 128, 4, 256, False, False),   # 320 px: na % 16 fails both
-        (1600, 384, 12, 576, False, False),  # one area at 1280 px: too big for smem
+        (1600, 384, 12, 576, False, False),  # one area at 1280 px: past JAX's 8 MiB of scores
+        (1024, 64, 2, 128, False, True),    # inside 8 MiB: K3 on both sides (not K4's block)
+        (1024, 384, 12, 576, True, True),
+        (1440, 384, 12, 576, True, True),   # the last na % 16 == 0 inside 8 MiB
+        (1456, 64, 2, 128, False, False),   # the first outside it
+        (1456, 384, 12, 576, False, False),
+        (1600, 64, 2, 128, False, False),
     ],
 )
 def test_gates_at_main_path_shapes(na, c, heads, hidden, fused, attn):
-    assert t_fb.fused_ablock_fits(na, c, heads, hidden) is fused
-    assert t_fa.area_attention_fits(na, c, heads) is attn
+    """The inference gates route every node as the reference executor's
+    terms do (``kuzu/models/yolo/infer.py:279-283`` and ``:315-321``) at
+    head widths the kernels take; the training gate adds the backward
+    kernel's block, which holds a whole group (K4 at na=1024, hd=32 would
+    need 332 KB), and elsewhere equals the forward gate."""
+    hd = c // heads
+    jax_attn = na % 16 == 0 and na * na * 4 <= 8 * 2**20
+    jax_fused = c % 128 == 0 and hd % 8 == 0 and jax_attn
+    assert t_fb.fused_ablock_fits(na, c, heads, hidden) is fused is jax_fused
+    assert t_fa.area_attention_fwd_fits(na, c, heads) is attn is jax_attn
+    bwd_fits = t_fa.attn_bwd_smem_bytes(na, hd) <= t_fa.SMEM_LIMIT
+    assert t_fa.area_attention_train_fits(na, c, heads) is (attn and bwd_fits)
+    assert bwd_fits is (na <= 400)  # at these widths
 
 
 @pytest.mark.parametrize("fn", ["area_attention", "fused_ablock", "suppress"])
