@@ -11,8 +11,14 @@ times at the shapes of ``chip_smoke.py``'s kernels line:
 
 - K3 ``area_attention`` at G=32, N=400, C=64 / 2 heads (yolov12n node 6) and
   C=384 / 12 heads with q, k column slices (the training route);
-- K2 ``fused_ablock`` at G=32, na=400, C=384, 12 heads, hidden 576, with its
-  device time split by kernel (the attention step is one of three);
+- K4 at G=32, N=400, C=384, 12 heads: the ``AreaAttention`` pair (K3
+  forward, then K4 backward, through autograd), ``area_attention_bwd``
+  alone as both trees take it (q, k, v, dO), and, where the tree's
+  ``area_attention_bwd`` takes the forward's ``lse`` (with its output), the
+  training route's call with them; beside SDPA's forward + backward and
+  backward;
+- K2 ``fused_ablock`` at G=32 and G=8, na=400, C=384, 12 heads, hidden 576
+  (yolov12x@640 b8 nodes 6 and 8), with its device time split by kernel;
 - K5 ``flash_attention`` bf16 at BH=16, N=8192, D=64 and BH=384, N=400,
   D=32, and f32 at BH=16, N=2048, D=64;
 
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -77,9 +84,28 @@ def worker(tree: str) -> dict:
         row(f"K3 G={g} N={n} C={c} h={heads}", lambda: fa.area_attention(q, k, v, heads),
             lambda: sdpa(*sd))
 
-    g, na, c, heads, hid = 32, 400, 384, 12, 576
-    x, vv, pe = (torch.randn((g, na, c), generator=gen, device=dev).to(torch.bfloat16)
-                 for _ in range(3))
+    # K4 at the training shape (the last K3 case's inputs)
+    do = torch.randn((g, n, c), generator=gen, device=dev).to(torch.bfloat16)
+    qk_a, v_a = qk.clone().requires_grad_(), v.clone().requires_grad_()
+    sd_a = [t.detach().requires_grad_() for t in sd]
+    sd_do = do.reshape(g, n, heads, c // heads).transpose(1, 2).contiguous()
+    sd_out = sdpa(*sd_a)
+
+    def pair():
+        return torch.autograd.grad(fa.AreaAttention.apply(qk_a, v_a, heads), (qk_a, v_a), do)
+
+    row(f"K4 AreaAttention forward + backward G={g} N={n} C={c} h={heads}", pair,
+        lambda: torch.autograd.grad(sdpa(*sd_a), sd_a, sd_do))
+    row(f"K4 area_attention_bwd(q, k, v, dO) G={g} N={n} C={c} h={heads}",
+        lambda: fa.area_attention_bwd(q, k, v, do, heads),
+        lambda: torch.autograd.grad(sd_out, sd_a, sd_do, retain_graph=True))
+    if "lse" in inspect.signature(fa.area_attention_bwd).parameters:
+        stats = fa.area_attention(q, k, v, heads, return_lse=True)
+        row(f"K4 area_attention_bwd with the forward's out, lse G={g} N={n} C={c} h={heads}",
+            lambda: fa.area_attention_bwd(q, k, v, do, heads, *stats),
+            lambda: torch.autograd.grad(sd_out, sd_a, sd_do, retain_graph=True))
+
+    na, c, heads, hid = 400, 384, 12, 576
 
     def w(cin, cout):
         return (torch.randn((cin, cout), generator=gen, device=dev) / cin ** 0.5).to(
@@ -88,12 +114,16 @@ def worker(tree: str) -> dict:
     def bias(cout):
         return 0.1 * torch.randn((1, cout), generator=gen, device=dev)
 
-    weights = [w(c, 2 * c), bias(2 * c), w(c, c), bias(c), w(c, hid), bias(hid), w(hid, c),
-               bias(c)]
-    k2 = lambda: fused_ablock(x, vv, pe, weights, 1, heads)  # noqa: E731
-    row("K2 G=32 na=400 C=384 h=12 hidden=576", k2)
-    rows["K2 G=32 na=400 C=384 h=12 hidden=576"]["device_ms_by_kernel"] = {
-        name[:60]: t for name, t in smoke.device_times(k2)[1].items()}
+    for g in (32, 8):
+        x, vv, pe = (torch.randn((g, na, c), generator=gen, device=dev).to(torch.bfloat16)
+                     for _ in range(3))
+        weights = [w(c, 2 * c), bias(2 * c), w(c, c), bias(c), w(c, hid), bias(hid), w(hid, c),
+                   bias(c)]
+        k2 = lambda: fused_ablock(x, vv, pe, weights, 1, heads)  # noqa: E731
+        label = f"K2 G={g} na=400 C=384 h=12 hidden=576"
+        row(label, k2)
+        rows[label]["device_ms_by_kernel"] = {
+            name[:60]: t for name, t in smoke.device_times(k2)[1].items()}
 
     for bh, n, d, dtype in ((16, 8192, 64, torch.bfloat16), (384, 400, 32, torch.bfloat16),
                             (16, 2048, 64, torch.float32)):
@@ -133,19 +163,22 @@ def main() -> int:
         runs.append((label, json.loads(lines[-1][7:])))
     print(f"card: {card}")
     summary = {}
-    for name in runs[0][1]:
+    names = list(dict.fromkeys(name for _, r in runs for name in r))  # rows of either tree
+    for name in names:
         summary[name] = {}
         for label in ("other", "this"):
-            rs = [r[name] for lb, r in runs if lb == label]
+            rs = [r[name] for lb, r in runs if lb == label and name in r]
+            if not rs:
+                continue
             summary[name][label] = {key: [r[key] for r in rs] for key in rs[0]
                                     if key != "device_ms_by_kernel"}
             summary[name][label]["device_ms_by_kernel"] = [r.get("device_ms_by_kernel")
                                                            for r in rs]
-        o, t = summary[name]["other"], summary[name]["this"]
-        lib = (f", SDPA device {statistics.median(o['library_device_ms'] + t['library_device_ms']):.4f}"
-               if "library_device_ms" in o else "")
-        print(f"{name}: device_ms other {o['device_ms']} this {t['device_ms']}; ms other "
-              f"{o['ms']} this {t['ms']}{lib}")
+        sides = summary[name]
+        lib = [t for side in sides.values() for t in side.get("library_device_ms", [])]
+        print(f"{name}: " + "; ".join(
+            f"{lb} device_ms {side['device_ms']} ms {side['ms']}" for lb, side in sides.items())
+            + (f"; library device {statistics.median(lib):.4f}" if lib else ""))
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"card": card, "order": [lb for lb, _ in runs],
                                           "runs": [r for _, r in runs],

@@ -10,9 +10,13 @@ Phases, each raising on failure:
    parallel), with the build seconds and ptxas' register / spill lines;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (K3 at C=64 and at the training shape C=384, each with
-   planted faults that its tolerance must reject, K4 at G=32, N=400,
-   C=384, and the AreaAttention pair's gradients against autograd through
-   the plain forward): error against a stated tolerance, and times of the
+   planted faults that its tolerance must reject; K4 at G=32, N=400,
+   C=384 in both call forms, with planted faults, a determinism check,
+   every head width at N = 16, 80 and 400 and N=1024, and the
+   AreaAttention pair's gradients against autograd through the plain
+   forward; K2 at G=32 and G=8 with planted faults in its epilogues, each
+   launch's device time and torch.matmul on its four GEMM shapes beside
+   them): error against a stated tolerance, and times of the
    kernel, the plain version and, where one exists, one PyTorch call
    computing the same function (a yardstick the port never calls): ``ms``,
    CUDA events around the call (what a caller sees, the wrapper's host time
@@ -99,60 +103,72 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 LAUNCHES = ("LaunchKernel", "Memcpy", "Memset")  # host API calls that start device work
 
 
-def _call_activity(fn) -> dict | None:
-    """CUDA activity (kernels, copies, sets) of one call of ``fn``, from a
-    torch.profiler session of its own: {name: ms}. None where the trace is
-    incomplete: a launch on the host with no activity of its correlation id
-    on the device (the profiler drops such records at times)."""
+def _session_calls(fn, reps: int) -> list[dict]:
+    """CUDA activity (kernels, copies, sets) of ``reps`` calls of ``fn`` in
+    one torch.profiler session, each call under a ``record_function`` range
+    of its own (a synchronize ends it): one {name: ms} per call whose every
+    host launch has its device record (the profiler drops such records at
+    times; such a call is left out)."""
     import os
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            with record_function(f"device_times_call_{i}"):
+                fn()
+                torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    launched = {e["args"]["correlation"] for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                and any(w in e.get("name", "") for w in LAUNCHES)
-                and "correlation" in e.get("args", {})}
-    out: dict[str, float] = {}
-    seen = set()
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith("device_times_call_"))
+    launched: list[set] = [set() for _ in spans]
     for e in events:
         corr = e.get("args", {}).get("correlation")
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and corr in launched:
-            seen.add(corr)
-            out[e.get("name", "?")] = out.get(e.get("name", "?"), 0.0) + float(e["dur"]) / 1e3
-    return out if launched and seen == launched else None
+        if (corr is None or e.get("cat") not in ("cuda_runtime", "cuda_driver")
+                or not any(w in e.get("name", "") for w in LAUNCHES)):
+            continue
+        for k, (t0, t1) in enumerate(spans):
+            if t0 <= float(e["ts"]) <= t1:
+                launched[k].add(corr)
+    owner = {corr: k for k, corrs in enumerate(launched) for corr in corrs}
+    per_call: list[dict] = [{} for _ in spans]
+    seen: list[set] = [set() for _ in spans]
+    for e in events:
+        k = owner.get(e.get("args", {}).get("correlation"))
+        if k is not None and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            seen[k].add(e["args"]["correlation"])
+            name = e.get("name", "?")
+            per_call[k][name] = per_call[k].get(name, 0.0) + float(e["dur"]) / 1e3
+    return [c for c, l, sn in zip(per_call, launched, seen) if l and sn == l]
 
 
 def device_times(fn, reps: int = 10, warmup: int = 3) -> tuple[float, dict]:
-    """The device's own time per call: ``reps`` calls, each under a
-    torch.profiler session of its own, its CUDA activity (kernels, copies,
-    sets) summed. Returns the median of the calls' sums in ms and, per kernel
-    name, the median of its time per call. Unlike :func:`time_ms` this leaves
-    out the host's time in the wrapper and any idle time of the device
-    within a call. A session whose trace misses the activity of one of its
-    launches is repeated, at most ``5 * reps`` times in all, and the count
-    is printed."""
+    """The device's own time per call: ``reps`` calls in one torch.profiler
+    session, each call's CUDA activity (kernels, copies, sets) summed.
+    Returns the median of the calls' sums in ms and, per kernel name, the
+    median of its time per call. Unlike :func:`time_ms` this leaves out the
+    host's time in the wrapper and any idle time of the device within a
+    call. Calls whose trace misses a launch's activity are taken again, in
+    up to four more sessions, and their count is printed. One session for
+    all the calls: a process that opens hundreds of sessions gets empty
+    traces from the profiler on this card."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    calls, incomplete = [], 0
-    while len(calls) < reps and incomplete < 5 * reps:
-        c = _call_activity(fn)
-        if c is None:
-            incomplete += 1
-        else:
-            calls.append(c)
-    if incomplete:
-        print(f"    (device_times: {incomplete} profiler sessions missed a launch's "
-              f"activity and were repeated)")
+    calls: list[dict] = []
+    sessions = 0
+    while len(calls) < reps and sessions < 5:
+        calls += _session_calls(fn, reps - len(calls))
+        sessions += 1
+    if sessions > 1:
+        print(f"    (device_times: {sessions - 1} more profiler sessions for calls whose "
+              f"trace missed a launch's activity)")
     require(len(calls) == reps, f"device_times: complete traces of {len(calls)} of {reps} "
             f"calls")
     names = {n for c in calls for n in c}
@@ -200,9 +216,8 @@ def nms_inputs(dev, b: int = 8, k: int = 2048, seed: int = 0):
 
 def kernel_phase(dev) -> dict:
     from kuzu_torch.ops.flash_attention import area_attention, area_attention_plain
-    from kuzu_torch.testing import ATTN_TOL, attention_over
-    from kuzu_torch.ops.fused_ablock import fused_ablock, fused_ablock_plain
     from kuzu_torch.ops.nms_kernel import batched_suppress, suppress_reference
+    from kuzu_torch.testing import ATTN_TOL, attention_over
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -268,8 +283,27 @@ def kernel_phase(dev) -> dict:
     res["area_attention"] = dict(r, shapes=k3_shapes)
     res["area_attention_bwd"] = k4_check(dev, gen, qk, v, heads)
 
-    # K2: fused ABlock, G=32 chunks of na=400, C=384, 12 heads, hidden 576
-    g, na, c, heads, hid = 32, 400, 384, 12, 576
+    # K2: fused ABlock at yolov12x@640 b8 node 6 (G=32 chunks of na=400,
+    # C=384, 12 heads, hidden 576; the kernels line) and node 8 (G=8)
+    res["fused_ablock"] = k2_check(dev, gen, 32)
+    k2_check(dev, gen, 8)
+    k2_check(dev, gen, 2, hid=1536)  # an MLP twice as wide as the old kernel took
+    for name, r in res.items():
+        print(f"  {name}: {r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
+              f"{r['library_ms']}, device {r['library_device_ms']})")
+    return res
+
+
+def k2_check(dev, gen, g: int, hid: int = 576) -> dict | None:
+    """K2 at G chunks of na=400, C=384, 12 heads, hidden ``hid`` against its
+    plain version; at hidden 576 also planted faults in its epilogues, each
+    launch's device time, and torch.matmul on the same four GEMM shapes (a
+    printed yardstick the port never calls)."""
+    from kuzu_torch.ops.fused_ablock import fused_ablock, fused_ablock_plain
+    from kuzu_torch.testing import ABLOCK_TOL, ablock_faults, ablock_over
+
+    na, c, heads = 400, 384, 12
     x, vv, pe = (torch.randn((g, na, c), generator=gen, device=dev).to(torch.bfloat16)
                  for _ in range(3))
 
@@ -284,31 +318,39 @@ def kernel_phase(dev) -> dict:
                w(hid, c), bias(c)]
     out = fused_ablock(x, vv, pe, weights, 1, heads)
     refo = fused_ablock_plain(x, vv, pe, weights, 1, heads)
-    err = (out.float() - refo.float()).abs()
-    tol = 0.08 + 0.02 * refo.float().abs()
-    close = float((err <= 0.02 + 0.01 * refo.float().abs()).float().mean())
-    print(f"K2 fused_ablock G=32 na=400 C=384 h=12 hidden=576: max_abs_err "
-          f"{float(err.max()):.3e}, over tolerance (0.08 + 0.02|ref|): "
-          f"{int((err > tol).sum())}, share within 0.02 + 0.01|ref|: {close:.5f} (> 0.999)")
-    require(bool((err <= tol).all()) and close > 0.999, "K2 within tolerance")
+    torch.cuda.synchronize()
+    err, over, close = ablock_over(out, refo)
+    print(f"K2 fused_ablock G={g} na={na} C={c} h={heads} hidden={hid}: max_abs_err {err:.3e}, "
+          f"over 0.08 + 0.02|ref|: {over}, share within 0.02 + 0.01|ref|: {close:.5f} (> 0.999)")
+    require(over == 0 and close > 0.999 and bool(torch.isfinite(out.float()).all()),
+            f"K2 within tolerance at G={g}, hidden {hid}")
+    if hid != 576:
+        return None
+    for name, bad in ablock_faults(x, vv, pe, weights, 1, heads).items():
+        e, o, cl = ablock_over(bad, refo)
+        print(f"  planted fault, {name}: over {o}, share close {cl:.5f} (must fail {ABLOCK_TOL})")
+        require(o > 0 or cl <= 0.999, f"K2's tolerance rejects the fault: {name}")
     m = g * na
     flops = 2 * m * c * (2 * c + c + 2 * hid) + 4 * g * na * na * c
     nbytes = 4 * m * c * 2 + sum(t.numel() * t.element_size() for t in weights)
     bnd, by = bound(nbytes, flops, PEAK_BF16)
     dev_total, dev_split = device_times(lambda: fused_ablock(x, vv, pe, weights, 1, heads))
-    res["fused_ablock"] = dict(
-        max_abs_err=float(err.max()),
-        ms=time_ms(lambda: fused_ablock(x, vv, pe, weights, 1, heads)),
-        device_ms=dev_total,
-        plain_ms=time_ms(lambda: fused_ablock_plain(x, vv, pe, weights, 1, heads)),
-        bound_ms=bnd, bound_by=by, library_ms=None, library_device_ms=None)
-    print("  K2 device time per launch by kernel: "
-          + ", ".join(f"{name[:40]} {t:.4f} ms" for name, t in sorted(dev_split.items())))
-    for name, r in res.items():
-        print(f"  {name}: {r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain "
-              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
-              f"{r['library_ms']}, device {r['library_device_ms']})")
-    return res
+    r = dict(max_abs_err=err, ms=time_ms(lambda: fused_ablock(x, vv, pe, weights, 1, heads)),
+             device_ms=dev_total,
+             plain_ms=time_ms(lambda: fused_ablock_plain(x, vv, pe, weights, 1, heads)),
+             bound_ms=bnd, bound_by=by, library_ms=None, library_device_ms=None)
+    print(f"  K2 at G={g}: {r['ms']:.4f} ms, device {dev_total:.4f} (plain {r['plain_ms']:.4f}, "
+          f"bound {bnd:.5f} by {by}); device time per launch: "
+          + ", ".join(f"{name[:48]} {t:.4f} ms" for name, t in sorted(dev_split.items())))
+    x2, h2 = x.reshape(m, c), torch.randn((m, hid), device=dev).to(torch.bfloat16)
+    mats = {"qk (m x 384 x 768)": (x2, weights[0]), "proj (m x 384 x 384)": (x2, weights[2]),
+            "mlp1 (m x 384 x 576)": (x2, weights[4]), "mlp2 (m x 576 x 384)": (h2, weights[6])}
+    lib = {name: device_ms(lambda a=a, b=b: torch.matmul(a, b)) for name, (a, b) in mats.items()}
+    print(f"  torch.matmul (cuBLAS) device time on the four GEMM shapes, m={m} (yardstick, not "
+          f"called by the port): " + ", ".join(f"{nm} {t:.4f} ms" for nm, t in lib.items())
+          + f"; sum {sum(lib.values()):.4f}")
+    r["matmul_device_ms"] = lib
+    return r
 
 
 def k3_faults(q, k, v, heads, ref) -> None:
@@ -329,13 +371,27 @@ def k3_faults(q, k, v, heads, ref) -> None:
 
 
 def k4_check(dev, gen, qk, v, heads) -> dict:
-    """K4 against its plain version, and the AreaAttention pair's gradients
-    against autograd through the plain forward, at G=32, N=400, C=384."""
+    """K4 (the backward kernels) against its plain version at G=32, N=400,
+    C=384 given the forward's output in two parts and lse (the training
+    route's call) and without them (the standalone call, which runs K3
+    first), planted faults and two other designs against the tolerance,
+    whether two runs agree bit for bit, every head width at N = 16, 80, 400
+    and N=1024, and the AreaAttention pair's gradients against autograd
+    through the plain forward. Times of both call forms beside SDPA's
+    backward."""
     from kuzu_torch.ops.flash_attention import (
+        FWD_DS,
         AreaAttention,
+        area_attention,
         area_attention_bwd,
         area_attention_bwd_plain,
         area_attention_plain,
+    )
+    from kuzu_torch.testing import (
+        BWD_TOL,
+        attention_bwd_exact,
+        attention_bwd_faults,
+        bwd_over,
     )
 
     g, n, c = v.shape
@@ -343,40 +399,73 @@ def k4_check(dev, gen, qk, v, heads) -> dict:
     scale = hd ** -0.5
     q, k = qk[..., :c], qk[..., c:]
     do = torch.randn((g, n, c), generator=gen, device=dev).to(torch.bfloat16)
-    got = area_attention_bwd(q, k, v, do, heads)
-    ref = area_attention_bwd_plain(q, k, v, do, heads, scale)
+    stats = area_attention(q, k, v, heads, return_lse=True)  # (out, lse, out_lo)
+    lse = stats[1]
+    got = area_attention_bwd(q, k, v, do, heads, *stats)
+    ref = area_attention_bwd_plain(q, k, v, do, heads, scale, *stats)
     torch.cuda.synchronize()
 
     def check(name, a, b):
-        # Both sides are f32 arithmetic rounded once to bf16; the kernel sums
-        # in another order and feeds P and dS to the tensor cores with ~16
-        # significant bits, so they stay one bf16 rounding (2^-8 relative)
-        # apart, plus f32-size absolute noise where a sum cancels: tolerance
-        # 1e-2 |ref| + 1e-3 max|ref| per tensor.
-        a, b = a.float(), b.float()
-        err = (a - b).abs()
-        tol = 1e-2 * b.abs() + 1e-3 * float(b.abs().max())
-        over = int((err > tol).sum())
-        print(f"  {name}: max_abs_err {float(err.max()):.3e} (max|ref| "
-              f"{float(b.abs().max()):.3e}), over tolerance {over}, identical share "
+        err, over = bwd_over(a, b)
+        print(f"  {name}: max_abs_err {err:.3e} (max|ref| {float(b.float().abs().max()):.3e}), "
+              f"over tolerance ({BWD_TOL}) {over}, identical share "
               f"{float((a == b).float().mean()):.4f}")
-        require(over == 0, f"{name} within tolerance")
-        return float(err.max())
+        require(over == 0 and bool(torch.isfinite(a.float()).all()), f"{name} within tolerance")
+        return err
 
-    print(f"K4 area_attention_bwd G={g} N={n} C={c} h={heads}, q/k column slices:")
+    print(f"K4 area_attention_bwd G={g} N={n} C={c} h={heads}, q/k column slices, the "
+          f"forward's out, lse and out_lo given:")
     errs = [check(nm, a, b) for nm, a, b in zip(("dq", "dk", "dv"), got, ref)]
-    for gs, ns, cs, hs in ((8, 16, 64, 2), (2, 16, 128, 4)):  # yolov12n@128 nodes 6, 8
+    again = area_attention_bwd(q, k, v, do, heads, *stats)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"  two runs bit-identical: {same}")
+    require(same, "K4 is deterministic (no atomics)")
+    print("K4 standalone (out, lse, out_lo from a K3 launch inside the call):")
+    for nm, a, b in zip(("dq", "dk", "dv"), area_attention_bwd(q, k, v, do, heads),
+                        area_attention_bwd_plain(q, k, v, do, heads, scale)):
+        check(nm, a, b)
+    exact = attention_bwd_exact(q, k, v, do, heads)
+    print("  plain version vs the exact function (f32 softmax, no lse): max_abs_err "
+          + ", ".join(f"{nm} {bwd_over(a, b)[0]:.3e} over {bwd_over(a, b)[1]}"
+                      for nm, a, b in zip(("dq", "dk", "dv"), ref, exact)))
+    for name, outs in attention_bwd_faults(q, k, v, do, heads, lse).items():
+        overs = [bwd_over(a, b)[1] for a, b in zip(outs, ref)]
+        print(f"  planted fault, {name}: over tolerance dq/dk/dv {overs} of {ref[0].numel()} "
+              f"each (must be > 0 in one)")
+        require(max(overs) > 0, f"K4's tolerance rejects the fault: {name}")
+    for label, flag in (("P and dS as one bf16 part", "one_part"),
+                        ("D from the bf16 output without its low part", "d_from_out")):
+        outs = attention_bwd_exact(q, k, v, do, heads, lse, **{flag: True})
+        print(f"  other design, {label} (not used): over tolerance dq/dk/dv "
+              f"{[bwd_over(a, b)[1] for a, b in zip(outs, ref)]}")
+
+    # every head width at N = 16 (yolov12n@128), 80 (ragged), 400, and N=1024
+    cases = [(4, nn, d) for d in FWD_DS for nn in (16, 80, 400)] + [(2, 1024, 32)]
+    worst, other = 0.0, {"P and dS as one bf16 part": 0,
+                         "D from the bf16 output without its low part": 0}
+    for gs, ns, d in cases:
+        cs = 2 * d  # two heads
         qks = torch.randn((gs, ns, 2 * cs), generator=gen, device=dev).to(torch.bfloat16)
         vs, dos = (torch.randn((gs, ns, cs), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(2))
-        args = (qks[..., :cs], qks[..., cs:], vs, dos, hs)
-        print(f"K4 at G={gs} N={ns} C={cs} h={hs}:")
-        for nm, a, b in zip(("dq", "dk", "dv"), area_attention_bwd(*args),
-                            area_attention_bwd_plain(*args, (cs // hs) ** -0.5)):
-            check(nm, a, b)
+        qs, ks = qks[..., :cs], qks[..., cs:]
+        st = area_attention(qs, ks, vs, 2, return_lse=True)
+        refs = area_attention_bwd_plain(qs, ks, vs, dos, 2, d ** -0.5, *st)
+        for nm, a, b in zip(("dq", "dk", "dv"), area_attention_bwd(qs, ks, vs, dos, 2, *st), refs):
+            err, over = bwd_over(a, b)
+            require(over == 0 and bool(torch.isfinite(a.float()).all()),
+                    f"K4 {nm} within tolerance at hd={d} N={ns}: {over} over, max {err:.3e}")
+            worst = max(worst, err)
+        for label, flag in (("P and dS as one bf16 part", "one_part"),
+                            ("D from the bf16 output without its low part", "d_from_out")):
+            outs = attention_bwd_exact(qs, ks, vs, dos, 2, st[1], **{flag: True})
+            other[label] += sum(bwd_over(a, b)[1] for a, b in zip(outs, refs))
+    print(f"K4 at hd in {FWD_DS} x N in (16, 80, 400), and hd=32 N=1024 (2 heads): every case "
+          f"within tolerance, max_abs_err {worst:.3e}; other designs over tolerance in all "
+          f"these cases: {other}")
 
-    # the autograd pair (K3 forward, K4 backward) against autograd through
-    # the plain forward, same tolerance
+    # the autograd pair (K3 forward with lse, K4 backward) against autograd
+    # through the plain forward, same tolerance
     qk_a = qk.detach().clone().requires_grad_()
     v_a = v.detach().clone().requires_grad_()
     grads = torch.autograd.grad(AreaAttention.apply(qk_a, v_a, heads), (qk_a, v_a), do)
@@ -397,17 +486,23 @@ def k4_check(dev, gen, qk, v, heads) -> dict:
     bnd, by = bound(7 * g * n * c * 2, 10 * g * n * n * c, PEAK_BF16)
     r = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: area_attention_bwd(q, k, v, do, heads)),
-        device_ms=device_ms(lambda: area_attention_bwd(q, k, v, do, heads)),
-        plain_ms=time_ms(lambda: area_attention_bwd_plain(q, k, v, do, heads, scale)),
+        ms=time_ms(lambda: area_attention_bwd(q, k, v, do, heads, *stats)),
+        device_ms=device_ms(lambda: area_attention_bwd(q, k, v, do, heads, *stats)),
+        plain_ms=time_ms(lambda: area_attention_bwd_plain(q, k, v, do, heads, scale, *stats)),
         bound_ms=bnd, bound_by=by,
         library_ms=time_ms(
             lambda: torch.autograd.grad(sd_out, sd, sd_do, retain_graph=True)),
         library_device_ms=device_ms(
             lambda: torch.autograd.grad(sd_out, sd, sd_do, retain_graph=True)))
-    print(f"  K4: {r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, "
-          f"bound {bnd:.5f} by {by}, SDPA backward {r['library_ms']:.4f}, device "
-          f"{r['library_device_ms']:.4f})")
+    standalone_ms = time_ms(lambda: area_attention_bwd(q, k, v, do, heads))
+    standalone_dev, split = device_times(lambda: area_attention_bwd(q, k, v, do, heads))
+    print(f"  K4 (training route, the forward's out, lse, out_lo given): {r['ms']:.4f} ms, device {r['device_ms']:.4f} "
+          f"(plain {r['plain_ms']:.4f}, bound {bnd:.5f} by {by}, SDPA backward "
+          f"{r['library_ms']:.4f}, device {r['library_device_ms']:.4f})")
+    print(f"  K4 standalone (K3 for out, lse, out_lo, then K4): {standalone_ms:.4f} ms, device "
+          f"{standalone_dev:.4f}; by kernel: "
+          + ", ".join(f"{nm[:40]} {t:.4f}" for nm, t in sorted(split.items())))
+    r["standalone_ms"], r["standalone_device_ms"] = standalone_ms, standalone_dev
     return r
 
 
@@ -820,7 +915,7 @@ def train_step_breakdown(trainer, ds) -> dict:
         name = evt.key
         kernels.append((us / 1e3, evt.count, name[:70]))
         low = name.lower()
-        if "attention_bwd_kernel" in name:
+        if "attn_bwd_" in name:
             group = "K4 area_attention_bwd"
         elif "attention_fwd_kernel" in name:
             group = "K3 area_attention"
@@ -866,8 +961,8 @@ def device_breakdown(fn) -> dict:
             continue
         name = evt.key
         kernels.append((us / 1e3, evt.count, name[:70]))
-        if "qk_gemm_kernel" in name or "mlp_kernel" in name:
-            group = "K2 fused_ablock: qk GEMM, projection + MLP"
+        if "ablock_gemm_kernel" in name:
+            group = "K2 fused_ablock: GEMMs (qk, proj, mlp1, mlp2)"
         elif "attention_fwd_kernel" in name:  # K2's attention; K3 launches the same kernel
             group = "attention_fwd_kernel (K2, K3)"
         elif "nms_" in name:
@@ -1211,12 +1306,15 @@ def main() -> int:
     kernels = [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
              launches=launches[name],
-             **{k: v for k, v in res[name].items() if k not in ("shapes", "nodes")})
+             **{k: v for k, v in res[name].items()
+                if k not in ("shapes", "nodes", "matmul_device_ms")})
         for name in COUNTERS
     ]
     print(json.dumps({"flash_attention_shapes": res["flash_attention"]["shapes"],
                       "area_attention_shapes": res["area_attention"]["shapes"],
-                      "fused_c3k2_nodes": res["fused_c3k2"]["nodes"], "card": card}))
+                      "fused_c3k2_nodes": res["fused_c3k2"]["nodes"],
+                      "fused_ablock_matmul_device_ms": res["fused_ablock"]["matmul_device_ms"],
+                      "card": card}))
     print(json.dumps({"e2e_yolov12x_640_b8": e2e, "card": card}))
     print(json.dumps({"train_yolov12p2x_640_b8": train, "card": card}))
     print(json.dumps({"kernels": kernels}))
@@ -1246,16 +1344,13 @@ def _check_smem_formulas() -> None:
     fab = _build.library("area_attention_bwd").kuzu_area_attention_bwd_smem
     fb = _build.library("fused_ablock").kuzu_fused_ablock_smem
     fa.restype = fab.restype = fb.restype = ctypes.c_size_t
-    fa.argtypes = [ctypes.c_int]
-    fab.argtypes = [ctypes.c_int] * 2
-    fb.argtypes = [ctypes.c_int] * 3
+    fa.argtypes = fab.argtypes = [ctypes.c_int]
+    fb.argtypes = [ctypes.c_int] * 2
     for hd in FWD_DS:
         require(fa(hd) == attn_fwd_smem_bytes(hd), f"forward attention smem hd={hd}")
-    for n, hd in ((400, 32), (16, 32), (256, 64)):
-        require(fab(n, hd) == attn_bwd_smem_bytes(n, hd),
-                f"attention backward smem n={n} hd={hd}")
-    for c, h, hid in ((384, 12, 576), (128, 4, 256), (64, 2, 128)):
-        require(fb(c, h, hid) == ablock_smem_bytes(c, h, hid), f"ablock smem c={c} h={h}")
+        require(fab(hd) == attn_bwd_smem_bytes(hd), f"attention backward smem hd={hd}")
+    for c, h in ((384, 12), (128, 4), (64, 2), (512, 4)):
+        require(fb(c, h) == ablock_smem_bytes(c, h), f"ablock smem c={c} h={h}")
     ff = _build.library("flash_attention").kuzu_flash_attention_smem
     fc = _build.library("fused_c3k2").kuzu_fused_c3k2_smem
     ff.restype = fc.restype = ctypes.c_size_t

@@ -31,10 +31,10 @@ BASE_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC"
               "-Xptxas", "-v"]
 # Per-source extra flags. The NMS IoU must round exactly as the f32
 # expression of the reference, so contraction into FMA is off there. The
-# sources of attention_fwd.cuh take cuTensorMapEncodeTiled from the driver
-# through dlopen.
+# sources that include attention_fwd.cuh take cuTensorMapEncodeTiled from
+# the driver through dlopen.
 EXTRA_FLAGS = {"nms": ["--fmad=false"], "area_attention": ["-ldl"], "fused_ablock": ["-ldl"],
-               "flash_attention": ["-ldl"]}
+               "area_attention_bwd": ["-ldl"], "flash_attention": ["-ldl"]}
 SOURCES = ("nms", "area_attention", "fused_ablock", "area_attention_bwd", "flash_attention",
            "fused_c3k2")
 

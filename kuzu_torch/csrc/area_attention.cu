@@ -8,20 +8,32 @@
 // Design: the shared forward-attention kernel of attention_fwd.cuh (wgmma,
 // TMA, single-pass online softmax), one block per (128 query rows, head,
 // group). On the TPU one grid step holds a whole group with its N x N scores
-// in VMEM; here K and V stream through a two-stage ring of 64-key tiles and
-// no score matrix exists anywhere. q and k may be column slices of a wider
-// tensor (the qk conv output), so each input carries its own row stride.
-// What bounds it on this card at N=400: the bytes (each input read once) and
-// the latency of a block's seven tiles; see attention_fwd.cuh.
+// in VMEM; here K and V stream through a ring of 64-key tiles and no score
+// matrix exists anywhere. q and k may be column slices of a wider tensor
+// (the qk conv output), so each input carries its own row stride. The
+// training route also asks for each row's log-sum-exp (lse) and o's bf16
+// remainder (o_lo), which the backward kernels (area_attention_bwd.cu) read
+// in place of recomputing the softmax statistics and D. What bounds it on
+// this card at N=400: the bytes (each input read once) and the latency of a
+// block's seven tiles; see attention_fwd.cuh.
 
 #include "attention_fwd.cuh"
 
 // Shared memory of one block (constant in N).
 extern "C" size_t kuzu_area_attention_smem(int hd) { return kuzu::fwd::attn_fwd_smem_bytes(hd); }
 
+// lse, o_lo: null, or (g, heads, n) f32 for each row's base-2 log-sum-exp
+// and (g, n, c) bf16 for o's remainder (the training route asks for both;
+// o_lo selects the mode).
 extern "C" int kuzu_area_attention(const void* q, int q_stride, const void* k, int k_stride,
-                                   const void* v, int v_stride, void* o, int g, int n,
-                                   int c, int heads, float scale, void* stream) {
-  return kuzu::attention_fwd(q, q_stride, k, k_stride, v, v_stride, o, c, g, n, heads, c / heads,
-                             scale, static_cast<cudaStream_t>(stream));
+                                   const void* v, int v_stride, void* o, void* o_lo, float* lse,
+                                   int g, int n, int c, int heads, float scale, void* stream) {
+  using kuzu::fwd::kPlain;
+  using kuzu::fwd::kStats;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (o_lo != nullptr)
+    return kuzu::attention_fwd<kStats>(q, q_stride, k, k_stride, v, v_stride, o, o_lo, nullptr, c,
+                                       lse, g, n, heads, c / heads, scale, s);
+  return kuzu::attention_fwd<kPlain>(q, q_stride, k, k_stride, v, v_stride, o, nullptr, nullptr,
+                                     c, nullptr, g, n, heads, c / heads, scale, s);
 }

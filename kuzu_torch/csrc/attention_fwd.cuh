@@ -10,6 +10,20 @@
 // and K5's (BH, N, D) is the case heads = 1, stride = D. bf16 in and out,
 // f32 softmax and accumulation, head width D = 16..128 in steps of 16.
 //
+// Three modes (the caller picks one; each is its own instantiation, so the
+// others pay nothing for it):
+//   - kPlain: o alone (K3's inference route, K5);
+//   - kStats: also lse, each row's log-sum-exp in the kernel's base-2 units
+//     (m + log2(l) with m the maximum of scale * log2(e) * s), f32 per
+//     (group, head, row), and o_lo, the bf16 rounding of o's remainder (o's
+//     value is o + o_lo to about 16 significant bits), for which P enters
+//     P V as two bf16 parts: K3's training route, whose backward
+//     (area_attention_bwd.cu) takes P from lse and D = rowsum(dO o O) from
+//     o + o_lo;
+//   - kAdd: a bf16 addend of o's shape and row stride, loaded before the
+//     key loop: o is rounded to bf16, then add is added in bf16 (K2's
+//     o + pe).
+//
 // Replaces the TPU kernels kuzu/ops/flash_attention.py::area_attention
 // (_area_attn_kernel: one group's N x N scores in VMEM) and ::flash_attention
 // (_flash_kernel: 128-key tiles with the online softmax), and K2's attention
@@ -71,6 +85,8 @@ constexpr int kThreads = 384;        // warpgroups 0, 1 consume, 2 produces
 constexpr int kConsumerWarps = 8;    // arrivals on an "empty" barrier
 constexpr float kNegInit = -1e30f;   // the running maximum's start, as the TPU kernel's
 constexpr float kLog2e = 1.4426950408889634f;
+
+enum Mode { kPlain = 0, kStats = 1, kAdd = 2 };
 
 template <int D>
 struct Shape {
@@ -273,16 +289,37 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 
 // --------------------------------------------------------------------- kernel
 
+// o[at], o[at + 1] = bf16(x0), bf16(x1); kStats: o_lo[at], o_lo[at + 1] =
+// the bf16 remainders x - o; kAdd: plus the addend pair add2 in bf16 (each
+// sum rounded once more, as a bf16 add does)
+template <int kMode>
+__device__ __forceinline__ void store_o(bf16* o, bf16* o_lo, size_t at, float x0, float x1,
+                                        uint32_t add2) {
+  uint32_t out = pack_bf16(x0, x1);
+  if constexpr (kMode == kStats) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&out);
+    *reinterpret_cast<uint32_t*>(o_lo + at) = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+  }
+  if constexpr (kMode == kAdd) {
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&add2);
+    const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&out);
+    out = pack_bf16(add_bf(r.x, a.x), add_bf(r.y, a.y));
+  }
+  *reinterpret_cast<uint32_t*>(o + at) = out;
+}
+
 // Grid (ceil(n / 128), heads, g), kThreads threads, attn_fwd_smem_bytes(D)
 // bytes. tq, tk, tv: (C, N, G) tensor maps of q, k, v with box (W, 128 or
-// 64, 1); o: token j of group g at o + (g * n + j) * o_stride, head h at
-// column h * D. scale_log2 = scale * log2(e).
-template <int D>
+// 64, 1); o (and o_lo, add): token j of group g at o + (g * n + j) *
+// o_stride, head h at column h * D; lse: row j of head h, group g at
+// lse[(g * heads + h) * n + j]. scale_log2 = scale * log2(e).
+template <int D, int kMode>
 __global__ void __launch_bounds__(kThreads, Shape<D>::kMinBlocks)
 attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                     int o_stride, int n, float scale_log2) {
+                     bf16* __restrict__ o_lo, const bf16* __restrict__ add, int o_stride,
+                     float* __restrict__ lse, int n, float scale_log2) {
   using S = Shape<D>;
   constexpr int W = S::W;
   constexpr uint32_t kRowBytes = W * 2;                // one panel row
@@ -336,6 +373,20 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     const int r = lane >> 2, c = lane & 3;
     const int row = m0 + 64 * wg + 16 * warp + r;  // this thread's rows: row, row + 8
     const uint32_t q_wg = sq + 64 * wg * kRowBytes;
+
+    const size_t at = ((size_t)g * n + row) * o_stride + h * D + 2 * c;  // o[row][h D + 2 c]
+    // kAdd: the addend of this thread's outputs, loaded before the key loop
+    // so that its latency hides behind it
+    uint32_t addv[kMode == kAdd ? D / 8 : 1][2];
+    if constexpr (kMode == kAdd) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        addv[j][0] = row < n ? *reinterpret_cast<const uint32_t*>(add + at + 8 * j) : 0u;
+        addv[j][1] = row + 8 < n
+                         ? *reinterpret_cast<const uint32_t*>(add + at + (size_t)8 * o_stride + 8 * j)
+                         : 0u;
+      }
+    }
 
     float acc[D / 2];
 #pragma unroll
@@ -407,20 +458,30 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         acc[4 * j + 2] *= al_hi;
         acc[4 * j + 3] *= al_hi;
       }
-      // P as one bf16 part, in the A layout: k step kk is keys [16 kk, + 16)
-      uint32_t pf[kKeys / 16][4];
+      // P as one bf16 part (kStats: two, hi and lo), in the A layout: k step
+      // kk is keys [16 kk, + 16)
+      uint32_t pf[kKeys / 16][4], pl[kMode == kStats ? kKeys / 16 : 1][4];
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pf[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+        for (int e = 0; e < 4; ++e) {
+          const float x0 = sc[8 * kk + 2 * e], x1 = sc[8 * kk + 2 * e + 1];
+          pf[kk][e] = pack_bf16(x0, x1);
+          if constexpr (kMode == kStats) {
+            const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&pf[kk][e]);
+            pl[kk][e] = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+          }
+        }
       }
       // O += P V; V (keys x D, D contiguous) is MN-major: a k step is 16
       // rows on, panels are kKeys rows apart
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk)
-        wgmma_rs(acc, pf[kk], smem_desc<W>(vs + kk * 16 * kRowBytes, kKeys * kRowBytes, kGroup));
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        const uint64_t dv = smem_desc<W>(vs + kk * 16 * kRowBytes, kKeys * kRowBytes, kGroup);
+        wgmma_rs(acc, pf[kk], dv);
+        if constexpr (kMode == kStats) wgmma_rs(acc, pl[kk], dv);
+      }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -434,16 +495,24 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
     }
     const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
-    bf16* o_lo = o + ((size_t)g * n + row) * o_stride + h * D + 2 * c;
-    bf16* o_hi = o_lo + (size_t)8 * o_stride;
+    if (kMode == kStats && c == 0) {
+      float* lrow = lse + ((size_t)g * gridDim.y + h) * n;
+      if (row < n) lrow[row] = m_lo + log2f(den_lo);
+      if (row + 8 < n) lrow[row + 8] = m_hi + log2f(den_hi);
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      uint32_t a0 = 0u, a1 = 0u;
+      if constexpr (kMode == kAdd) {
+        a0 = addv[j][0];
+        a1 = addv[j][1];
+      }
       if (row < n)
-        *reinterpret_cast<uint32_t*>(o_lo + 8 * j) =
-            pack_bf16(__fdiv_rn(acc[4 * j], den_lo), __fdiv_rn(acc[4 * j + 1], den_lo));
+        store_o<kMode>(o, o_lo, at + 8 * j, __fdiv_rn(acc[4 * j], den_lo),
+                       __fdiv_rn(acc[4 * j + 1], den_lo), a0);
       if (row + 8 < n)
-        *reinterpret_cast<uint32_t*>(o_hi + 8 * j) =
-            pack_bf16(__fdiv_rn(acc[4 * j + 2], den_hi), __fdiv_rn(acc[4 * j + 3], den_hi));
+        store_o<kMode>(o, o_lo, at + (size_t)8 * o_stride + 8 * j,
+                       __fdiv_rn(acc[4 * j + 2], den_hi), __fdiv_rn(acc[4 * j + 3], den_hi), a1);
     }
   }
 }
@@ -465,11 +534,25 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The encoder is a driver call and wants a current context in the calling
+// thread. A thread that has only inherited the default device (PyTorch's
+// autograd thread, which runs the backward kernels) has none until a runtime
+// call binds the device's primary context: cudaSetDevice does, once per
+// thread.
+inline void bind_context() {
+  thread_local const bool bound = [] {
+    int dev = 0;
+    return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+  }();
+  (void)bound;
+}
+
 // Tensor map of a bf16 (g, n, cols) tensor with rows `stride` elements apart
 // (groups n * stride apart), box (w, rows, 1), swizzled to the panel width.
 // TMA wants a 16-byte aligned base and strides that are multiples of 16 bytes.
 inline bool make_map(CUtensorMap* map, const void* ptr, int cols, int stride, int n, int g, int w,
                      int rows) {
+  bind_context();
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || stride % 8 != 0)
     return false;
@@ -485,13 +568,30 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int cols, int stride, in
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+// Tensor map of an f32 (g, heads, n) tensor of per-row values (lse, K4's D),
+// box (rows, 1, 1), no swizzle; TMA wants n % 4 == 0 (16-byte strides).
+inline bool make_row_map(CUtensorMap* map, const float* ptr, int n, int heads, int g,
+                         int rows) {
+  bind_context();
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || n % 4 != 0) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)g};
+  const cuuint64_t strides[2] = {(cuuint64_t)n * 4, (cuuint64_t)heads * n * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int kMode>
 int launch(const void* q, int q_stride, const void* k, int k_stride, const void* v, int v_stride,
-           void* o, int o_stride, int g, int n, int heads, float scale, cudaStream_t stream) {
+           void* o, void* o_lo, const void* add, int o_stride, float* lse, int g, int n,
+           int heads, float scale, cudaStream_t stream) {
   using S = Shape<D>;
   // once per instantiation: the block's shared memory does not depend on the call
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_fwd_kernel<D, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)attn_fwd_smem_bytes(D));
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap mq, mk, mv;
@@ -501,25 +601,30 @@ int launch(const void* q, int q_stride, const void* k, int k_stride, const void*
       !make_map(&mv, v, c, v_stride, n, g, S::W, kKeys))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kRowsQ - 1) / kRowsQ, heads, g);
-  attention_fwd_kernel<D><<<grid, kThreads, attn_fwd_smem_bytes(D), stream>>>(
-      mq, mk, mv, static_cast<bf16*>(o), o_stride, n, scale * kLog2e);
+  attention_fwd_kernel<D, kMode><<<grid, kThreads, attn_fwd_smem_bytes(D), stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), static_cast<bf16*>(o_lo),
+      static_cast<const bf16*>(add), o_stride, lse, n, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace fwd
 
 // o = softmax(scale q_h k_h^T) v_h for every head h and group of (g, n,
-// heads * hd) bf16 tensors; returns a cudaError_t (cudaErrorInvalidValue for
-// a head width the kernel is not built for, an unaligned base or stride, or
-// no driver entry point for the tensor maps).
-inline int attention_fwd(const void* q, int q_stride, const void* k, int k_stride, const void* v,
-                         int v_stride, void* o, int o_stride, int g, int n, int heads, int hd,
-                         float scale, cudaStream_t stream) {
+// heads * hd) bf16 tensors, in mode kMode (fwd::Mode): kStats also writes
+// each row's base-2 log-sum-exp into lse (g, heads, n) f32 and o's bf16
+// remainder into o_lo (o's row stride), kAdd adds add (o's row stride).
+// Returns a cudaError_t (cudaErrorInvalidValue for a head width the kernel
+// is not built for, an unaligned base or stride, or no driver entry point
+// for the tensor maps).
+template <int kMode>
+int attention_fwd(const void* q, int q_stride, const void* k, int k_stride, const void* v,
+                  int v_stride, void* o, void* o_lo, const void* add, int o_stride, float* lse,
+                  int g, int n, int heads, int hd, float scale, cudaStream_t stream) {
   if (g <= 0 || n <= 0) return 0;
 #define KUZU_FWD_CASE(D)                                                                     \
   case D:                                                                                    \
-    return fwd::launch<D>(q, q_stride, k, k_stride, v, v_stride, o, o_stride, g, n, heads, \
-                          scale, stream);
+    return fwd::launch<D, kMode>(q, q_stride, k, k_stride, v, v_stride, o, o_lo, add,      \
+                                 o_stride, lse, g, n, heads, scale, stream);
   switch (hd) {
     KUZU_FWD_CASE(16)
     KUZU_FWD_CASE(32)

@@ -244,7 +244,9 @@ extern "C" int kuzu_flash_attention(const void* q, const void* k, const void* v,
                                     int bh, int n, int d, int f32, float scale, void* stream) {
   if (bh <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32 == 0) return kuzu::attention_fwd(q, d, k, d, v, d, o, d, bh, n, 1, d, scale, s);
+  if (f32 == 0)
+    return kuzu::attention_fwd<kuzu::fwd::kPlain>(q, d, k, d, v, d, o, nullptr, nullptr, d,
+                                                  nullptr, bh, n, 1, d, scale, s);
   switch (d) {
     case 16: return launch_f32<16>(q, k, v, o, bh, n, scale, s);
     case 32: return launch_f32<32>(q, k, v, o, bh, n, scale, s);

@@ -17,6 +17,7 @@ the materialised attention used where the kernels' gate fails, and the route
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -25,17 +26,13 @@ from kuzu_torch import _build
 # Shared memory one block may use on Hopper (232,448 bytes).
 SMEM_LIMIT = 227 * 1024
 FWD_DS = tuple(range(16, 129, 16))  # head widths of the forward kernel (attention_fwd.cuh)
-MAX_HD = 64  # the backward kernel's widest head (launch_bwd in csrc/area_attention_bwd.cu)
 FWD_ROWS = 128  # query rows per forward block, kRowsQ
 FWD_KEYS = 64  # keys per streamed K/V tile, kKeys
 FWD_STAGES = 3  # depth of the K/V ring, kStages
+LOG2E = 1.0 / math.log(2.0)
 # the reference executor's term for its area-attention kernel: the N x N f32
 # scores of one group within 8 MiB of VMEM (kuzu/models/yolo/infer.py:279-283)
 JAX_SCORES_BYTES = 8 * 2**20
-
-
-def _r128(b: int) -> int:
-    return (b + 127) // 128 * 128
 
 
 def attn_fwd_smem_bytes(hd: int) -> int:
@@ -46,11 +43,15 @@ def attn_fwd_smem_bytes(hd: int) -> int:
     return 1024 + FWD_ROWS * hd * 2 + FWD_STAGES * 2 * FWD_KEYS * hd * 2 + 128
 
 
-def attn_bwd_smem_bytes(n: int, hd: int) -> int:
-    """Shared memory of one backward block (``attn_bwd_smem_bytes`` in
-    ``csrc/area_attention_bwd.cu``): Q_h, K_h, V_h and dO_h in bf16, rows
-    padded to hd + 8, then the f32 row statistics m, 1/l and D."""
-    return 4 * _r128(n * (hd + 8) * 2) + _r128(3 * n * 4)
+def attn_bwd_smem_bytes(hd: int) -> int:
+    """Shared memory of one block of either backward kernel
+    (``attn_bwd_smem_bytes`` in ``csrc/area_attention_bwd.cu``): 1024 bytes
+    of alignment, two fixed 128-row tiles, FWD_STAGES pairs of 64-row tiles
+    with their f32 lse and D, 128 bytes of barriers. It does not depend on N
+    and fits the shared memory at every head width of FWD_DS (166,528 bytes
+    at hd=128)."""
+    stage = 2 * FWD_KEYS * hd * 2 + 2 * FWD_KEYS * 4
+    return 1024 + 2 * FWD_ROWS * hd * 2 + FWD_STAGES * stage + 128
 
 
 def area_attention_fwd_fits(n: int, c: int, num_heads: int) -> bool:
@@ -69,25 +70,25 @@ def area_attention_fwd_fits(n: int, c: int, num_heads: int) -> bool:
     )
 
 
-def area_attention_train_fits(n: int, c: int, num_heads: int) -> bool:
-    """The training route's gate (``AAttn.forward``, the forward and backward
-    kernels as a pair): :func:`area_attention_fwd_fits` and the backward
-    kernel's limits, head widths up to 64 and its block (Q_h, K_h, V_h, dO_h
-    of the whole group) within the shared memory."""
-    hd = c // num_heads
-    return (
-        area_attention_fwd_fits(n, c, num_heads)
-        and hd <= MAX_HD
-        and attn_bwd_smem_bytes(n, hd) <= SMEM_LIMIT
-    )
+# The training route's gate (``AAttn.forward``, the forward and backward
+# kernels as a pair) is the forward's: the backward kernels stream their
+# tiles and take every shape the forward takes (attn_bwd_smem_bytes), as
+# ``area_attention_trainable`` does wherever the JAX executor takes its
+# kernel.
+area_attention_train_fits = area_attention_fwd_fits
 
 
 def area_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
-) -> torch.Tensor:
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
+    return_lse: bool = False,
+):
     """The kernel's arithmetic in plain PyTorch: f32 from bf16 inputs, q
     scaled before the product, softmax as max, exp, divide by the sum, the
-    output rounded once to the input dtype."""
+    output rounded once to the input dtype. With ``return_lse``,
+    ``(out, lse, out_lo)`` as the kernel's training route writes them: each
+    row's log-sum-exp in base 2, (G, heads, N) f32, and the output's
+    remainder rounded to its dtype (out + out_lo is the f32 output to about
+    16 significant bits)."""
     g, n, c = q.shape
     hd = c // num_heads
 
@@ -98,13 +99,16 @@ def area_attention_plain(
     s = qh @ heads(k).transpose(-1, -2)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
-    o = p @ heads(v)
-    return o.transpose(1, 2).reshape(g, n, c).to(q.dtype)
+    o32 = (p @ heads(v)).transpose(1, 2).reshape(g, n, c)
+    o = o32.to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1) * LOG2E, (o32 - o.float()).to(q.dtype)
+    return o
 
 
 def _kernel_fn():
     return _build.function("area_attention", "kuzu_area_attention", [
-        ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p])
 
 
@@ -130,15 +134,20 @@ def area_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     num_heads: int,
-) -> torch.Tensor:
-    """softmax(q_h k_h^T / sqrt(hd)) v_h per head, (G, N, C) out."""
+    return_lse: bool = False,
+):
+    """softmax(q_h k_h^T / sqrt(hd)) v_h per head, (G, N, C) out; with
+    ``return_lse`` (the training route), ``(out, lse, out_lo)``: each row's
+    base-2 log-sum-exp of the scaled scores, (G, heads, N) f32, and the
+    output's bf16 remainder (P enters P V in two bf16 parts then), which
+    :func:`area_attention_bwd` takes."""
     g, n, c = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     scale = 1.0 / ((c // num_heads) ** 0.5)
     if q.device.type == "cpu":
         area_attention.plain_calls += 1
-        return area_attention_plain(q, k, v, num_heads, scale)
+        return area_attention_plain(q, k, v, num_heads, scale, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"area_attention takes CPU or CUDA tensors, got {q.device}")
     if not all(t.dtype == torch.bfloat16 and t.device == q.device for t in (q, k, v)):
@@ -147,14 +156,20 @@ def area_attention(
         raise ValueError(f"area_attention kernel cannot take N={n}, C={c}, "
                          f"heads={num_heads}")
     out = torch.empty((g, n, c), dtype=q.dtype, device=q.device)
+    lse = out_lo = None
+    if return_lse:
+        lse = torch.empty((g, num_heads, n), dtype=torch.float32, device=q.device)
+        out_lo = torch.empty_like(out)
     err = _kernel_fn()(
         _build.ptr(q), _tma_stride(q, n), _build.ptr(k), _tma_stride(k, n),
-        _build.ptr(v), _tma_stride(v, n), _build.ptr(out), g, n, c, num_heads,
+        _build.ptr(v), _tma_stride(v, n), _build.ptr(out),
+        None if out_lo is None else _build.ptr(out_lo),
+        None if lse is None else _build.ptr(lse), g, n, c, num_heads,
         float(scale), _build.stream_ptr(q),
     )
     _build.check(err, "kuzu_area_attention")
     area_attention.launches += 1
-    return out
+    return (out, lse, out_lo) if return_lse else out
 
 
 area_attention.launches = 0
@@ -163,12 +178,17 @@ area_attention.plain_calls = 0
 
 def area_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    num_heads: int, scale: float,
+    num_heads: int, scale: float, out: torch.Tensor | None = None,
+    lse: torch.Tensor | None = None, out_lo: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel's arithmetic in plain PyTorch, step by step as
+    """The backward kernels' arithmetic in plain PyTorch, step by step as
     ``_area_attn_bwd_kernel``: f32 from the inputs, S and P recomputed per
-    head, dV = P^T dO, dP = dO V^T, dS = P o (dP - rowsum(dP o P)),
-    dQ = scale dS K, dK = dS^T (scale Q); outputs rounded once to q's dtype."""
+    head, dV = P^T dO, dP = dO V^T, dS = P o (dP - D) with
+    D = rowsum(dP o P), dQ = scale dS K, dK = dS^T (scale Q); outputs rounded
+    once to q's dtype. Given the forward's ``out``, ``lse`` and ``out_lo``
+    (``area_attention(..., return_lse=True)``), as the kernels take them: P
+    is exp2(log2(e) S - lse) and D = rowsum(dO o (out + out_lo)); without
+    them, P is the softmax of S."""
     g, n, c = q.shape
     hd = c // num_heads
 
@@ -178,11 +198,18 @@ def area_attention_bwd_plain(
     qh = heads(q) * scale
     kh, vh, doh = heads(k), heads(v), heads(do)
     s = qh @ kh.transpose(-1, -2)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    if lse is None:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = p / p.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp2(s * LOG2E - lse.float()[..., None])
     dv = p.transpose(-1, -2) @ doh
     dp = doh @ vh.transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if out is None:
+        d = (dp * p).sum(dim=-1, keepdim=True)
+    else:
+        d = (doh * (heads(out) + heads(out_lo))).sum(dim=-1, keepdim=True)
+    ds = p * (dp - d)
     dq = (ds @ kh) * scale
     dk = ds.transpose(-1, -2) @ qh
 
@@ -194,8 +221,59 @@ def area_attention_bwd_plain(
 
 def _bwd_kernel_fn():
     return _build.function("area_attention_bwd", "kuzu_area_attention_bwd", [
-        ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p])
+
+
+def _bwd(q, k, v, do, num_heads: int, stats: tuple | None, want_qk: bool):
+    """Shared body of :func:`area_attention_bwd` and ``AreaAttention``;
+    ``stats`` is the forward's ``(out, lse, out_lo)`` or None. For a CPU
+    tensor the plain version (``(dq, dk, dv)``, or ``(cat([dq, dk]), dv)``
+    with ``want_qk``); for a CUDA tensor the kernels, which write dq and dk
+    into the two column halves of one (G, N, 2C) tensor ``dqk``:
+    ``(dqk[..., :C], dqk[..., C:], dv)``, or ``(dqk, dv)`` with ``want_qk``."""
+    g, n, c = q.shape
+    if any(t.shape != q.shape for t in (k, v, do)):
+        raise ValueError(f"q/k/v/do shapes differ: {q.shape} {k.shape} {v.shape} {do.shape}")
+    scale = 1.0 / ((c // num_heads) ** 0.5)
+    if q.device.type == "cpu":
+        area_attention_bwd.plain_calls += 1
+        dq, dk, dv = area_attention_bwd_plain(q, k, v, do, num_heads, scale, *(stats or ()))
+        return (torch.cat([dq, dk], dim=-1), dv) if want_qk else (dq, dk, dv)
+    if q.device.type != "cuda":
+        raise ValueError(f"area_attention_bwd takes CPU or CUDA tensors, got {q.device}")
+    if not all(t.dtype == torch.bfloat16 and t.device == q.device for t in (q, k, v, do)):
+        raise ValueError("area_attention_bwd kernel takes bf16 q/k/v/do on one device")
+    if not area_attention_train_fits(n, c, num_heads):
+        raise ValueError(f"area_attention_bwd kernel cannot take N={n}, C={c}, "
+                         f"heads={num_heads}")
+    if stats is None:  # the forward's output and row statistics, from K3
+        stats = area_attention(q, k, v, num_heads, return_lse=True)
+    out, lse, out_lo = stats
+    if (lse.shape != (g, num_heads, n) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous() or lse.data_ptr() % 16):
+        raise ValueError(f"lse must be contiguous (G, heads, N) f32 on {q.device}, 16-byte "
+                         f"aligned; got {tuple(lse.shape)} {lse.dtype}")
+    if any(t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+           or not t.is_contiguous() for t in (out, out_lo)):
+        raise ValueError("out and out_lo must be contiguous (G, N, C) like q, from "
+                         "area_attention(..., return_lse=True)")
+    do = _build.aligned(do)
+    dqk = torch.empty((g, n, 2 * c), dtype=q.dtype, device=q.device)
+    dv = torch.empty((g, n, c), dtype=q.dtype, device=q.device)
+    dvec = torch.empty((g, num_heads, n), dtype=torch.float32, device=q.device)  # D
+    err = _bwd_kernel_fn()(
+        _build.ptr(q), _tma_stride(q, n), _build.ptr(k), _tma_stride(k, n),
+        _build.ptr(v), _tma_stride(v, n), _build.ptr(do), _tma_stride(do, n),
+        _build.ptr(out), _build.ptr(out_lo), c, _build.ptr(lse), _build.ptr(dvec),
+        _build.ptr(dqk), 2 * c,
+        ctypes.c_void_p(dqk.data_ptr() + c * dqk.element_size()), 2 * c, _build.ptr(dv), c,
+        g, n, num_heads, c // num_heads, float(scale), _build.stream_ptr(q),
+    )
+    _build.check(err, "kuzu_area_attention_bwd")
+    area_attention_bwd.launches += 1
+    return (dqk, dv) if want_qk else (dqk[..., :c], dqk[..., c:], dv)
 
 
 def area_attention_bwd(
@@ -204,34 +282,20 @@ def area_attention_bwd(
     v: torch.Tensor,
     do: torch.Tensor,  # (G, N, C), the gradient of area_attention's output
     num_heads: int,
+    out: torch.Tensor | None = None,
+    lse: torch.Tensor | None = None,
+    out_lo: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of :func:`area_attention`, each (G, N, C) contiguous."""
-    g, n, c = q.shape
-    if any(t.shape != q.shape for t in (k, v, do)):
-        raise ValueError(f"q/k/v/do shapes differ: {q.shape} {k.shape} {v.shape} {do.shape}")
-    scale = 1.0 / ((c // num_heads) ** 0.5)
-    if q.device.type == "cpu":
-        area_attention_bwd.plain_calls += 1
-        return area_attention_bwd_plain(q, k, v, do, num_heads, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"area_attention_bwd takes CPU or CUDA tensors, got {q.device}")
-    if not all(t.dtype == torch.bfloat16 and t.device == q.device for t in (q, k, v, do)):
-        raise ValueError("area_attention_bwd kernel takes bf16 q/k/v/do on one device")
-    if not area_attention_train_fits(n, c, num_heads):
-        raise ValueError(f"area_attention_bwd kernel cannot take N={n}, C={c}, "
-                         f"heads={num_heads}")
-    if do.stride(2) != 1 or do.stride(0) != n * do.stride(1):
-        do = do.contiguous()
-    dq, dk, dv = (torch.empty((g, n, c), dtype=q.dtype, device=q.device) for _ in range(3))
-    err = _bwd_kernel_fn()(
-        _build.ptr(q), _row_stride(q, n), _build.ptr(k), _row_stride(k, n),
-        _build.ptr(v), _row_stride(v, n), _build.ptr(do), _row_stride(do, n),
-        _build.ptr(dq), _build.ptr(dk), _build.ptr(dv), g, n, c, num_heads,
-        float(scale), _build.stream_ptr(q),
-    )
-    _build.check(err, "kuzu_area_attention_bwd")
-    area_attention_bwd.launches += 1
-    return dq, dk, dv
+    """(dq, dk, dv) of :func:`area_attention`, each (G, N, C). ``out``,
+    ``lse`` and ``out_lo`` are the forward's, all three or none
+    (``area_attention(..., return_lse=True)``); without them the kernel
+    route runs the forward kernel first to get them. On the card dq and dk
+    are the column halves of one (G, N, 2C) tensor."""
+    given = [t is not None for t in (out, lse, out_lo)]
+    if any(given) and not all(given):
+        raise ValueError("area_attention_bwd takes out, lse and out_lo together, or none")
+    return _bwd(q, k, v, do, num_heads, (out, lse, out_lo) if all(given) else None,
+                want_qk=False)
 
 
 area_attention_bwd.launches = 0
@@ -241,10 +305,13 @@ area_attention_bwd.plain_calls = 0
 class AreaAttention(torch.autograd.Function):
     """Area attention with a hand-written backward, as
     ``area_attention_trainable``: forward through :func:`area_attention`
-    (K3), backward through :func:`area_attention_bwd` (K4), with only q, k
-    and v saved between them. q and k are the two column halves of one
-    ``(G, N, 2C)`` token tensor ``qk`` (the qk conv's output); the backward
-    returns its gradient as one tensor, ``cat([dq, dk])``.
+    (K3), backward through :func:`area_attention_bwd`'s kernels (K4), with
+    q, k, v, the output in two bf16 parts and each row's log-sum-exp saved
+    between them (the TPU kernel saves q, k, v and recomputes the softmax
+    statistics and D). q and k are the two column halves of one
+    ``(G, N, 2C)`` token tensor ``qk`` (the qk conv's output); on the card
+    the backward kernels write its gradient as one tensor, no
+    concatenation.
 
     ``AreaAttention.apply(qk, v, num_heads) -> (G, N, C)``."""
 
@@ -252,15 +319,18 @@ class AreaAttention(torch.autograd.Function):
     def forward(ctx, qk: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
         c = v.shape[-1]
         ctx.num_heads = num_heads
-        ctx.save_for_backward(qk, v)
-        return area_attention(qk[..., :c], qk[..., c:], v, num_heads)
+        out, lse, out_lo = area_attention(qk[..., :c], qk[..., c:], v, num_heads,
+                                          return_lse=True)
+        ctx.save_for_backward(qk, v, out, lse, out_lo)
+        return out
 
     @staticmethod
     def backward(ctx, do: torch.Tensor):
-        qk, v = ctx.saved_tensors
+        qk, v, out, lse, out_lo = ctx.saved_tensors
         c = v.shape[-1]
-        dq, dk, dv = area_attention_bwd(qk[..., :c], qk[..., c:], v, do, ctx.num_heads)
-        return torch.cat([dq, dk], dim=-1), dv, None
+        dqk, dv = _bwd(qk[..., :c], qk[..., c:], v, do, ctx.num_heads, (out, lse, out_lo),
+                       want_qk=True)
+        return dqk, dv, None
 
 
 def xla_attention(

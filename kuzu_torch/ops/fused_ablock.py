@@ -8,8 +8,9 @@ chunk of ``na`` tokens, with BN folded into the weights::
     x₁ = x + (o + pe)·Wp + bp            out = x₁ + W₂·silu(W₁·x₁ + b₁) + b₂
 
 ``v`` and its 5x5 depthwise ``pe`` are computed outside. :func:`fused_ablock`
-runs :func:`fused_ablock_plain` for a CPU tensor and launches the kernel for
-a CUDA tensor.
+runs :func:`fused_ablock_plain` for a CPU tensor and launches the kernels for
+a CUDA tensor: four products on the wgmma GEMM of ``csrc/gemm.cuh`` around
+the forward attention of ``csrc/attention_fwd.cuh``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from kuzu_torch.ops.flash_attention import (
     FWD_DS,
     JAX_SCORES_BYTES,
     SMEM_LIMIT,
-    _r128,
     attn_fwd_smem_bytes,
 )
 
@@ -47,30 +47,26 @@ def ablock_weights(block) -> list[torch.Tensor]:
     return out
 
 
-ROWS = 32  # rows per GEMM tile, kRows in csrc/attention.cuh
-SLAB = 32  # rows of W per cp.async stage, kSlab
-MAX_COLS = 16 * 16 * 3  # 16-column strips: 16 warps x 3 (kMaxStrips)
-SCRATCH = 16 * 2 * 256 * 4  # two f32 16x16 tiles per warp, kScratchBytes
+GEMM_ROWS = 128  # rows per GEMM tile, kBM in csrc/gemm.cuh
+GEMM_K = 64  # k per ring stage, kBK
 
 
-def _tile_bytes(cols: int) -> int:
-    """A 32-row bf16 tile in shared memory, rows padded by 8 elements."""
-    return _r128(ROWS * (cols + 8) * 2)
+def gemm_smem_bytes(bn: int) -> int:
+    """Shared memory of one GEMM block with ``bn``-column tiles
+    (``gemm_smem_bytes`` in ``csrc/gemm.cuh``): 1024 bytes of alignment, the
+    ring of A (128 x 64) and W (64 x bn) tiles (4 stages; 3 at bn=64, two
+    blocks to an SM), the 128 x bn bf16 staging tile of the epilogue, 128
+    bytes of barriers. It depends on no width."""
+    stages = 3 if bn == 64 else 4
+    return 1024 + stages * (GEMM_ROWS * GEMM_K * 2 + GEMM_K * bn * 2) + GEMM_ROWS * bn * 2 + 128
 
 
-def _stages_bytes(cols: int) -> int:
-    """The two weight stages of ``rows_gemm`` for ``cols`` output columns."""
-    return 2 * _r128(SLAB * (cols + 8) * 2)
-
-
-def ablock_smem_bytes(c: int, heads: int, hidden: int) -> int:
-    """Largest shared memory of the kernel's three launches
-    (``ablock_smem_bytes`` in ``csrc/fused_ablock.cu``), none of which
-    depends on the chunk's length: attention, the qk GEMM, and the
-    projection + MLP with its three activation tiles."""
-    qk = _tile_bytes(c) + _stages_bytes(2 * c) + SCRATCH
-    mlp = 2 * _tile_bytes(c) + _tile_bytes(hidden) + _stages_bytes(max(c, hidden)) + SCRATCH
-    return max(attn_fwd_smem_bytes(c // heads), qk, mlp)
+def ablock_smem_bytes(c: int, heads: int) -> int:
+    """Largest shared memory of the kernel's launches (``ablock_smem_bytes``
+    in ``csrc/fused_ablock.cu``): the attention block's and the GEMM
+    block's at either column tile, none of which depends on the chunk's
+    length, the GEMM's on no width either."""
+    return max(attn_fwd_smem_bytes(c // heads), gemm_smem_bytes(64), gemm_smem_bytes(128))
 
 
 def fused_ablock_fits(na: int, c: int, heads: int, hidden: int) -> bool:
@@ -78,20 +74,17 @@ def fused_ablock_fits(na: int, c: int, heads: int, hidden: int) -> bool:
     ``na^2 * 4 <= 8 MiB`` are the reference gate's terms
     (``kuzu/models/yolo/infer.py:315-321``), kept so that the port routes
     each node as the JAX executor does. The kernel adds: head widths of
-    16-128 in steps of 16 for the attention, ``hidden % 32`` and widths up to
-    768 (2C and hidden) for its GEMMs, and each launch's block within the
-    shared memory."""
+    16-128 in steps of 16 for the attention, ``hidden % 8`` (16-byte rows for
+    TMA) and each launch's block within the shared memory."""
     hd = c // heads
     return (
         c % 128 == 0
         and c % heads == 0
         and hd in FWD_DS
-        and hidden % SLAB == 0
-        and 2 * c <= MAX_COLS
-        and hidden <= MAX_COLS
+        and hidden % 8 == 0
         and na % 16 == 0
         and na * na * 4 <= JAX_SCORES_BYTES
-        and ablock_smem_bytes(c, heads, hidden) <= SMEM_LIMIT
+        and ablock_smem_bytes(c, heads) <= SMEM_LIMIT
     )
 
 
@@ -128,7 +121,7 @@ def fused_ablock_plain(x, v, pe, weights, area: int, heads: int) -> torch.Tensor
 
 
 def _kernel_fn():
-    return _build.function("fused_ablock", "kuzu_fused_ablock", [ctypes.c_void_p] * 14 + [
+    return _build.function("fused_ablock", "kuzu_fused_ablock", [ctypes.c_void_p] * 16 + [
         ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -161,15 +154,19 @@ def fused_ablock(
         if tuple(w.shape) != shp or w.dtype != want or w.device != x.device:
             raise ValueError(f"weight {i}: {tuple(w.shape)} {w.dtype} {w.device}, "
                              f"want {shp} {want} {x.device}")
-    acts = [_build.aligned(t) for t in (x, v, pe)]  # v goes through a TMA tensor map
+    # x, v and the weights go through TMA tensor maps: 16-byte aligned bases
+    acts = [_build.aligned(t) for t in (x, v, pe)]
     if any(t.dtype != torch.bfloat16 or t.shape != x.shape for t in acts):
         raise ValueError("fused_ablock kernel takes bf16 x/v/pe of one shape")
-    ws = [w.contiguous() for w in weights]
-    qk = torch.empty((b_ * n, 2 * c), dtype=x.dtype, device=x.device)
-    o = torch.empty_like(acts[0])  # the attention output, before pe and proj
+    ws = [_build.aligned(w) for w in weights]
+    m = b_ * n
+    qk = torch.empty((m, 2 * c), dtype=x.dtype, device=x.device)
+    a = torch.empty_like(acts[0])  # the attention output plus pe
+    x1 = torch.empty_like(acts[0])
+    h = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
     out = torch.empty_like(acts[0])
     err = _kernel_fn()(
-        *(_build.ptr(t) for t in (*acts, *ws, qk, o, out)),
+        *(_build.ptr(t) for t in (*acts, *ws, qk, a, x1, h, out)),
         b_ * area, na, c, heads, hidden, float((c // heads) ** -0.5),
         _build.stream_ptr(x),
     )

@@ -9,6 +9,8 @@ print them beside their limits.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 
@@ -178,3 +180,154 @@ def attention_faults(q, k, v, num_heads: int, keys: int = 64) -> dict:
     if hd < 128:
         out["padded scale 128^-1/2"] = attention_exact(q, k, v, num_heads, 128**-0.5)
     return out
+
+
+# Area-attention backward in bf16 (K4): both sides are f32 arithmetic
+# rounded once to bf16; the kernels sum in another order and feed P and dS
+# to the tensor cores as two bf16 parts (~16 significant bits), so they stay
+# one bf16 rounding (2^-8 relative) apart, plus f32-size absolute noise where
+# a sum cancels. Per tensor:
+BWD_TOL = "1e-2 |ref| + 1e-3 max|ref|"
+
+
+def bwd_over(out, ref) -> tuple[float, int]:
+    """(max abs error, entries over ``BWD_TOL``) of ``out`` against ``ref``."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    tol = 1e-2 * r.abs() + 1e-3 * float(r.abs().max())
+    return float(err.max()), int((err > tol).sum())
+
+
+def attention_bwd_exact(q, k, v, do, num_heads: int, lse=None, *, tile: int = 64,
+                        skip_last_query_tile: bool = False, d_zero: bool = False,
+                        dq_scale: bool = True, one_part: bool = False,
+                        d_from_out: bool = False):
+    """(dq, dk, dv) of area attention over head-packed (G, N, C) tensors in
+    f32, each rounded once to q's dtype: the function K4 computes, with P the
+    softmax of S or, given ``lse`` (base 2, (G, heads, N)), exp2(log2(e) S -
+    lse). The flags compute what a kernel with a fault (or another design)
+    would: the last ``tile`` query rows left out of dK and dV; D taken as 0;
+    dQ without ``scale``; P and dS rounded to one bf16 part before their
+    products; D = rowsum(dO o O) from the output O rounded to one bf16 part
+    (the kernels take it from two)."""
+    import torch
+
+    g, n, c = q.shape
+    hd = c // num_heads
+    scale = hd**-0.5
+    last = (n - 1) // tile * tile  # first query of the last tile
+    outs = ([], [], [])
+    for i in range(0, g, 4):  # 4 groups at a time: N x N in f32
+
+        def heads(t):
+            return t[i:i + 4].float().reshape(-1, n, num_heads, hd).transpose(1, 2)
+
+        qh, kh, vh, doh = (heads(t) for t in (q, k, v, do))
+        s = (qh * scale) @ kh.transpose(-1, -2)
+        if lse is None:
+            p = torch.softmax(s, dim=-1)
+        else:
+            p = torch.exp2(s * (1.0 / math.log(2.0)) - lse[i:i + 4].float()[..., None])
+        dp = doh @ vh.transpose(-1, -2)
+        if d_zero:
+            d = 0.0
+        elif d_from_out:
+            d = (doh * (p @ vh).to(q.dtype).float()).sum(-1, keepdim=True)
+        else:
+            d = (dp * p).sum(-1, keepdim=True)
+        ds = p * (dp - d)
+        if one_part:
+            p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+        dq = (ds @ kh) * (scale if dq_scale else 1.0)
+        if skip_last_query_tile:
+            p, ds = p.clone(), ds.clone()
+            p[..., last:, :] = 0.0
+            ds[..., last:, :] = 0.0
+        dk = (ds.transpose(-1, -2) @ qh) * scale
+        dv = p.transpose(-1, -2) @ doh
+        for acc, t in zip(outs, (dq, dk, dv)):
+            acc.append(t.transpose(1, 2).reshape(-1, n, c))
+    return tuple(torch.cat(t).to(q.dtype) for t in outs)
+
+
+def attention_bwd_faults(q, k, v, do, num_heads: int, lse) -> dict:
+    """Outputs (dq, dk, dv) of backward kernels with a fault, each computed
+    exactly (:func:`attention_bwd_exact`), keyed by the fault; each must put
+    one of its tensors over ``BWD_TOL`` against the sound output: the last
+    query tile skipped in dK and dV; D taken as 0; a stale lse (another
+    group's row statistics); dQ without ``scale``."""
+    import torch
+
+    return {
+        "last query tile skipped in dK/dV": attention_bwd_exact(
+            q, k, v, do, num_heads, lse, skip_last_query_tile=True),
+        "D taken as 0": attention_bwd_exact(q, k, v, do, num_heads, lse, d_zero=True),
+        "stale lse (another group's)": attention_bwd_exact(
+            q, k, v, do, num_heads, torch.roll(lse, 1, dims=0)),
+        "dQ without scale": attention_bwd_exact(q, k, v, do, num_heads, lse, dq_scale=False),
+    }
+
+
+# The fused ABlock (K2) in bf16: the same rounding points on both sides; an
+# f32 sum on a bf16 rounding edge flips one ulp of an intermediate, which the
+# O(1)-O(10) residual stream carries: every entry within 0.08 + 0.02|ref|,
+# and 99.9% within 0.02 + 0.01|ref| (tests/test_yolo_infer.py's criteria).
+ABLOCK_TOL = "0.08 + 0.02|ref|, and > 0.999 within 0.02 + 0.01|ref|"
+
+
+def ablock_over(out, ref) -> tuple[float, int, float]:
+    """(max abs error, entries over 0.08 + 0.02|ref|, share within 0.02 +
+    0.01|ref|) of ``out`` against ``ref``; within ``ABLOCK_TOL`` when the
+    count is 0 and the share above 0.999."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    over = int((err > 0.08 + 0.02 * r.abs()).sum())
+    return float(err.max()), over, float((err <= 0.02 + 0.01 * r.abs()).float().mean())
+
+
+def ablock_exact(x, v, pe, weights, area: int, heads: int, *, bias: bool = True,
+                 silu: bool = True, use_pe: bool = True, residual: bool = True):
+    """The fused ABlock with the reference's bf16 rounding points
+    (``kuzu/ops/fused_ablock.py:52-85``): f32 products of bf16 operands,
+    every intermediate rounded where the reference rounds it. The flags
+    compute what a kernel with a fault in an epilogue would: every bias
+    dropped; SiLU skipped; pe not added to the attention output; both
+    residual adds dropped."""
+    import torch
+
+    wqk, bqk, wp, bp, w1, b1, w2, b2 = weights
+    b_, n, c = x.shape
+    g, na, hd, dt = b_ * area, n // area, c // heads, x.dtype
+
+    def mm(a, w, b):
+        return a.float() @ w.float() + (b if bias else 0.0)
+
+    xs = x.reshape(g, na, c)
+    qk = mm(xs, wqk, bqk).to(dt)
+
+    def split(t):  # (G', na, C) -> (G', H, na, hd)
+        return t.float().reshape(t.shape[0], na, heads, hd).transpose(1, 2)
+
+    outs = []
+    for i in range(0, g, 4):  # 4 chunks at a time: na x na in f32
+        s = (split(qk[i:i + 4, :, :c]) * hd**-0.5) @ split(qk[i:i + 4, :, c:]).transpose(-1, -2)
+        o = (torch.softmax(s, dim=-1) @ split(v.reshape(g, na, c)[i:i + 4])).to(dt)
+        outs.append(o.transpose(1, 2).reshape(-1, na, c))
+    o = torch.cat(outs)
+    a = o + pe.reshape(g, na, c) if use_pe else o
+    attn = mm(a, wp, bp).to(dt)
+    x1 = xs + attn if residual else attn
+    y = mm(x1, w1, b1)
+    hmid = (y * torch.sigmoid(y) if silu else y).to(dt)
+    y2 = mm(hmid, w2, b2).to(dt)
+    out = x1 + y2 if residual else y2
+    return out.reshape(b_, n, c)
+
+
+def ablock_faults(x, v, pe, weights, area: int, heads: int) -> dict:
+    """Outputs of fused-ABlock kernels with a fault in an epilogue, each
+    computed by :func:`ablock_exact`, keyed by the fault; each must fall
+    outside ``ABLOCK_TOL`` against the sound output."""
+    return {name: ablock_exact(x, v, pe, weights, area, heads, **{flag: False})
+            for name, flag in (("bias dropped", "bias"), ("SiLU skipped", "silu"),
+                               ("pe not added", "use_pe"), ("residual dropped", "residual"))}

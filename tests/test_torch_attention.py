@@ -178,7 +178,7 @@ def test_fused_ablock_plain_matches_pallas(ablock_case):
         (16, 64, 2, 128, False, True),      # yolov12n@128 node 6
         (100, 128, 4, 256, False, False),   # 320 px: na % 16 fails both
         (1600, 384, 12, 576, False, False),  # one area at 1280 px: past JAX's 8 MiB of scores
-        (1024, 64, 2, 128, False, True),    # inside 8 MiB: K3 on both sides (not K4's block)
+        (1024, 64, 2, 128, False, True),    # inside 8 MiB: K3 and K4 on both sides
         (1024, 384, 12, 576, True, True),
         (1440, 384, 12, 576, True, True),   # the last na % 16 == 0 inside 8 MiB
         (1456, 64, 2, 128, False, False),   # the first outside it
@@ -187,19 +187,80 @@ def test_fused_ablock_plain_matches_pallas(ablock_case):
     ],
 )
 def test_gates_at_main_path_shapes(na, c, heads, hidden, fused, attn):
-    """The inference gates route every node as the reference executor's
-    terms do (``kuzu/models/yolo/infer.py:279-283`` and ``:315-321``) at
-    head widths the kernels take; the training gate adds the backward
-    kernel's block, which holds a whole group (K4 at na=1024, hd=32 would
-    need 332 KB), and elsewhere equals the forward gate."""
+    """The gates route every node as the reference executor's terms do
+    (``kuzu/models/yolo/infer.py:279-283`` and ``:315-321``) at head widths
+    the kernels take. The training gate is the forward gate: the backward
+    kernels stream their tiles, so their block does not grow with N and fits
+    at every head width, and the training route takes the kernels wherever
+    ``area_attention_trainable`` takes its own. K2's gate has no GEMM-width
+    terms."""
     hd = c // heads
     jax_attn = na % 16 == 0 and na * na * 4 <= 8 * 2**20
     jax_fused = c % 128 == 0 and hd % 8 == 0 and jax_attn
     assert t_fb.fused_ablock_fits(na, c, heads, hidden) is fused is jax_fused
     assert t_fa.area_attention_fwd_fits(na, c, heads) is attn is jax_attn
-    bwd_fits = t_fa.attn_bwd_smem_bytes(na, hd) <= t_fa.SMEM_LIMIT
-    assert t_fa.area_attention_train_fits(na, c, heads) is (attn and bwd_fits)
-    assert bwd_fits is (na <= 400)  # at these widths
+    assert t_fa.area_attention_train_fits(na, c, heads) is attn
+    assert t_fa.area_attention_train_fits is t_fa.area_attention_fwd_fits
+    assert max(t_fa.attn_bwd_smem_bytes(d) for d in t_fa.FWD_DS) <= t_fa.SMEM_LIMIT
+    # widths past the old GEMM's 768-column limit take the kernel where JAX does
+    assert t_fb.fused_ablock_fits(na, 512, 16, 1024) is jax_attn
+
+
+def test_backward_faults_exceed_the_tolerance():
+    """Each planted fault of K4 (last query tile skipped in dK/dV, D taken
+    as 0, another group's lse, dQ without scale) puts entries of one of dq,
+    dk, dv over BWD_TOL against the plain version, so the card's check would
+    catch it; the plain version given the forward's statistics stays within
+    it of the exact function."""
+    from kuzu_torch.testing import BWD_TOL, attention_bwd_exact, attention_bwd_faults, bwd_over
+
+    rng = np.random.default_rng(17)
+    g, n, heads, c = 3, 80, 2, 64
+    (_, qk), (_, v), (_, do) = (_bf16_pair(rng, (g, n, w)) for w in (2 * c, c, c))
+    q, k = qk[..., :c], qk[..., c:]
+    stats = t_fa.area_attention(q, k, v, heads, return_lse=True)
+    ref = t_fa.area_attention_bwd(q, k, v, do, heads, *stats)
+    for a, b in zip(ref, attention_bwd_exact(q, k, v, do, heads)):
+        assert bwd_over(a, b)[1] == 0, BWD_TOL
+    faults = attention_bwd_faults(q, k, v, do, heads, stats[1])
+    assert len(faults) == 4
+    for name, outs in faults.items():
+        assert max(bwd_over(a, b)[1] for a, b in zip(outs, ref)) > 0, name
+
+
+def test_ablock_faults_exceed_the_tolerance():
+    """Each planted fault in K2's epilogues (bias dropped, SiLU skipped, pe
+    not added, residual dropped) falls outside ABLOCK_TOL against the plain
+    version, which ablock_exact reproduces. Random weights and biases, as
+    the card's check uses (a freshly initialised block's folded biases are
+    zero, where a dropped bias cannot show)."""
+    from kuzu_torch.testing import ABLOCK_TOL, ablock_exact, ablock_faults, ablock_over
+
+    rng = np.random.default_rng(2)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.normal(0, 1, shape) * scale).astype(np.float32))
+
+    x, v, pe = (t((2, 64, 64)).to(torch.bfloat16) for _ in range(3))
+    weights = []
+    for cin, cout in ((64, 128), (64, 64), (64, 96), (96, 64)):
+        weights += [t((cin, cout), cin**-0.5).to(torch.bfloat16), t((1, cout), 0.1)]
+    ref = t_fb.fused_ablock_plain(x, v, pe, weights, 4, 2)
+    err, over, close = ablock_over(ablock_exact(x, v, pe, weights, 4, 2), ref)
+    assert over == 0 and close > 0.999, ABLOCK_TOL
+    for name, out in ablock_faults(x, v, pe, weights, 4, 2).items():
+        err, over, close = ablock_over(out, ref)
+        assert over > 0 or close <= 0.999, name
+
+
+@pytest.mark.parametrize("hidden", [128, 576, 640, 704, 1280, 1344, 4096])
+def test_ablock_gemm_smem_fits_at_any_depth(hidden):
+    """K2's GEMM streams A and W through its ring at any depth, so its block
+    does not grow with the widths and the gate has no width term: a wide
+    MLP takes the kernel."""
+    assert t_fb.ablock_smem_bytes(384, 12) <= t_fa.SMEM_LIMIT
+    assert t_fb.fused_ablock_fits(400, 384, 12, hidden)
+    assert t_fb.fused_ablock_fits(400, 384, 12, hidden + 4) is False  # TMA's 16-byte rows
 
 
 @pytest.mark.parametrize("fn", ["area_attention", "fused_ablock", "suppress"])

@@ -80,6 +80,65 @@ def test_area_attention_pair_matches_jax_grad():
         np.testing.assert_allclose(f32(a), f32(b), **TOL["f32"])
 
 
+# (G, N, heads, hd, forward stats given): hd=128 at N=48 (one key tile on the
+# card), a ragged N=80 (the card's second 64-row tile has 16 rows), and the
+# training route's call with the forward's out, lse and out_lo
+BWD_CASES = {
+    "hd128_n48": (2, 48, 1, 128, False),
+    "ragged_n80": (2, 80, 2, 32, False),
+    "stats_given": (2, 80, 3, 32, True),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_area_attention_bwd_plain_cases_match_pallas(case):
+    """K4's plain version at the shapes where the kernels' tiling changes,
+    and given the forward's out, lse and out_lo as the training route passes
+    them (P = exp2(log2(e) S - lse), D = rowsum(dO o (out + out_lo))),
+    against the JAX kernel in interpret mode: one bf16 rounding apart."""
+    from kuzu.ops.flash_attention import area_attention_bwd
+
+    g, n, heads, hd, given = BWD_CASES[case]
+    rng = np.random.default_rng(13)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _inputs(rng, (g, n, heads * hd), "bf16") for _ in range(4))
+    want = area_attention_bwd(jq, jk, jv, jdo, heads, interpret=True)
+    stats = t_fa.area_attention(tq, tk, tv, heads, return_lse=True) if given else ()
+    if given:
+        out, lse, out_lo = stats
+        assert lse.shape == (g, heads, n) and lse.dtype == torch.float32
+        assert out_lo.shape == out.shape and out_lo.dtype == out.dtype
+        # out + out_lo is the f32 output to ~16 bits: far closer than out alone
+        exact = t_fa.area_attention_plain(tq.float(), tk.float(), tv.float(), heads, hd**-0.5)
+        assert ((out.float() + out_lo.float() - exact).abs().max()
+                < 0.05 * (out.float() - exact).abs().max())
+    got = t_fa.area_attention_bwd(tq, tk, tv, tdo, heads, *stats)
+    for a, b in zip(got, want):
+        assert a.shape == (g, n, heads * hd)
+        np.testing.assert_allclose(f32(a), f32(b), **TOL["bf16"])
+
+
+def test_area_attention_pair_returns_one_qk_gradient():
+    """AreaAttention's backward returns d(qk) as one (G, N, 2C) tensor, its
+    halves dq and dk of the backward given the forward's statistics, and
+    refuses part of those statistics."""
+    rng = np.random.default_rng(5)
+    g, n, heads, hd = 2, 32, 2, 16
+    c = heads * hd
+    qk = torch.from_numpy(rng.normal(0, 1, (g, n, 2 * c)).astype(np.float32)).requires_grad_()
+    v = torch.from_numpy(rng.normal(0, 1, (g, n, c)).astype(np.float32)).requires_grad_()
+    do = torch.from_numpy(rng.normal(0, 1, (g, n, c)).astype(np.float32))
+    dqk, dv = torch.autograd.grad(t_fa.AreaAttention.apply(qk, v, heads), (qk, v), do)
+    assert dqk.shape == (g, n, 2 * c)
+    q, k = qk.detach()[..., :c], qk.detach()[..., c:]
+    stats = t_fa.area_attention(q, k, v.detach(), heads, return_lse=True)
+    dq, dk, dv2 = t_fa.area_attention_bwd(q, k, v.detach(), do, heads, *stats)
+    assert torch.equal(dqk[..., :c], dq) and torch.equal(dqk[..., c:], dk)
+    assert torch.equal(dv, dv2)
+    with pytest.raises(ValueError):
+        t_fa.area_attention_bwd(q, k, v.detach(), do, heads, lse=stats[1])
+
+
 def _assign_inputs(seed=0):
     """Two images on a 16x16 + 8x8 anchor grid (strides 8, 16; 128 px).
     GTs of 24-48 px, one pair overlapping (so conflict resolution runs) and
