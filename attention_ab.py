@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Attention kernels of two checkouts on one card, in turns.
+"""Attention kernels, K2 and K6 of two checkouts on one card, in turns.
 
     python3 attention_ab.py OTHER_TREE [--out chiprun_out/attention_ab.json]
 
@@ -21,6 +21,9 @@ times at the shapes of ``chip_smoke.py``'s kernels line:
   (yolov12x@640 b8 nodes 6 and 8), with its device time split by kernel;
 - K5 ``flash_attention`` bf16 at BH=16, N=8192, D=64 and BH=384, N=400,
   D=32, and f32 at BH=16, N=2048, D=64;
+- K6 ``fused_c3k2`` at the shapes of yolov12x@640 b8 nodes 2, 4 and 20
+  (random weights of the block's shapes), with its device time split by
+  kernel (its 1x1 convs share K2's GEMM);
 
 each as ``ms`` (CUDA events around the Python call, what a caller sees) and
 ``device_ms`` (the call's own device time from torch.profiler), both from
@@ -132,6 +135,22 @@ def worker(tree: str) -> dict:
         sd = [t[None] for t in (q, k, v)]
         row(f"K5 BH={bh} N={n} D={d} {str(dtype)[6:]}", lambda: fa.flash_attention(q, k, v),
             lambda: sdpa(*sd))
+
+    from kuzu_torch.ops.fused_c3k2 import fused_c3k2
+
+    for node, hw, cin, c, hid, c2 in ((2, 160, 192, 96, 48, 384), (4, 80, 384, 192, 96, 768),
+                                      (20, 20, 1536, 384, 192, 768)):
+        shapes = [(cin, 2 * c)]
+        for _ in range(2):  # per C3k: cv1, four 3x3, cv2, cv3
+            shapes += [(c, hid)] + [(9 * hid, hid)] * 4 + [(c, hid), (2 * hid, c)]
+        shapes.append((4 * c, c2))
+        weights = [t for ci, co in shapes for t in (w(ci, co), bias(co))]
+        x = torch.randn((8, hw, hw, cin), generator=gen, device=dev).to(torch.bfloat16)
+        k6 = lambda: fused_c3k2(x, weights)  # noqa: E731
+        label = f"K6 node {node} x (8, {hw}, {hw}, {cin}) c={c} hid={hid} c2={c2}"
+        row(label, k6)
+        rows[label]["device_ms_by_kernel"] = {
+            name[:60]: t for name, t in smoke.device_times(k6)[1].items()}
     return rows
 
 

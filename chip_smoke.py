@@ -9,7 +9,10 @@ Phases, each raising on failure:
 2. build of every kernel in ``kuzu_torch/csrc`` (one nvcc per source, in
    parallel), with the build seconds and ptxas' register / spill lines;
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes (K3 at C=64 and at the training shape C=384, each with
+   paths' shapes (K1's keeps at B=8, K=2048 and on the cases that hold its
+   chunked sweep: a ragged K at B=1, a suppression chain across the 64-box
+   chunks, all boxes disjoint, one dense cluster, K = 128 and K = 65, with
+   its two launches' device times; K3 at C=64 and at the training shape C=384, each with
    planted faults that its tolerance must reject; K4 at G=32, N=400,
    C=384 in both call forms, with planted faults, a determinism check,
    every head width at N = 16, 80 and 400 and N=1024, and the
@@ -32,9 +35,10 @@ Phases, each raising on failure:
    so that their peak memory counts training alone: the NHWC inputs of
    nodes 2, 4 and 20 captured from one forward, the kernel against its
    plain version and both against the executor's node output, with the
-   kernel's, the plain version's and the executor's times; then the same
-   nodes with random BatchNorm statistics and x ~ N(0, 1), kernel against
-   plain;
+   kernel's, the plain version's and the executor's times, each node's
+   bound, the conv launches per call (14) and their device time per launch
+   by kind (1x1, merged 1x1, 3x3); then the same nodes with random
+   BatchNorm statistics and x ~ N(0, 1), kernel against plain;
 7. flash attention (K5) through its entry points: the kernel against its
    plain version at BH=16, N=8192, D=64 bf16 (``flash_attention_auto``'s
    crossover), BH=384, N=400, D=32 bf16 (yolov12x node 6's area attention
@@ -46,12 +50,15 @@ Phases, each raising on failure:
    training phases: after them the profiler's sessions come back empty);
 8. training slice check: one train step of yolov12n@128, batch 2, bf16, on
    the card and on the CPU: loss, gradients, BatchNorm statistics and the
-   launch counts (8 K3 + 8 K4);
+   launch counts (8 K3 + 8 K4); then the same step on the card with
+   ``remat=True`` against it: loss, gradients, equal BatchNorm statistics,
+   16 K3 launches (the recomputed forward) + 8 K4, peak memory of both;
 9. training at full width: ``DetectTrainer(cfg).train()`` for
    yolov12-p2x@640, batch 8, bf16 over synthetic pages: 16 K3 + 16 K4
    launches per step, validation through K2/K1, finite losses, EMA and
    BatchNorm statistics moved, ``last`` restores; ms/step, images/s, peak
-   memory and a profiled step's breakdown;
+   memory and a profiled step's breakdown; then three steps of the same
+   model with and without ``remat``: ms/step, peak memory, launch counts;
 10. the ``kernels`` JSON line, then the card's name and power limit;
 11. last line: ``{"ok": true, "device": {...}}``.
 
@@ -106,9 +113,9 @@ LAUNCHES = ("LaunchKernel", "Memcpy", "Memset")  # host API calls that start dev
 def _session_calls(fn, reps: int) -> list[dict]:
     """CUDA activity (kernels, copies, sets) of ``reps`` calls of ``fn`` in
     one torch.profiler session, each call under a ``record_function`` range
-    of its own (a synchronize ends it): one {name: ms} per call whose every
-    host launch has its device record (the profiler drops such records at
-    times; such a call is left out)."""
+    of its own (a synchronize ends it), and one uncounted call after them:
+    one {name: ms} per call whose every host launch has its device record
+    (the profiler drops such records at times; such a call is left out)."""
     import os
     import tempfile
 
@@ -119,6 +126,11 @@ def _session_calls(fn, reps: int) -> list[dict]:
             with record_function(f"device_times_call_{i}"):
                 fn()
                 torch.cuda.synchronize()
+        # one call more, outside every range: the records of a session's last
+        # call have come back incomplete (a K6 call of 18 launches, five
+        # sessions running), so no counted call is the last
+        fn()
+        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -214,6 +226,44 @@ def nms_inputs(dev, b: int = 8, k: int = 2048, seed: int = 0):
     return (torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
 
 
+def _strip(x0: np.ndarray, w: float, h: float = 10.0) -> np.ndarray:
+    """Boxes of width w and height h at the x offsets x0, one row."""
+    x0 = x0.astype(np.float32)[:, None]
+    return np.concatenate([x0, np.zeros_like(x0), x0 + w, np.full_like(x0, h)], -1)
+
+
+def nms_cases(dev) -> dict:
+    """K1's cases, (boxes, valid, threshold) on the card: the main shape; a
+    ragged K at B=1; a chain across the 64-box chunks (box r + 1 overlaps
+    box r above the threshold, box r + 2 does not, so the keeps alternate
+    and a sweep that ORed in rows that were not kept loses half of them);
+    all boxes disjoint (all kept, the OR pass's most work); one dense
+    cluster (almost all suppressed); K a multiple of 64, and K = 65."""
+    from kuzu_torch.ops.nms_kernel import suppress_reference
+
+    rng = np.random.default_rng(7)
+
+    def one(b):
+        return (torch.from_numpy(b[None]).to(dev),
+                torch.ones((1, b.shape[0]), dtype=torch.bool, device=dev))
+
+    centre = rng.uniform(50, 550, 2)
+    cluster = np.concatenate([centre + rng.normal(0, 2, (2048, 2)),
+                              centre + 40 + rng.normal(0, 2, (2048, 2))], -1).astype(np.float32)
+    cases = {"B=8 K=2048": (*nms_inputs(dev), 0.45)}
+    b, v = nms_inputs(dev, 1, 2000, seed=1)
+    cases["B=1 K=2000"] = (b, v, 0.45)
+    cases["chain K=2048"] = (*one(_strip(np.arange(2048) * 4.0, 10.0)), 0.3)
+    cases["disjoint K=2048"] = (*one(_strip(np.arange(2048) * 20.0, 10.0)), 0.45)
+    cases["dense cluster K=2048"] = (*one(cluster), 0.45)
+    for b_, k in ((3, 128), (2, 65)):
+        cases[f"B={b_} K={k}"] = (*nms_inputs(dev, b_, k, seed=k), 0.45)
+    chain = cases["chain K=2048"]
+    keep = suppress_reference(chain[0].cpu(), chain[1].cpu(), 0.3)[0]
+    require(bool((keep == (torch.arange(2048) % 2 == 0)).all()), "the chain case alternates")
+    return cases
+
+
 def kernel_phase(dev) -> dict:
     from kuzu_torch.ops.flash_attention import area_attention, area_attention_plain
     from kuzu_torch.ops.nms_kernel import batched_suppress, suppress_reference
@@ -225,25 +275,38 @@ def kernel_phase(dev) -> dict:
           "(full f32 products)")
     res = {}
 
-    # K1: greedy NMS, B=8, K=2048
-    boxes, valid = nms_inputs(dev)
+    # K1: greedy NMS, B=8, K=2048 (the kernels line), then the cases that
+    # hold the chunked sweep: keeps bit-identical on the card and on the CPU
     thr = 0.45
-    keep = batched_suppress(boxes, valid, thr)
-    ref = suppress_reference(boxes, valid, thr)
-    keep_cpu = suppress_reference(boxes.cpu(), valid.cpu(), thr)
-    torch.cuda.synchronize()
-    mism = int((keep != ref).sum()) + int((keep.cpu() != keep_cpu).sum())
-    print(f"K1 nms B=8 K=2048: kept {int(keep.sum())}, keep mismatches {mism} (must be 0)")
-    require(mism == 0, "K1 keeps identical to the plain recurrence")
+    mismatches = 0  # over every case: the kernels line's max_abs_err
+    for label, (boxes, valid, t) in nms_cases(dev).items():
+        keep = batched_suppress(boxes, valid, t)
+        ref = suppress_reference(boxes, valid, t)
+        keep_cpu = suppress_reference(boxes.cpu(), valid.cpu(), t)
+        torch.cuda.synchronize()
+        mism = int((keep != ref).sum()) + int((keep.cpu() != keep_cpu).sum())
+        print(f"K1 nms {label}: kept {int(keep.sum())} of {int(valid.sum())} valid, keep "
+              f"mismatches {mism} (must be 0)")
+        require(mism == 0, f"K1 keeps identical to the plain recurrence: {label}")
+        mismatches += mism
+    require(mismatches == 0, "K1 keeps identical to the plain recurrence on every case")
+    boxes, valid = nms_inputs(dev)
     nv = valid.sum(1).double()
     pairs = float((nv * (nv - 1) / 2).sum())
     bnd, by = bound(boxes.numel() * 4 + 2 * valid.numel(), 14 * pairs, PEAK_F32)
+    dev_total, dev_split = device_times(lambda: batched_suppress(boxes, valid, thr))
+    launch_ms = {kind: sum(t for name, t in dev_split.items() if f"nms_{kind}_kernel" in name)
+                 for kind in ("mask", "sweep")}
     res["nms"] = dict(
-        max_abs_err=float(mism),
+        max_abs_err=float(mismatches),
         ms=time_ms(lambda: batched_suppress(boxes, valid, thr)),
-        device_ms=device_ms(lambda: batched_suppress(boxes, valid, thr)),
+        device_ms=dev_total, mask_device_ms=launch_ms["mask"],
+        sweep_device_ms=launch_ms["sweep"],
         plain_ms=time_ms(lambda: suppress_reference(boxes, valid, thr), reps=3, warmup=1),
         bound_ms=bnd, bound_by=by, library_ms=None, library_device_ms=None)
+    print(f"  K1 B=8 K=2048: {res['nms']['ms']:.4f} ms, device {dev_total:.4f} (mask kernel "
+          f"{launch_ms['mask']:.4f}, sweep {launch_ms['sweep']:.4f}; plain "
+          f"{res['nms']['plain_ms']:.4f}, bound {bnd:.5f} by {by})")
 
     # K3: area attention at the inference shape of yolov12n@640 node 6
     # (G=32, N=400, C=64, 2 heads) and at the training shape of yolov12-p2x
@@ -662,8 +725,8 @@ def train_slice_check(dev, launches: dict) -> None:
     batch = default_collate([ds[0], ds[1]])
     cfg = load_config(overrides=dict(warmup_epochs=0, epochs=1, grad_clip=0))
 
-    def run(d, dtype):
-        graph = YoloGraph(spec, dtype=dtype)
+    def run(d, dtype, remat=False):
+        graph = YoloGraph(spec, dtype=dtype, remat=remat)
         graph.reset_parameters(torch.Generator().manual_seed(0))
         graph.to(d)
         tx = build_optimizer(cfg, graph, 1)
@@ -687,11 +750,17 @@ def train_slice_check(dev, launches: dict) -> None:
         tx.step = snapshot_then_step
         step = make_train_step(loss_fn, tx)
         b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
-        zero_counts()
-        metrics = step(state, b)
         if d.type == "cuda":
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        metrics = step(state, b)
+        peak = 0.0
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**20
         return dict(
+            peak_mib=peak,
             counts=launch_counts(), metrics={k: float(v) for k, v in metrics.items()},
             grads=grads, stats={n: t.detach().float().cpu() for n, t in graph.named_buffers()
                                 if "running" in n})
@@ -751,6 +820,32 @@ def train_slice_check(dev, launches: dict) -> None:
           f"0.1); BN statistics {sb:.4f} (< 0.05)")
     require(rel <= 2e-2 and wb >= 0.8 and card_f32 >= cpu_f32 - 0.1 and sb < 0.05,
             "card vs CPU bf16 train step")
+    # remat: the same bf16 step on the card with every C3k2 and A2C2f block
+    # checkpointed. Its forward is the same arithmetic, so the loss and the
+    # BatchNorm statistics are equal; the backward recomputes each block (K3
+    # launches again, K4 once), its gradient sums may come in another order
+    # (cuDNN's weight gradients), so the gradients are held to the f32
+    # criteria above, far inside this phase's bf16 card criteria
+    rm = run(dev, torch.bfloat16, remat=True)
+    print(f"  remat: card launches {rm['counts']} (want area_attention 16: the recomputed "
+          f"forward launches K3 again, area_attention_bwd 8)")
+    require(rm["counts"] == want(area_attention=16, area_attention_bwd=8),
+            "yolov12n remat train-step launch counts")
+    for name, n in rm["counts"].items():
+        launches[name] += n
+    rrel = abs(rm["metrics"]["loss"] - gb["metrics"]["loss"]) / abs(gb["metrics"]["loss"])
+    rwhole = _cos(torch.cat([rm["grads"][n].flatten() for n in names]),
+                  torch.cat([gb["grads"][n].flatten() for n in names]))
+    gtop = max(float(t.norm()) for t in gb["grads"].values())
+    rleaf = min(_cos(rm["grads"][n], gb["grads"][n]) for n in names
+                if float(gb["grads"][n].norm()) > 1e-3 * gtop)
+    stats_equal = all(torch.equal(rm["stats"][n], t) for n, t in gb["stats"].items())
+    print(f"  remat vs not: loss rel {rrel:.2e} (<= 1e-4), whole-gradient cosine {rwhole:.7f} "
+          f"(>= 0.9999), worst leaf cosine {rleaf:.5f} (>= 0.999), BN statistics equal "
+          f"{stats_equal}; peak memory {rm['peak_mib']:.1f} MiB with remat, "
+          f"{gb['peak_mib']:.1f} without")
+    require(rrel <= 1e-4 and rwhole >= 0.9999 and rleaf >= 0.999 and stats_equal,
+            "remat train step equals the plain one on the card")
 
 
 class StepRecorder:
@@ -867,6 +962,65 @@ def train_full_width(dev, launches: dict) -> dict:
     return r
 
 
+def remat_full_width(dev, launches: dict) -> dict:
+    """What ``remat`` buys at the production character detector's width:
+    yolov12-p2x@640, batch 8, bf16, nc=1, three train steps (after one
+    warm-up) with and without it: ms/step (CUDA events), peak memory, and
+    the launch counts (remat: K3 twice per attention call, K4 once)."""
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
+    from kuzu_torch.data.loader import default_collate
+    from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
+    from kuzu_torch.ops.detect_loss import detection_loss
+    from kuzu_torch.testing import SyntheticDetectionDataset
+
+    path, scale = resolve_model_spec("yolov12-p2x")
+    spec = parse_model_yaml(path, scale=scale, nc=1)
+    ds = SyntheticDetectionDataset(8, 640, max_boxes=400, nc=1, seed=3)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in default_collate([ds[i] for i in range(8)]).items()}
+    cfg = load_config(overrides=dict(warmup_epochs=0, epochs=1))
+    out = {}
+    for remat in (False, True):
+        graph = YoloGraph(spec, dtype=torch.bfloat16, remat=remat)
+        graph.reset_parameters(torch.Generator().manual_seed(0))
+        graph.to(dev)
+        tx = build_optimizer(cfg, graph, 1)
+        state = TrainState(graph, tx)
+        step = make_train_step(lambda model, b: detection_loss(
+            model(b["image"]), b["gt_labels"], b["gt_boxes"], b["mask_gt"], nc=1, imgsz=640,
+            strides=spec.strides, reg_max=spec.reg_max), tx)
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            zero_counts()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            metrics = step(state, batch)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        counts = launch_counts()
+        for name, n in counts.items():
+            launches[name] += 3 * n
+        k3 = 32 if remat else 16
+        require(counts == want(area_attention=k3, area_attention_bwd=16),
+                f"p2x remat={remat} launch counts {counts}")
+        require(bool(np.isfinite(float(metrics["loss"]))), "finite loss")
+        out["remat" if remat else "plain"] = dict(
+            ms_per_step=statistics.median(times), step_ms=times,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del graph, tx, state, step
+        torch.cuda.empty_cache()
+    print(f"yolov12-p2x@640 b8 bf16 train step, remat off / on: ms/step "
+          f"{out['plain']['ms_per_step']:.3f} / {out['remat']['ms_per_step']:.3f}, peak memory "
+          f"{out['plain']['peak_gib']:.2f} / {out['remat']['peak_gib']:.2f} GiB (K3 16 / 32, "
+          f"K4 16 / 16 launches per step)")
+    return out
+
+
 def train_step_breakdown(trainer, ds) -> dict:
     """One training step taken apart: CUDA events between its phases
     (forward, assigner + loss, backward, optimizer + EMA) and, under
@@ -961,7 +1115,7 @@ def device_breakdown(fn) -> dict:
             continue
         name = evt.key
         kernels.append((us / 1e3, evt.count, name[:70]))
-        if "ablock_gemm_kernel" in name:
+        if "gemm::gemm_kernel" in name:  # K2's products (K6 is on no model's path)
             group = "K2 fused_ablock: GEMMs (qk, proj, mlp1, mlp2)"
         elif "attention_fwd_kernel" in name:  # K2's attention; K3 launches the same kernel
             group = "attention_fwd_kernel (K2, K3)"
@@ -1135,6 +1289,32 @@ def k6_against_plain(label: str, o: torch.Tensor, r: torch.Tensor) -> float:
 
 
 C3K2_NODES = (2, 4, 20)  # yolov12x's C3k2 nodes, all c3k=True with n=2
+K6_KINDS = {"1x1": 4, "merged 1x1": 2, "3x3": 8}  # K6's conv launches per call, by kind
+
+
+def k6_launch_times(per_name: dict) -> dict:
+    """K6's device time per launch by conv kind, from device_times' per-name
+    medians (a call's sum over that kind's launches, over their number)."""
+    sums = dict.fromkeys(K6_KINDS, 0.0)
+    for name, t in per_name.items():
+        if "conv3x3_kernel" in name:
+            sums["3x3"] += t
+        elif "gemm_kernel<" in name:  # csrc/gemm.cuh's Epi: kConv = 4, kConvMerged = 5
+            epi = name.split("gemm_kernel<")[1].split(">")[0].split(",")[1].strip()
+            sums["merged 1x1" if epi == "5" else "1x1"] += t
+    return {k: sums[k] / n for k, n in K6_KINDS.items()}
+
+
+def kernel_launch_counts(fn) -> dict:
+    """Device kernels launched by one call of fn: {name: count}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()}
 
 
 def c3k2_phase(dev, det, imgs, launches: dict) -> dict:
@@ -1144,6 +1324,7 @@ def c3k2_phase(dev, det, imgs, launches: dict) -> dict:
     the same nodes with random BatchNorm statistics, kernel against plain."""
     from kuzu_torch.models.yolo import infer
     from kuzu_torch.ops.fused_c3k2 import (
+        N_LAUNCHES,
         c3k2_weights,
         fused_c3k2,
         fused_c3k2_fits,
@@ -1215,9 +1396,17 @@ def c3k2_phase(dev, det, imgs, launches: dict) -> dict:
         flops = 2 * m * sum(t.shape[0] * t.shape[1] for t in w[0::2])
         nbytes = (xh.numel() + out.numel()) * 2 + sum(t.numel() * t.element_size() for t in w)
         bnd, by = bound(nbytes, flops, PEAK_BF16)
+        dev_total, dev_split = device_times(lambda: fused_c3k2(xh, w))
+        per_launch = k6_launch_times(dev_split)
+        counts = kernel_launch_counts(lambda: fused_c3k2(xh, w))
+        n_conv = sum(n for name, n in counts.items() if "gemm_kernel" in name
+                     or "conv3x3_kernel" in name)
+        print(f"  node {idx}: conv launches per call {n_conv} (want {N_LAUNCHES}); device time "
+              f"per launch: " + ", ".join(f"{k} {t:.4f} ms" for k, t in per_launch.items()))
+        require(n_conv == N_LAUNCHES, f"K6 node {idx}: {N_LAUNCHES} conv launches per call")
         with torch.no_grad():
             r = dict(ms=time_ms(lambda: fused_c3k2(xh, w)),
-                     device_ms=device_ms(lambda: fused_c3k2(xh, w)),
+                     device_ms=dev_total, launch_device_ms=per_launch, conv_launches=n_conv,
                      plain_ms=time_ms(lambda: fused_c3k2_plain(xh, w), reps=3, warmup=1),
                      bound_ms=bnd, bound_by=by, library_ms=None, library_device_ms=None,
                      executor_ms=time_ms(lambda: executor_c3k2(p, x, 2, True)),
@@ -1252,7 +1441,9 @@ def c3k2_phase(dev, det, imgs, launches: dict) -> dict:
                                      fused_c3k2(xr, w).float(),
                                      fused_c3k2_plain(xr, w).float()))
     first = min(nodes)
-    out = dict(res[first], max_abs_err=max(errs))
+    out = dict(res[first], max_abs_err=max(errs),
+               device_ms_by_node={i: r["device_ms"] for i, r in res.items()},
+               bound_ms_by_node={i: r["bound_ms"] for i, r in res.items()})
     out["nodes"] = res
     return out
 
@@ -1302,6 +1493,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_slice_check(dev, launches)
     train = train_full_width(dev, launches)
+    train["remat"] = remat_full_width(dev, launches)
 
     kernels = [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
@@ -1338,7 +1530,8 @@ def _check_smem_formulas() -> None:
         flash_attention_smem_bytes,
     )
     from kuzu_torch.ops.fused_ablock import ablock_smem_bytes
-    from kuzu_torch.ops.fused_c3k2 import fused_c3k2_smem_bytes
+    from kuzu_torch.ops.fused_c3k2 import COLUMN_TILES, fused_c3k2_smem_bytes
+    from kuzu_torch.ops.nms_kernel import mask_words, sweep_smem_bytes
 
     fa = _build.library("area_attention").kuzu_area_attention_smem
     fab = _build.library("area_attention_bwd").kuzu_area_attention_bwd_smem
@@ -1355,12 +1548,21 @@ def _check_smem_formulas() -> None:
     fc = _build.library("fused_c3k2").kuzu_fused_c3k2_smem
     ff.restype = fc.restype = ctypes.c_size_t
     ff.argtypes = [ctypes.c_int] * 2
-    fc.argtypes = []
+    fc.argtypes = [ctypes.c_int] * 2
     for d in FLASH_DS:
         for f32, dtype in ((0, torch.bfloat16), (1, torch.float32)):
             require(ff(d, f32) == flash_attention_smem_bytes(d, dtype),
                     f"flash attention smem d={d} f32={f32}")
-    require(fc() == fused_c3k2_smem_bytes(), "fused C3k2 smem")
+    for bn in COLUMN_TILES:
+        for k3 in (0, 1):
+            require(fc(bn, k3) == fused_c3k2_smem_bytes(bn, bool(k3)),
+                    f"fused C3k2 smem bn={bn} 3x3={k3}")
+    nms = _build.library("nms")
+    nw, ns = nms.kuzu_nms_mask_words, nms.kuzu_nms_sweep_smem
+    nw.restype, ns.restype = ctypes.c_long, ctypes.c_size_t
+    nw.argtypes = ns.argtypes = [ctypes.c_int]
+    for k in (1, 64, 65, 2000, 2048, 8192, 8193, 30000):
+        require(nw(k) == mask_words(k) and ns(k) == sweep_smem_bytes(k), f"NMS scratch, smem K={k}")
 
 
 if __name__ == "__main__":

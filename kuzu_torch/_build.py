@@ -34,7 +34,8 @@ BASE_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC"
 # sources that include attention_fwd.cuh take cuTensorMapEncodeTiled from
 # the driver through dlopen.
 EXTRA_FLAGS = {"nms": ["--fmad=false"], "area_attention": ["-ldl"], "fused_ablock": ["-ldl"],
-               "area_attention_bwd": ["-ldl"], "flash_attention": ["-ldl"]}
+               "area_attention_bwd": ["-ldl"], "flash_attention": ["-ldl"],
+               "fused_c3k2": ["-ldl"]}
 SOURCES = ("nms", "area_attention", "fused_ablock", "area_attention_bwd", "flash_attention",
            "fused_c3k2")
 

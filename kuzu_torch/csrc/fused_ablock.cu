@@ -29,13 +29,15 @@
 
 namespace {
 
-// The larger of the attention block's and the GEMM block's shared memory
+// The largest of the attention block's and the GEMM block's shared memory
 // (neither depends on na; the GEMM's not on c or hidden either).
-__host__ __device__ inline size_t ablock_smem_bytes(int hd) {
-  const size_t a = kuzu::fwd::attn_fwd_smem_bytes(hd), b = kuzu::gemm::gemm_smem_bytes(128),
-               c = kuzu::gemm::gemm_smem_bytes(64);
-  const size_t m = b > c ? b : c;
-  return a > m ? a : m;
+inline size_t ablock_smem_bytes(int hd) {
+  size_t m = kuzu::fwd::attn_fwd_smem_bytes(hd);
+  for (int bn : kuzu::gemm::kWidths) {
+    const size_t g = kuzu::gemm::gemm_smem_bytes(bn);
+    m = g > m ? g : m;
+  }
+  return m;
 }
 
 }  // namespace
@@ -54,15 +56,16 @@ extern "C" int kuzu_fused_ablock(const void* x, const void* v, const void* pe, c
   if (g <= 0 || na <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = g * na;
-  int err = run<kQk>(x, wqk, static_cast<const float*>(bqk), nullptr, qk, m, 2 * c, c, s);
+  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  int err = run<kQk>(Gemm{x, c, wqk, f32(bqk), nullptr, 0, qk, 2 * c, m, 2 * c, c}, s);
   if (err != 0) return err;
   const kuzu::bf16* qkp = static_cast<const kuzu::bf16*>(qk);
   err = kuzu::attention_fwd<kuzu::fwd::kAdd>(qkp, 2 * c, qkp + c, 2 * c, v, c, a, nullptr, pe,
                                              c, nullptr, g, na, heads, c / heads, scale, s);
   if (err != 0) return err;
-  err = run<kProj>(a, wp, static_cast<const float*>(bp), x, x1, m, c, c, s);
+  err = run<kProj>(Gemm{a, c, wp, f32(bp), x, c, x1, c, m, c, c}, s);
   if (err != 0) return err;
-  err = run<kMlp1>(x1, w1, static_cast<const float*>(b1), nullptr, h, m, hidden, c, s);
+  err = run<kMlp1>(Gemm{x1, c, w1, f32(b1), nullptr, 0, h, hidden, m, hidden, c}, s);
   if (err != 0) return err;
-  return run<kMlp2>(h, w2, static_cast<const float*>(b2), x1, out, m, c, hidden, s);
+  return run<kMlp2>(Gemm{h, hidden, w2, f32(b2), x1, c, out, c, m, c, hidden}, s);
 }

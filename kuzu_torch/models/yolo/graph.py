@@ -12,6 +12,7 @@ flax graph's ``__call__`` does (the training forward).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -20,6 +21,7 @@ from typing import Any
 import torch
 import yaml
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kuzu_torch.models.yolo import modules as M
 from kuzu_torch.ops.images import from_uint8
@@ -260,6 +262,15 @@ def resolve_model_spec(name: str) -> tuple[Path, str | None]:
 
 # Modules of the yolov12 family; the rest of the zoo is a later slice.
 SUPPORTED = ("Conv", "DWConv", "C3k2", "A2C2f", "Upsample", "Concat", "Detect")
+# The block modules the flax graph wraps in nn.remat (``_block``), of those
+# ported; plain convs, Concat, Upsample and Detect are not wrapped.
+REMAT_BLOCKS = ("C3k2", "A2C2f")
+
+
+def _remat_contexts():
+    """checkpoint's (forward, recompute) contexts: the recompute leaves the
+    BatchNorm running statistics alone, so they move once, as under flax."""
+    return contextlib.nullcontext(), M.frozen_batch_stats()
 
 
 class YoloGraph(nn.Module):
@@ -268,12 +279,19 @@ class YoloGraph(nn.Module):
     ``forward`` is the flax graph's ``__call__`` (``kuzu/models/yolo/graph.py``)
     in ``dtype`` (master weights stay f32), following ``self.training``: the
     training path. Inference runs through the BN-folded executor
-    ``kuzu_torch.models.yolo.infer.run_graph``."""
+    ``kuzu_torch.models.yolo.infer.run_graph``.
 
-    def __init__(self, spec: GraphSpec, dtype: torch.dtype = torch.float32):
+    ``remat=True`` recomputes each block's activations in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), the counterpart of the flax
+    graph's ``nn.remat`` on its blocks: less memory for a second forward of
+    each block. Values, gradients and BatchNorm statistics are unchanged."""
+
+    def __init__(self, spec: GraphSpec, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
+        self.remat = remat
         ch: list[int] = []
         for node in spec.nodes:
             m, a = node.module, node.args
@@ -325,7 +343,13 @@ class YoloGraph(nn.Module):
                 result = self.get_submodule(f"n{node.index}_{m}")(ins)
                 cur = ins[0]
             else:
-                cur = self.get_submodule(f"n{node.index}_{m}")(ins[0])
+                mod = self.get_submodule(f"n{node.index}_{m}")
+                if (self.remat and m in REMAT_BLOCKS and self.training
+                        and torch.is_grad_enabled()):
+                    cur = checkpoint(mod, ins[0], use_reentrant=False,
+                                     context_fn=_remat_contexts)
+                else:
+                    cur = mod(ins[0])
             if node.index in self.spec.save:
                 outputs[node.index] = cur
         if result is None:

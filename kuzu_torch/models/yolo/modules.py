@@ -29,7 +29,9 @@ Area attention tokens are the NHWC row-major flatten of H*W, split into
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -43,18 +45,36 @@ from kuzu_torch.ops.flash_attention import (
 
 BN_MOMENTUM = 0.97  # flax momentum: ra = 0.97 ra + 0.03 batch statistic
 
+_bn_state = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """Train-mode BatchNorm leaves its running statistics as they are in
+    this thread: the recomputation of a checkpointed block (``remat``) runs
+    its forward a second time, and flax's ``nn.remat`` moves the statistics
+    once per step."""
+    prev = getattr(_bn_state, "frozen", False)
+    _bn_state.frozen = True
+    try:
+        yield
+    finally:
+        _bn_state.frozen = prev
+
 
 def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.BatchNorm(momentum=0.97, epsilon=1e-3)`` on an NCHW tensor:
     batch statistics in f32 when ``bn.training`` (updating the running ones
-    in place), running statistics otherwise; the result in x's dtype."""
+    in place, except under :func:`frozen_batch_stats`), running statistics
+    otherwise; the result in x's dtype."""
     xf = x.float()
     if bn.training:
-        with torch.no_grad():
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
-            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
-            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+        if not getattr(_bn_state, "frozen", False):
+            with torch.no_grad():
+                mean = xf.mean(dim=(0, 2, 3))
+                var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+                bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+                bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
         y = F.batch_norm(xf, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
     else:
         y = F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight, bn.bias, False,

@@ -47,26 +47,36 @@ def ablock_weights(block) -> list[torch.Tensor]:
     return out
 
 
-GEMM_ROWS = 128  # rows per GEMM tile, kBM in csrc/gemm.cuh
-GEMM_K = 64  # k per ring stage, kBK
+# The GEMM of csrc/gemm.cuh, shared with K6's 1x1 convs: 128-row tiles in
+# column tiles of GEMM_WIDTHS, 64 of k per ring stage, GEMM_STAGES[bn] stages.
+GEMM_ROWS = 128  # kBM
+GEMM_K = 64  # kBK
+GEMM_WIDTHS = (64, 128, 192)  # kWidths
+GEMM_STAGES = {64: 3, 128: 6, 192: 4}  # stages(bn): two 64-column blocks share an SM
+
+
+def gemm_epilogue_bytes(bn: int) -> int:
+    """The epilogue's share of a block (``epilogue_bytes`` in
+    ``csrc/gemm.cuh``): the 128 x bn bf16 staging tile and each consumer
+    warpgroup's f32 copy of the tile's bias."""
+    return GEMM_ROWS * bn * 2 + 2 * bn * 4
 
 
 def gemm_smem_bytes(bn: int) -> int:
     """Shared memory of one GEMM block with ``bn``-column tiles
     (``gemm_smem_bytes`` in ``csrc/gemm.cuh``): 1024 bytes of alignment, the
-    ring of A (128 x 64) and W (64 x bn) tiles (4 stages; 3 at bn=64, two
-    blocks to an SM), the 128 x bn bf16 staging tile of the epilogue, 128
-    bytes of barriers. It depends on no width."""
-    stages = 3 if bn == 64 else 4
-    return 1024 + stages * (GEMM_ROWS * GEMM_K * 2 + GEMM_K * bn * 2) + GEMM_ROWS * bn * 2 + 128
+    ring of A (128 x 64) and W (64 x bn) tiles, the epilogue's share, 128
+    bytes of barriers. It depends on no width of the product."""
+    return (1024 + GEMM_STAGES[bn] * (GEMM_ROWS * GEMM_K * 2 + GEMM_K * bn * 2)
+            + gemm_epilogue_bytes(bn) + 128)
 
 
 def ablock_smem_bytes(c: int, heads: int) -> int:
     """Largest shared memory of the kernel's launches (``ablock_smem_bytes``
     in ``csrc/fused_ablock.cu``): the attention block's and the GEMM
-    block's at either column tile, none of which depends on the chunk's
+    block's at every column tile, none of which depends on the chunk's
     length, the GEMM's on no width either."""
-    return max(attn_fwd_smem_bytes(c // heads), gemm_smem_bytes(64), gemm_smem_bytes(128))
+    return max(attn_fwd_smem_bytes(c // heads), *(gemm_smem_bytes(bn) for bn in GEMM_WIDTHS))
 
 
 def fused_ablock_fits(na: int, c: int, heads: int, hidden: int) -> bool:

@@ -26,15 +26,30 @@ import torch
 import torch.nn.functional as F
 
 from kuzu_torch import _build
-from kuzu_torch.ops.fused_ablock import fold_conv_bn
+from kuzu_torch.ops.fused_ablock import (
+    GEMM_K,
+    GEMM_ROWS,
+    GEMM_WIDTHS,
+    fold_conv_bn,
+    gemm_epilogue_bytes,
+    gemm_smem_bytes,
+)
 
 HALO = 8  # 2 C3k x 2 bottlenecks x 2 convs, one row/col per 3x3 conv
 N_C3K = 2  # the C3k modules the kernel takes, as the TPU kernel
 N_CONVS = 1 + 7 * N_C3K + 1  # cv1, 7 per C3k, cv2
+N_LAUNCHES = 1 + 6 * N_C3K + 1  # the kernel merges each C3k's cv1 and bypass cv2
 
-# Tiles of the kernel's implicit-GEMM conv (csrc/fused_c3k2.cu): 64 pixels x
-# 64 output channels per block, 32 of the reduction per cp.async stage.
-TILE_M, TILE_N, TILE_K, STAGES = 64, 64, 32, 3
+# The kernel's conv blocks: 128 pixels x BN output channels in column tiles
+# of these widths, 64 channels of the reduction per slab. The 1x1 convs run
+# on K2's GEMM (csrc/gemm.cuh, fused_ablock.gemm_smem_bytes); the 3x3 block
+# (csrc/conv.cuh) holds two halo buffers of HALO_BYTES and as many (64 x BN)
+# W tiles as the rest of its shared memory holds (at most 28), and both the
+# GEMM's epilogue (gemm_epilogue_bytes).
+TILE_M, TILE_K = GEMM_ROWS, GEMM_K
+COLUMN_TILES = GEMM_WIDTHS
+HALO_BYTES = 26624
+SMEM_LIMIT = 232448
 
 
 def c3k2_weights(module, n: int = N_C3K) -> list[torch.Tensor]:
@@ -158,19 +173,49 @@ def fused_c3k2_plain(x: torch.Tensor, weights: list[torch.Tensor], n: int = N_C3
     return out.reshape(bsz, nb, t_rows, w, c2).reshape(bsz, h, w, c2)
 
 
-def fused_c3k2_smem_bytes() -> int:
-    """Shared memory of one conv block (``conv_smem_bytes`` in
-    ``csrc/fused_c3k2.cu``): STAGES cp.async stages of a 64 x 32 pixel tile
-    and a 32 x 64 weight tile, bf16, rows padded by 8 elements."""
-    return STAGES * (TILE_M * (TILE_K + 8) + TILE_K * (TILE_N + 8)) * 2
+def kernel_weights(weights: list[torch.Tensor]) -> list[torch.Tensor]:
+    """:func:`c3k2_weights`' list as the kernel's 14 launches take it: each
+    W as it is (``(taps * C, N)`` bf16, read by the kernel in that layout),
+    each bias flat, and each C3k's cv1 and bypass cv2 side by side as one
+    ``(c, 2 hid)`` weight with its ``(2 hid,)`` bias (the only copies); in
+    launch order: cv1; per C3k the merged pair, m0.cv1, m0.cv2, m1.cv1,
+    m1.cv2, cv3; cv2."""
+    ws, bs = weights[0::2], [b.reshape(-1) for b in weights[1::2]]
+    out = [ws[0], bs[0]]
+    for j in range(N_C3K):
+        i = 1 + 7 * j  # cv1, four 3x3, cv2, cv3
+        out += [torch.cat([ws[i], ws[i + 5]], 1), torch.cat([bs[i], bs[i + 5]])]
+        for k in range(i + 1, i + 5):
+            out += [ws[k], bs[k]]
+        out += [ws[i + 6], bs[i + 6]]
+    return out + [ws[-1], bs[-1]]
+
+
+def w_stages(bn: int) -> int:
+    """The 3x3 block's W tiles (``w_stages`` in ``csrc/conv.cuh``)."""
+    rest = SMEM_LIMIT - 1024 - 2 * HALO_BYTES - gemm_epilogue_bytes(bn) - 512
+    return min(rest // (bn * TILE_K * 2), 28)
+
+
+def fused_c3k2_smem_bytes(bn: int, k3: bool = False) -> int:
+    """Shared memory of one conv block at column tile ``bn``: the 1x1
+    block is the GEMM's (:func:`~kuzu_torch.ops.fused_ablock.gemm_smem_bytes`,
+    ``csrc/gemm.cuh``); the 3x3 block (``conv3x3_smem_bytes`` in
+    ``csrc/conv.cuh``) 1024 bytes of alignment, two halos, w_stages(bn) W
+    tiles (64 rows of bn columns, bf16), the epilogue's share and 512 bytes
+    of barriers."""
+    if not k3:
+        return gemm_smem_bytes(bn)
+    return (1024 + 2 * HALO_BYTES + w_stages(bn) * bn * TILE_K * 2 + gemm_epilogue_bytes(bn)
+            + 512)
 
 
 def fused_c3k2_fits(cin: int, c: int, hid: int, c2: int) -> bool:
-    """Widths the kernel takes: every channel count a multiple of 8 (16-byte
-    copies that never straddle a 3x3 tap). Its block's shared memory
-    (:func:`fused_c3k2_smem_bytes`) is the same for every shape and held
-    under the launch's limit by a ``static_assert`` in the kernel's source,
-    so H and W are free."""
+    """Widths the kernel takes: every channel count a multiple of 8 (TMA
+    wants 16-byte strides and bases for the channel slices). Its blocks'
+    shared memory (:func:`fused_c3k2_smem_bytes`) depends only on the column
+    tile, held under the launch's limit by a ``static_assert`` in the
+    kernel's source, so H and W are free."""
     return all(v % 8 == 0 for v in (cin, c, hid, c2))
 
 
@@ -205,7 +250,7 @@ def fused_c3k2(x: torch.Tensor, weights: list[torch.Tensor], n: int = N_C3K,
     if not fused_c3k2_fits(cin, c, hid, c2):
         raise ValueError(f"fused_c3k2 kernel cannot take Cin={cin}, c={c}, hid={hid}, c2={c2}")
     x = _build.aligned(x)
-    ws = [_build.aligned(t) for t in weights]
+    ws = [_build.aligned(t) for t in kernel_weights(weights)]
     wptrs = (ctypes.c_void_p * len(ws))(*(t.data_ptr() for t in ws))
     z = torch.empty((bsz, h, w, (2 + N_C3K) * c), dtype=x.dtype, device=x.device)
     u = torch.empty((bsz, h, w, 2 * hid), dtype=x.dtype, device=x.device)

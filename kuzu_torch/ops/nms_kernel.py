@@ -43,6 +43,27 @@ def suppress_reference(
     return valid & ~suppressed
 
 
+WORD = 64  # boxes per chunk and bits per mask word (csrc/nms.cu kWord)
+SWEEP_CAP = 128  # words per chunk row the sweep keeps in shared memory (kCap)
+SMEM_LIMIT = 232448  # shared memory a block can opt into on the H100
+
+
+def mask_words(k: int) -> int:
+    """Mask scratch words per image (``mask_words`` in ``csrc/nms.cu``): the
+    words on and above the diagonal, 64 rows x W (W + 1) / 2 for W =
+    ceil(K / 64); the words below it are never written nor read."""
+    w = -(-k // WORD)
+    return WORD * w * (w + 1) // 2
+
+
+def sweep_smem_bytes(k: int) -> int:
+    """Shared memory of the sweep block (``sweep_smem_bytes`` in
+    ``csrc/nms.cu``): two chunk windows of min(W, 128) words x 64 rows, and
+    the removed and valid words."""
+    w = -(-k // WORD)
+    return 2 * min(w, SWEEP_CAP) * WORD * 8 + 2 * w * 8
+
+
 def _kernel_fn():
     return _build.function("nms", "kuzu_nms", [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -65,8 +86,9 @@ def batched_suppress(
     b, k, _ = boxes.shape
     boxes = boxes.float().contiguous()
     valid_u8 = valid.to(torch.uint8).contiguous()
-    words = (k + 63) // 64
-    mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
+    if sweep_smem_bytes(k) > SMEM_LIMIT:
+        raise ValueError(f"batched_suppress kernel takes K <= 405504, got K={k}")
+    mask = torch.empty((b, mask_words(k)), dtype=torch.int64, device=boxes.device)
     keep = torch.empty((b, k), dtype=torch.uint8, device=boxes.device)
     err = _kernel_fn()(
         _build.ptr(boxes), _build.ptr(valid_u8), _build.ptr(mask), _build.ptr(keep),

@@ -68,7 +68,7 @@ class DetectTrainer(BaseTrainer):
             raise NotImplementedError(
                 "pretrained grafts (partial_load, the P2-head graft) are not ported "
                 "yet: a later slice")
-        graph = YoloGraph(spec, dtype=dtype)
+        graph = YoloGraph(spec, dtype=dtype, remat=bool(cfg.get("remat", False)))
         graph.reset_parameters(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
         self.spec, self.nc, self.strides = spec, spec.nc, list(spec.strides)
         # the validation executor: refilled and refolded from the EMA each time

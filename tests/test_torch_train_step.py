@@ -35,8 +35,10 @@ def _leaf(tree, path):
     return np.asarray(tree)
 
 
-@pytest.fixture(scope="module")
-def step_pair():
+def run_step_pair(remat: bool = False) -> dict:
+    """The step on both sides; with ``remat`` each block of both graphs is
+    rematerialized in the backward (flax's ``nn.remat``, the port's
+    ``torch.utils.checkpoint``)."""
     from kuzu.core.config import load_config as j_config
     from kuzu.core.train import build_optimizer as j_optimizer
     from kuzu.core.train import init_state, make_train_step as j_step
@@ -48,11 +50,14 @@ def step_pair():
     from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
     from kuzu_torch.models.yolo.graph import YoloGraph
     from kuzu_torch.ops.detect_loss import detection_loss
+    from kuzu_torch.ops.flash_attention import area_attention
 
-    jdet = JaxDetector("yolov12n", nc=3, dtype=jnp.float32, imgsz=128)
-    graph = YoloGraph(jdet.spec, dtype=torch.float32)
+    jdet = JaxDetector("yolov12n", nc=3, dtype=jnp.float32, imgsz=128, remat=remat)
+    graph = YoloGraph(jdet.spec, dtype=torch.float32, remat=remat)
     graph.reset_parameters(torch.Generator().manual_seed(0))
-    variables = jax.tree.map(jnp.asarray, flax_variables(graph))
+    # copies: numpy views of the port's buffers would let the port's step,
+    # which updates the running statistics in place, race JAX's dispatch
+    variables = jax.tree.map(lambda a: jnp.array(a, copy=True), flax_variables(graph))
 
     rng = np.random.default_rng(0)
     batch = {
@@ -87,6 +92,7 @@ def step_pair():
     step = j_step(j_loss_fn, tx, has_model_state=True, donate=False)
     jstate, jmetrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                             jax.random.key(0))
+    jax.block_until_ready((jstate, jmetrics))
 
     # the port
     topt = build_optimizer(load_config(overrides=over), graph, 1)
@@ -106,12 +112,19 @@ def step_pair():
         return detection_loss(feats, b["gt_labels"], b["gt_boxes"], b["mask_gt"], nc=3,
                               imgsz=128, strides=strides)
 
+    k3_before = area_attention.plain_calls
     tmetrics = make_train_step(t_loss_fn, topt)(
         tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
     names = {id(p): n for n, p in graph.named_parameters()}
     return dict(jstate=jstate, jmetrics=jmetrics, jgrads=numpy_tree(jstate.opt_state[1]),
                 tstate=tstate, tmetrics=tmetrics, tgrads=grads, maps=maps[0], batch=batch,
-                targets=list(_targets(graph)), names=names, strides=strides)
+                targets=list(_targets(graph)), names=names, strides=strides,
+                k3_calls=area_attention.plain_calls - k3_before)
+
+
+@pytest.fixture(scope="module")
+def step_pair():
+    return run_step_pair()
 
 
 def test_no_near_tie_in_the_assignment(step_pair):
@@ -141,23 +154,23 @@ def test_no_near_tie_in_the_assignment(step_pair):
     assert ((inside & mask[..., None]).sum(1) <= 1).all()
 
 
-def test_loss_matches(step_pair):
+def check_loss(pair: dict) -> None:
     """f32 through the whole network and the loss: 1e-5 relative."""
-    jm, tm = step_pair["jmetrics"], step_pair["tmetrics"]
+    jm, tm = pair["jmetrics"], pair["tmetrics"]
     for k in ("loss", "box_loss", "cls_loss", "dfl_loss", "num_fg", "grad_norm"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
 
 
-def test_every_gradient_leaf_matches(step_pair):
+def check_gradients(pair: dict) -> None:
     """Each leaf mapped through the bridge. f32 sums in another order through
     ~60 layers: 1e-4 relative to the leaf's largest entry plus 1e-3 of each
     entry. BatchNorm biases ahead of a conv + BatchNorm have gradients that
     are zero but for rounding; they are held to the absolute term of the
     largest leaf instead (1e-6 of it)."""
-    jg, tg, names = step_pair["jgrads"], step_pair["tgrads"], step_pair["names"]
+    jg, tg, names = pair["jgrads"], pair["tgrads"], pair["names"]
     top = max(float(t.abs().max()) for t in tg.values())
     n = 0
-    for path, tensor, is_kernel in step_pair["targets"]:
+    for path, tensor, is_kernel in pair["targets"]:
         if path[0] != "params":
             continue
         want = _leaf(jg, path[1:])
@@ -170,17 +183,29 @@ def test_every_gradient_leaf_matches(step_pair):
     assert n == len(tg)
 
 
-def test_batch_norm_statistics_match(step_pair):
+def check_batch_stats(pair: dict) -> None:
     """The new running statistics (0.97 old + 0.03 batch, the biased batch
     variance): f32 batch means, 1e-5 relative plus 1e-6 absolute."""
-    js = numpy_tree(step_pair["jstate"].model_state["batch_stats"])
+    js = numpy_tree(pair["jstate"].model_state["batch_stats"])
     m = 0
-    for path, tensor, _ in step_pair["targets"]:
+    for path, tensor, _ in pair["targets"]:
         if path[0] == "batch_stats":
             np.testing.assert_allclose(tensor.numpy(), _leaf(js, path[1:]), rtol=1e-5,
                                        atol=1e-6, err_msg="/".join(path))
             m += 1
     assert m > 0
+
+
+def test_loss_matches(step_pair):
+    check_loss(step_pair)
+
+
+def test_every_gradient_leaf_matches(step_pair):
+    check_gradients(step_pair)
+
+
+def test_batch_norm_statistics_match(step_pair):
+    check_batch_stats(step_pair)
 
 
 @pytest.mark.parametrize("which", ["params", "ema"])
