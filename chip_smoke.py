@@ -48,25 +48,43 @@ Phases, each raising on failure:
    tolerance at the crossover; ``flash_attention_auto`` launches K5 once
    at N=8192 and never at N=4096; times beside SDPA's forward (before the
    training phases: after them the profiler's sessions come back empty);
-8. training slice check: one train step of yolov12n@128, batch 2, bf16, on
+8. the page -> text cascade (``KuzushijiPipeline.process_pages``, ship-once
+   tiled path, CTC recognizer): (a) card against CPU at a small size with
+   the same seeded weights and pages (columns matched both ways, texts of
+   matched columns, crops within one level, CRNN logits on identical
+   crops); (b) the production configuration: 16 pages of 1280, yolov12s
+   columns at 1280 (reg_max 32), yolov12-p2x characters on 2 x 2 tiles of
+   640, the CRNN on [1024, 64] crops with 4,788 classes, conf 0.001 and
+   column max_det 32 (random weights): K1 and K2 launches per call, the
+   counts per page, every K1 and K2 call of one ``process_pages`` held
+   against its plain version on the inputs the path gave it (K1 at B=16
+   K=2048, B=64 K=2048 and B=16 K=16384 on every image; K2 at G=256 and
+   G=64), with each shape's times and bound, pages/s (CUDA events, median
+   of 6 after 2 warm-up), peak memory, and one profiled call: each stage's
+   host time and the device time of the kernels it launched (the
+   pipeline's ``cascade/<stage>`` ranges), the idle share; (c, run before
+   b) K1 at the cross-tile shape B=16, K=16384 on synthetic boxes against
+   the plain recurrence on every image, with its times and bound;
+9. training slice check: one train step of yolov12n@128, batch 2, bf16, on
    the card and on the CPU: loss, gradients, BatchNorm statistics and the
    launch counts (8 K3 + 8 K4); then the same step on the card with
    ``remat=True`` against it: loss, gradients, equal BatchNorm statistics,
    16 K3 launches (the recomputed forward) + 8 K4, peak memory of both;
-9. training at full width: ``DetectTrainer(cfg).train()`` for
+10. training at full width: ``DetectTrainer(cfg).train()`` for
    yolov12-p2x@640, batch 8, bf16 over synthetic pages: 16 K3 + 16 K4
    launches per step, validation through K2/K1, finite losses, EMA and
    BatchNorm statistics moved, ``last`` restores; ms/step, images/s, peak
    memory and a profiled step's breakdown; then three steps of the same
    model with and without ``remat``: ms/step, peak memory, launch counts;
-10. the ``kernels`` JSON line, then the card's name and power limit;
-11. last line: ``{"ok": true, "device": {...}}``.
+11. the ``kernels`` JSON line, then the card's name and power limit;
+12. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -160,16 +178,18 @@ def _session_calls(fn, reps: int) -> list[dict]:
     return [c for c, l, sn in zip(per_call, launched, seen) if l and sn == l]
 
 
-def device_times(fn, reps: int = 10, warmup: int = 3) -> tuple[float, dict]:
+def device_times(fn, reps: int = 10, warmup: int = 3,
+                 least: int | None = None) -> tuple[float, dict]:
     """The device's own time per call: ``reps`` calls in one torch.profiler
     session, each call's CUDA activity (kernels, copies, sets) summed.
     Returns the median of the calls' sums in ms and, per kernel name, the
     median of its time per call. Unlike :func:`time_ms` this leaves out the
     host's time in the wrapper and any idle time of the device within a
     call. Calls whose trace misses a launch's activity are taken again, in
-    up to four more sessions, and their count is printed. One session for
-    all the calls: a process that opens hundreds of sessions gets empty
-    traces from the profiler on this card."""
+    up to four more sessions, and their count is printed; with ``least``,
+    that many complete calls will do (the median is then over fewer, as
+    printed). One session for all the calls: a process that opens hundreds
+    of sessions gets empty traces from the profiler on this card."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -181,8 +201,10 @@ def device_times(fn, reps: int = 10, warmup: int = 3) -> tuple[float, dict]:
     if sessions > 1:
         print(f"    (device_times: {sessions - 1} more profiler sessions for calls whose "
               f"trace missed a launch's activity)")
-    require(len(calls) == reps, f"device_times: complete traces of {len(calls)} of {reps} "
-            f"calls")
+    if len(calls) < reps:
+        print(f"    (device_times: complete traces of {len(calls)} of {reps} calls)")
+    require(len(calls) >= (reps if least is None else least),
+            f"device_times: complete traces of {len(calls)} of {reps} calls")
     names = {n for c in calls for n in c}
     per_name = {n: statistics.median(c.get(n, 0.0) for c in calls) for n in names}
     return statistics.median(sum(c.values()) for c in calls), per_name
@@ -694,7 +716,7 @@ def full_width(dev, launches: dict):
     return r, det, imgs
 
 
-# ------------------------------------------------------------ phases 8, 9
+# ----------------------------------------------------------- phases 9, 10
 
 
 def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1096,13 +1118,18 @@ def train_step_breakdown(trainer, ds) -> dict:
     return out
 
 
-def device_breakdown(fn) -> dict:
+def device_breakdown(fn, ranges: str | None = None) -> dict:
     """Kernel time of one call by group (torch.profiler, CUDA activity) and the
-    device's idle share of the call's wall time."""
+    device's idle share of the call's wall time. With ``ranges``, a prefix of
+    ``record_function`` names, the host activity is traced too, and each such
+    range gives its host time and the device time of the kernels launched
+    inside it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1111,7 +1138,8 @@ def device_breakdown(fn) -> dict:
     kernels = []
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0) or 0
-        if us <= 0:
+        if us <= 0 or (ranges and (evt.device_type == DeviceType.CPU  # a range's launches
+                                   or evt.key.startswith(ranges))):  # its span on the device
             continue
         name = evt.key
         kernels.append((us / 1e3, evt.count, name[:70]))
@@ -1121,8 +1149,10 @@ def device_breakdown(fn) -> dict:
             group = "attention_fwd_kernel (K2, K3)"
         elif "nms_" in name:
             group = "K1 nms"
+        elif any(s in name.lower() for s in ("rnn", "lstm")):
+            group = "LSTM (cuDNN)"
         elif any(s in name.lower() for s in ("conv", "xmma", "implicit", "cudnn", "gemm")):
-            group = "convolutions (cuDNN)"
+            group = "convolutions and products (cuDNN, cuBLAS)"
         else:
             group = "other (elementwise, copies, sort)"
         groups[group] = groups.get(group, 0.0) + us / 1e3
@@ -1135,6 +1165,19 @@ def device_breakdown(fn) -> dict:
         print(f"    {group}: {ms:.3f} ms")
     for ms, count, name in sorted(kernels, reverse=True)[:8]:
         print(f"    top kernel {ms:.3f} ms x{count}: {name}")
+    if ranges:
+        stages: dict[str, dict] = {}
+        for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+            if e.device_type == DeviceType.CPU and e.name.startswith(ranges):
+                st = stages.setdefault(e.name[len(ranges):], dict(host_ms=0.0, device_ms=0.0))
+                st["host_ms"] += e.time_range.elapsed_us() / 1e3
+                st["device_ms"] += e.device_time_total / 1e3
+        out["stages"] = stages
+        out["host_outside_ranges_ms"] = wall_ms - sum(st["host_ms"] for st in stages.values())
+        print(f"  ranges {ranges}*: host ms / device ms of the kernels each launched: "
+              + ", ".join(f"{n} {st['host_ms']:.2f} / {st['device_ms']:.2f}"
+                          for n, st in stages.items())
+              + f"; host time outside them {out['host_outside_ranges_ms']:.2f} ms")
     return out
 
 
@@ -1447,6 +1490,421 @@ def c3k2_phase(dev, det, imgs, launches: dict) -> dict:
     out["nodes"] = res
     return out
 
+# ------------------------------------------------------------------ phase 8
+
+VOCAB = 4783  # characters of the production vocabulary (kuzu/tools/production.py:47-52)
+PAGE = 1280  # production page side (kuzu/tools/production.py:41)
+CROP = (1024, 64)  # CRNN crop (H, W) of the production CTC run
+COL_MAX_DET = 32  # random column heads emit up to 300 a page; ~a dense page's count
+# CRNN logits, card against CPU on identical crops, f32 with TF32 off: the
+# convs' and the LSTM's sums run in another order (cuDNN, oneDNN) through 8
+# convs and 2 x T recurrent steps: 1e-4 of the largest logit
+CRNN_TOL = 1e-4
+
+
+def synthetic_tokenizer(n: int = VOCAB):
+    """A tokenizer of the production vocabulary's size: ``n`` CJK ideographs
+    from U+4E00, plus the five specials (ids 0-4; blank = pad = 0)."""
+    from kuzu_torch.data.tokenizer import CharTokenizer
+
+    return CharTokenizer.train(["".join(chr(0x4E00 + i) for i in range(n))])
+
+
+def column_windows(n_pages: int, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """(page index, xyxy window) of one window per column pitch of
+    ``column_pages``: crops to calibrate the CRNN's BatchNorm on."""
+    pitch = max(size // 16, 12)
+    xs = np.arange(size - pitch, pitch // 2, -pitch)
+    boxes = np.array([[x - pitch, size // 32, x + 2, size - size // 32] for x in xs], np.float32)
+    idx = np.repeat(np.arange(n_pages, dtype=np.int32), len(boxes))
+    return idx, np.tile(boxes, (n_pages, 1))
+
+
+def seeded_crnn(dev, pages: torch.Tensor, crop: tuple[int, int], num_classes: int, seed: int):
+    """The production CRNN (dims 64-256, hidden 256, time on the height) on
+    ``dev`` with seeded weights (drawn on the CPU), its BatchNorm calibrated
+    on 32 column crops of ``pages`` (``calibrate_batch_norm``)."""
+    from kuzu_torch.models.crnn import CRNN
+    from kuzu_torch.pipeline.device_pages import device_crops
+    from kuzu_torch.testing import calibrate_batch_norm
+
+    model = CRNN(num_classes).reset_parameters(torch.Generator().manual_seed(seed)).to(dev)
+    idx, boxes = column_windows(min(len(pages), 2), pages.shape[1])
+    crops = device_crops(pages.to(dev), torch.from_numpy(idx).to(dev),
+                         torch.from_numpy(boxes).to(dev), out_h=crop[0], out_w=crop[1])
+    calibrate_batch_norm(model, crops[:32])
+    return model
+
+
+def cascade_pipeline(dev, col, char, crnn, tok, crop, col_max_det: int):
+    from kuzu_torch.pipeline.cascade import KuzushijiPipeline
+    from kuzu_torch.tasks.ctc import CTCPredictor
+    from kuzu_torch.tasks.detect import DetectPredictor
+
+    return KuzushijiPipeline(
+        column_model=DetectPredictor.from_detector(col, conf=CONF, iou=0.7, max_det=col_max_det),
+        char_model=DetectPredictor.from_detector(char, conf=CONF, iou=0.7, max_det=2000),
+        recognizer=CTCPredictor.from_model(crnn, tok, crop, device=dev),
+        tile_grid=2, tile_overlap=0.15, max_det=2000, device=dev)
+
+
+def _as_dets(results: list[dict]) -> dict:
+    """Result columns as padded detections for ``detections_match``."""
+    n = max(max(len(r["columns"]) for r in results), 1)
+    boxes = np.zeros((len(results), n, 4), np.float32)
+    valid = np.zeros((len(results), n), bool)
+    for i, r in enumerate(results):
+        b = np.asarray([c["box"] for c in r["columns"]], np.float32).reshape(-1, 4)
+        boxes[i, :len(b)], valid[i, :len(b)] = b, True
+    return {"boxes": boxes, "valid": valid, "classes": np.zeros(valid.shape, np.int32)}
+
+
+def cascade_card_vs_cpu(dev) -> dict:
+    """Phase 8a: the cascade on the card and on the CPU at a small size, the
+    same seeded weights and pages: yolov12n columns at 256 (reg_max 32),
+    yolov12-p2n characters on 160 px tiles, the production CRNN and
+    vocabulary on [256, 32] crops, four 384 px pages. The detectors stay at
+    init with ``box_head``'s biases (boxes shaped into columns and
+    characters; every anchor scores sigmoid(-4.6), so both devices keep the
+    same index-ordered candidates)."""
+    import copy
+
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.pipeline.device_pages import device_crops
+    from kuzu_torch.testing import box_head, column_pages, detections_match, iou_matrix
+
+    pages = torch.from_numpy(column_pages(4, 384, seed=3))
+    crop = (256, 32)
+    tok = synthetic_tokenizer()
+    crnn_cpu = seeded_crnn("cpu", pages, crop, len(tok), seed=2)
+    pipes = {}
+    for d, crnn in ((dev, copy.deepcopy(crnn_cpu)), ("cpu", crnn_cpu)):
+        col = box_head(YoloDetector("yolov12n", nc=1, imgsz=256, device=d, reg_max=32).init(0),
+                       (1, 6, 1, 6))
+        char = box_head(YoloDetector("yolov12-p2n", nc=1, imgsz=160, device=d).init(1),
+                        (1, 1, 1, 1))
+        pipes[d] = cascade_pipeline(d, col, char, crnn, tok, crop, 300)
+    card = pipes[dev].process_pages(pages)
+    t0 = time.perf_counter()
+    cpu = pipes["cpu"].process_pages(pages)
+    cpu_s = time.perf_counter() - t0
+    cd, gd = _as_dets(cpu), _as_dets(card)
+    m1, m2 = detections_match(cd, gd), detections_match(gd, cd)
+    ncols = [len(r["columns"]) for r in cpu]
+    print(f"cascade card vs CPU (4 pages of 384, CPU run {cpu_s:.1f} s): columns per page "
+          f"{ncols} CPU vs {[len(r['columns']) for r in card]} card, matched {m1:.4f} / "
+          f"{m2:.4f} (>= 0.9 both ways)")
+    require(min(ncols) > 0 and m1 >= 0.9 and m2 >= 0.9, "cascade columns card vs CPU")
+    same = total = 0
+    for c, g in zip(cpu, card):
+        if not c["columns"] or not g["columns"]:
+            continue
+        iou = iou_matrix(np.asarray([x["box"] for x in c["columns"]], np.float32),
+                         np.asarray([x["box"] for x in g["columns"]], np.float32))
+        for i, j in enumerate(iou.argmax(1)):
+            if iou[i, j] >= 0.5:
+                total += 1
+                same += c["columns"][i]["text"] == g["columns"][j]["text"]
+    share = same / max(total, 1)
+    print(f"  texts: {same} of {total} matched columns read the same (>= 0.95); e.g. "
+          f"{[len(x['text']) for x in cpu[0]['columns'][:6]]} characters")
+    require(total > 0 and share >= 0.95, "cascade texts card vs CPU")
+    nch = [len(r["characters"]["boxes"]) for r in cpu]
+    gch = [len(r["characters"]["boxes"]) for r in card]
+    print(f"  characters per page {nch} CPU vs {gch} card")
+    require(min(nch) > 0, "characters found")
+    # crops of the CPU run's column windows, on both devices
+    idx, win = [], []
+    for pi, r in enumerate(cpu):
+        b = pipes["cpu"]._column_bounds(tuple(pages.shape[1:3]),
+                                        np.asarray([x["box"] for x in r["columns"]]))
+        idx += [pi] * len(b)
+        win += b
+    idx_t, win_t = torch.tensor(idx, dtype=torch.int32), torch.tensor(win, dtype=torch.float32)
+    ccrops = device_crops(pages, idx_t, win_t, out_h=crop[0], out_w=crop[1])
+    gcrops = device_crops(pages.to(dev), idx_t.to(dev), win_t.to(dev), out_h=crop[0],
+                          out_w=crop[1])
+    diff = (gcrops.cpu().short() - ccrops.short()).abs()
+    exact = float((diff == 0).float().mean())
+    print(f"  crops {tuple(ccrops.shape)}: max level difference {int(diff.max())} (<= 1), "
+          f"exact share {exact:.6f} (>= 0.999)")
+    require(int(diff.max()) <= 1 and exact >= 0.999, "cascade crops card vs CPU")
+    with torch.no_grad():
+        ref = crnn_cpu(ccrops)[0]
+        out = pipes[dev].recognizer.model(ccrops.to(dev))[0].cpu()
+    err, top = float((out - ref).abs().max()), float(ref.abs().max())
+    print(f"  CRNN logits on identical crops: max abs err {err:.3e} (<= {CRNN_TOL:g} x max|ref| "
+          f"= {CRNN_TOL * top:.3e})")
+    require(err <= CRNN_TOL * top, "CRNN logits card vs CPU")
+    return dict(columns_matched=[m1, m2], texts_same=share, crops_exact=exact, crnn_err=err)
+
+
+@contextlib.contextmanager
+def spy(module, name: str, check):
+    """Inside the block, calls of ``module.name`` go to ``check(fn, *args)``
+    with the original function ``fn``."""
+    fn = getattr(module, name)
+    setattr(module, name, lambda *args: check(fn, *args))
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def k1_keep_mismatches(keep, boxes, valid, thr) -> int:
+    """Keep mismatches of ``keep`` against the plain recurrence on every
+    image, a few images at a time: its (B, K, K) f32 IoU is 1 GiB an image
+    at K=16384."""
+    from kuzu_torch.ops.nms_kernel import suppress_reference
+
+    b, k = valid.shape
+    step = max(1, 2**31 // (k * k * 4))
+    return sum(int((keep[i:i + step] != suppress_reference(boxes[i:i + step], valid[i:i + step],
+                                                            thr)).sum())
+               for i in range(0, b, step))
+
+
+def k1_bound(boxes, valid) -> tuple[float, str]:
+    """K1's bound on these inputs: boxes and mask read once, keeps written,
+    14 operations per pair of valid boxes."""
+    nv = valid.sum(1).double()
+    return bound(boxes.numel() * 4 + 2 * valid.numel(), 14 * float((nv * (nv - 1) / 2).sum()),
+                 PEAK_F32)
+
+
+def k2_bound(x, weights, area: int) -> tuple[float, str]:
+    """K2's bound: x, v, pe read and the output written once, the weights
+    read once; the four products and the area attention's two over
+    G = B * area chunks of na = N / area tokens."""
+    b, n, c = x.shape
+    g, na = b * area, n // area
+    hid, m = weights[4].shape[1], b * n
+    flops = 2 * m * c * (2 * c + c + 2 * hid) + 4 * g * na * na * c
+    return bound(4 * m * c * 2 + sum(t.numel() * t.element_size() for t in weights), flops,
+                 PEAK_BF16)
+
+
+def path_kernel_checks(pipe, pages) -> dict:
+    """Every K1 and K2 call of one ``process_pages`` held against its plain
+    version on the inputs the path gave it (K1: keeps on every image; K2:
+    ``ablock_over``), then each shape's times and bound on the first call's
+    inputs. Launches made here are not counted."""
+    import kuzu_torch.models.yolo.infer as yolo_infer
+    import kuzu_torch.ops.nms as nms_module
+    from kuzu_torch.ops.fused_ablock import fused_ablock, fused_ablock_plain
+    from kuzu_torch.ops.nms_kernel import batched_suppress, suppress_reference
+    from kuzu_torch.testing import ABLOCK_SCALED_TOL, ablock_exact, ablock_faults, ablock_over
+
+    k1: dict[str, dict] = {}
+    k2: dict[str, dict] = {}
+
+    def nms_check(fn, boxes, valid, thr):
+        keep = fn(boxes, valid, thr)
+        key = "B={} K={}".format(*valid.shape)
+        if key not in k1:
+            k1[key] = dict(calls=0, keep_mismatches=0, valid_per_image_max=0,
+                           inputs=(boxes.clone(), valid.clone(), thr))
+        r = k1[key]
+        r["calls"] += 1
+        r["keep_mismatches"] += k1_keep_mismatches(keep, boxes, valid, thr)
+        r["valid_per_image_max"] = max(r["valid_per_image_max"], int(valid.sum(1).max()))
+        return keep
+
+    def ablock_check(fn, x, v, pe, weights, area, heads):
+        out = fn(x, v, pe, weights, area, heads)
+        ref = fused_ablock_plain(x, v, pe, weights, area, heads)
+        err, over, close = ablock_over(out, ref)
+        scale = ablock_exact(x, v, pe, weights, area, heads, scale=True)
+        over_scaled = ablock_over(out, ref, scale)[1]
+        # the entries over ABLOCK_TOL, their error in bf16 ulps of s
+        e, r_ = (out.float() - ref.float()).abs(), ref.float().abs()
+        past = e > 0.08 + 0.02 * r_
+        ulp = torch.exp2(torch.floor(torch.log2(scale.clamp(min=2.0**-126))) - 7)
+        key = (f"G={x.shape[0] * area} na={x.shape[1] // area} C={x.shape[2]} h={heads} "
+               f"hidden={weights[4].shape[1]}")
+        if key not in k2:
+            k2[key] = dict(calls=0, max_abs_err=0.0, over=0, over_scaled=0, max_ulps_of_s=0.0,
+                           max_s_over_ref=0.0, min_share_close=1.0, max_abs_ref=0.0,
+                           inputs=(x.clone(), v.clone(), pe.clone(), weights, area, heads))
+        r = k2[key]
+        r["calls"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["over"] += over
+        r["over_scaled"] += over_scaled
+        if over:
+            r["max_ulps_of_s"] = max(r["max_ulps_of_s"], float((e / ulp)[past].max()))
+            r["max_s_over_ref"] = max(r["max_s_over_ref"],
+                                      float((scale / r_.clamp(min=1e-3))[past].max()))
+        r["min_share_close"] = min(r["min_share_close"], close)
+        r["max_abs_ref"] = max(r["max_abs_ref"], float(out.float().abs().max()))
+        require(bool(torch.isfinite(out.float()).all()), f"K2 finite on the cascade: {key}")
+        return out
+
+    with spy(nms_module, "batched_suppress", nms_check), \
+            spy(yolo_infer, "fused_ablock", ablock_check):
+        pipe.process_pages(pages)
+    torch.cuda.synchronize()
+    for key, r in k1.items():
+        boxes, valid, thr = r.pop("inputs")
+        print(f"K1 on the cascade, {key}: {r['calls']} call(s), up to {r['valid_per_image_max']} "
+              f"valid boxes an image, keep mismatches on every image {r['keep_mismatches']} "
+              f"(must be 0)")
+        require(r["keep_mismatches"] == 0, f"K1 keeps on the cascade at {key}")
+        r["bound_ms"], r["bound_by"] = k1_bound(boxes, valid)
+        r["device_ms"], _ = device_times(lambda: batched_suppress(boxes, valid, thr), least=5)
+        r["ms"] = time_ms(lambda: batched_suppress(boxes, valid, thr), reps=10)
+        r["plain_ms"] = time_ms(lambda: suppress_reference(boxes[:2], valid[:2], thr), reps=1,
+                                warmup=0)
+        print(f"  {r['ms']:.4f} ms, device {r['device_ms']:.4f}, bound {r['bound_ms']:.5f} by "
+              f"{r['bound_by']}; plain on 2 images {r['plain_ms']:.2f} ms")
+    for key, r in k2.items():
+        x, v, pe, weights, area, heads = r.pop("inputs")
+        print(f"K2 on the cascade, {key}: {r['calls']} call(s), max_abs_err {r['max_abs_err']:.3e}"
+              f" (max|out| {r['max_abs_ref']:.3e}), over 0.08 + 0.02|ref|: {r['over']} (their "
+              f"error at most {r['max_ulps_of_s']:.2f} bf16 ulps of s, s up to "
+              f"{r['max_s_over_ref']:.1f} |ref|), over {ABLOCK_SCALED_TOL}: {r['over_scaled']} "
+              f"(must be 0), least share within 0.02 + 0.01|ref|: {r['min_share_close']:.5f} "
+              f"(> 0.999)")
+        require(r["over_scaled"] == 0 and r["min_share_close"] > 0.999,
+                f"K2 on the cascade at {key}")
+        ref = fused_ablock_plain(x, v, pe, weights, area, heads)
+        scale = ablock_exact(x, v, pe, weights, area, heads, scale=True)
+        for name, bad in ablock_faults(x, v, pe, weights, area, heads).items():
+            _, o, _ = ablock_over(bad, ref, scale)
+            _, _, cl = ablock_over(bad, ref)
+            print(f"  planted fault on these inputs, {name}: over {o}, share close {cl:.5f} "
+                  f"(must fail {ABLOCK_SCALED_TOL})")
+            require(o > 0 or cl <= 0.999, f"K2's path tolerance rejects the fault: {name}")
+        del ref, scale
+        r["bound_ms"], r["bound_by"] = k2_bound(x, weights, area)
+        r["device_ms"], _ = device_times(lambda: fused_ablock(x, v, pe, weights, area, heads),
+                                         least=5)
+        r["ms"] = time_ms(lambda: fused_ablock(x, v, pe, weights, area, heads))
+        r["plain_ms"] = time_ms(lambda: fused_ablock_plain(x, v, pe, weights, area, heads),
+                                reps=5)
+        print(f"  {r['ms']:.4f} ms, device {r['device_ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} by {r['bound_by']}")
+    require(len(k1) == 3 and len(k2) == 2, "the cascade's K1 and K2 shapes")
+    torch.cuda.empty_cache()
+    return dict(nms=k1, fused_ablock=k2)
+
+
+def k1_cross_tile(dev) -> dict:
+    """Phase 8c: K1 at the cross-tile NMS shape, B=16 pages, K=16384 (the
+    largest candidate bucket of ``tiling._nms_bucket``) on synthetic boxes:
+    keeps against the plain recurrence on every image, times and bound."""
+    from kuzu_torch.ops.nms_kernel import batched_suppress, suppress_reference
+
+    b, k, thr = 16, 16384, 0.55
+    boxes, valid = nms_inputs(dev, b, k, seed=16)
+    keep = batched_suppress(boxes, valid, thr)
+    mism = k1_keep_mismatches(keep, boxes, valid, thr)
+    print(f"K1 nms at the cross-tile shape B={b} K={k}: kept {keep.sum(1)[:4].tolist()}... of "
+          f"{valid.sum(1)[:4].tolist()}..., keep mismatches on all {b} images {mism} (must be 0)")
+    require(mism == 0, "K1 keeps at K=16384")
+    bnd, by = k1_bound(boxes, valid)
+    dev_total, split = device_times(lambda: batched_suppress(boxes, valid, thr), least=5)
+    r = dict(B=b, K=k, max_abs_err=float(mism),
+             ms=time_ms(lambda: batched_suppress(boxes, valid, thr), reps=10),
+             device_ms=dev_total,
+             mask_device_ms=sum(t for n, t in split.items() if "nms_mask_kernel" in n),
+             sweep_device_ms=sum(t for n, t in split.items() if "nms_sweep_kernel" in n),
+             plain_ms_2_images=time_ms(lambda: suppress_reference(boxes[:2], valid[:2], thr),
+                                       reps=1, warmup=0),
+             bound_ms=bnd, bound_by=by)
+    print(f"  {r['ms']:.4f} ms, device {dev_total:.4f} (mask {r['mask_device_ms']:.4f}, sweep "
+          f"{r['sweep_device_ms']:.4f}), bound {bnd:.4f} by {by}; plain on 2 images "
+          f"{r['plain_ms_2_images']:.1f} ms")
+    return r
+
+
+def cascade_full_width(dev, launches: dict) -> dict:
+    """Phase 8b: ``process_pages`` at the production configuration: 16 pages
+    of 1280 x 1280, yolov12s columns at 1280 (reg_max 32), yolov12-p2x
+    characters on 2 x 2 tiles of 640 (max_det 2000, cross-tile NMS iou
+    0.55), the CRNN on [1024, 64] crops with 4,788 classes; conf 0.001 for
+    both detectors and column max_det 32 (random weights). Seeded weights,
+    BatchNorm calibrated on the pages so that detections spread over them,
+    box heads biased to tall thin columns and small characters."""
+    from kuzu_torch.data.loader import next_bucket
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.pipeline.device_pages import device_letterbox, device_tiles
+    from kuzu_torch.pipeline.tiling import _nms_bucket
+    from kuzu_torch.testing import box_head, calibrate_batch_norm, column_pages
+
+    n_pages = 16
+    pages = torch.from_numpy(column_pages(n_pages, PAGE, seed=5))
+    tok = synthetic_tokenizer()
+    on_card = pages[:2].to(dev)
+    col = YoloDetector("yolov12s", nc=1, imgsz=PAGE, device=dev, reg_max=32).init(0)
+    char = YoloDetector("yolov12-p2x", nc=1, imgsz=640, device=dev).init(1)
+    calibrate_batch_norm(col.graph, device_letterbox(on_card, PAGE)[0])
+    calibrate_batch_norm(char.graph, device_tiles(on_card[:1], 2, 0.15, 640)[0])
+    box_head(col, (1, 6, 1, 6))  # refolds
+    box_head(char, (1, 1, 1, 1))
+    crnn = seeded_crnn(dev, pages, CROP, len(tok), seed=2)
+    del on_card
+    pipe = cascade_pipeline(dev, col, char, crnn, tok, CROP, COL_MAX_DET)
+    for _ in range(2):  # warm-up: cuDNN plans, the allocator
+        pipe.process_pages(pages)
+    torch.cuda.synchronize()
+    zero_counts()
+    res = pipe.process_pages(pages)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"cascade at full width, {n_pages} pages of {PAGE}: launches per call {counts} (want "
+          f"nms 3: column, tile and cross-tile NMS; fused_ablock 16: p2x's A2C2f blocks at "
+          f"640; area_attention 0: yolov12s's attention at 1280 has N = 1600, over both gates)")
+    require(counts == want(nms=3, fused_ablock=16), "cascade launch counts")
+    for name, n in counts.items():
+        launches[name] += n
+    ncol = [len(r["columns"]) for r in res]
+    nchar = [len(r["characters"]["boxes"]) for r in res]
+    ncrop = sum(ncol)
+    cand = pipe._detect_tiles_device(pages.to(dev))[0]["valid"].reshape(n_pages, 4, -1).sum((1, 2))
+    for r in res:
+        b = np.asarray([c["box"] for c in r["columns"]], np.float64).reshape(-1, 4)
+        require(bool(np.isfinite(b).all()) and (b >= 0).all() and (b <= PAGE).all(),
+                "column boxes inside the page")
+        require(all(isinstance(c["text"], str) and "chars" in c for c in r["columns"]),
+                "every column has a text and its characters")
+    require(min(ncol) > 0 and min(nchar) > 0 and max(nchar) <= 2000,
+            "columns and characters on every page")
+    stats = dict(columns_per_page=ncol, chars_per_page=nchar,
+                 crop_bucket=next_bucket(ncrop, 8),
+                 cross_tile_candidates_per_page=cand.tolist(),
+                 cross_tile_k=_nms_bucket(int(cand.max())), launches_per_call=counts,
+                 text_chars_per_page=[sum(len(c["text"]) for c in r["columns"]) for r in res])
+    print(f"  per page: columns (one crop each) {ncol}, characters {nchar}; crops {ncrop} in a "
+          f"bucket of "
+          f"{stats['crop_bucket']}; cross-tile candidates {stats['cross_tile_candidates_per_page']}"
+          f" -> K={stats['cross_tile_k']}")
+    stats["path_kernels"] = path_kernel_checks(pipe, pages)
+    times = []
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pipe.process_pages(pages)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    torch.cuda.reset_peak_memory_stats()
+    pipe.process_pages(pages)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = dict(stats, ms_per_call=ms, ms_per_call_all=times, pages_per_s=n_pages / ms * 1e3,
+               peak_gib=peak)
+    print(f"  process_pages: {ms:.2f} ms per {n_pages} pages (median of {len(times)} after 2 "
+          f"warm-up: {', '.join(f'{t:.1f}' for t in times)}), {out['pages_per_s']:.2f} pages/s, "
+          f"peak memory {peak:.2f} GiB")
+    from kuzu_torch.pipeline.cascade import STAGES
+
+    out["breakdown"] = device_breakdown(lambda: pipe.process_pages(pages), ranges="cascade/")
+    require(list(out["breakdown"]["stages"]) == list(STAGES), "every cascade stage profiled")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 KERNELS = {
@@ -1491,6 +1949,12 @@ def main() -> int:
     # profiler sessions of device_times come back empty on this card
     res["flash_attention"] = flash_phase(dev, launches)
     torch.cuda.empty_cache()
+    cascade = dict(card_vs_cpu=cascade_card_vs_cpu(dev))
+    # K1's synthetic cross-tile check before 8b: 8b's profiler sessions (its
+    # path checks' timings) leave later sessions missing launch records
+    cascade["k1_cross_tile"] = k1_cross_tile(dev)
+    cascade["full_width"] = cascade_full_width(dev, launches)
+    torch.cuda.empty_cache()
     train_slice_check(dev, launches)
     train = train_full_width(dev, launches)
     train["remat"] = remat_full_width(dev, launches)
@@ -1508,6 +1972,7 @@ def main() -> int:
                       "fused_ablock_matmul_device_ms": res["fused_ablock"]["matmul_device_ms"],
                       "card": card}))
     print(json.dumps({"e2e_yolov12x_640_b8": e2e, "card": card}))
+    print(json.dumps({"cascade_16_pages_1280": cascade, "card": card}))
     print(json.dumps({"train_yolov12p2x_640_b8": train, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,9 +5,18 @@ The flax tree comes as nested dicts of numpy arrays. Names map one to one:
 - ``params .../conv/kernel`` (HWIO, grouped ``(kh, kw, cin/g, cout)``) ->
   ``....conv.weight`` (OIHW ``(cout, cin/g, kh, kw)``); a bare Detect leaf
   ``params .../box0_2/kernel|bias`` -> ``....box0_2.weight|bias``;
+- ``params .../head/kernel|bias`` (a ``Dense``, kernel ``(in, out)``) ->
+  ``....head.weight`` (``(out, in)``, transposed) ``|bias``;
 - ``params .../bn/scale|bias`` -> ``....bn.weight|bias``;
   ``batch_stats .../bn/mean|var`` -> ``....bn.running_mean|running_var``;
 - ``params .../gamma`` -> ``....gamma`` as is.
+
+The CRNN's BiLSTM (:func:`crnn_from_flax`) maps many to one: flax's two
+``OptimizedLSTMCell``s (``_0`` forward, ``_1`` the reversed ``nn.RNN``)
+each hold eight ``Dense`` layers, ``ii/if/ig/io`` on the input (no bias) and
+``hi/hf/hg/ho`` on the hidden state; ``nn.LSTM`` stacks them by gate in the
+order i, f, g, o into ``weight_ih_l0`` / ``weight_hh_l0`` / ``bias_hh_l0``
+(``..._reverse`` for the second cell), and ``bias_ih_l0`` is zero.
 
 Every flax leaf is consumed exactly once and every port tensor is filled;
 anything left over or missing raises.
@@ -18,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+GATES = "ifgo"  # nn.LSTM's row blocks, flax's gate suffixes
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -31,44 +42,105 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
 
 
 def _targets(root: nn.Module):
-    """(flax path, port tensor, is-conv-kernel) for every tensor the port holds."""
+    """(flax path, port tensor, layout) for every tensor the port holds but
+    an LSTM's; layout "conv" is an HWIO kernel, "dense" an (in, out) one,
+    None a leaf taken as is."""
     for name, m in root.named_modules():
         path = tuple(name.split(".")) if name else ()
-        if isinstance(m, nn.Conv2d):
-            yield ("params", *path, "kernel"), m.weight, True
+        if isinstance(m, nn.LSTM):
+            continue
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            yield ("params", *path, "kernel"), m.weight, (
+                "conv" if isinstance(m, nn.Conv2d) else "dense")
             if m.bias is not None:
-                yield ("params", *path, "bias"), m.bias, False
+                yield ("params", *path, "bias"), m.bias, None
         elif isinstance(m, nn.BatchNorm2d):
-            yield ("params", *path, "scale"), m.weight, False
-            yield ("params", *path, "bias"), m.bias, False
-            yield ("batch_stats", *path, "mean"), m.running_mean, False
-            yield ("batch_stats", *path, "var"), m.running_var, False
+            yield ("params", *path, "scale"), m.weight, None
+            yield ("params", *path, "bias"), m.bias, None
+            yield ("batch_stats", *path, "mean"), m.running_mean, None
+            yield ("batch_stats", *path, "var"), m.running_var, None
         for pname, p in m.named_parameters(recurse=False):
             if pname not in ("weight", "bias"):  # e.g. A2C2f.gamma
-                yield ("params", *path, pname), p, False
+                yield ("params", *path, pname), p, None
+
+
+def _to_port(arr: np.ndarray, layout: str | None) -> np.ndarray:
+    """A flax leaf in the port's layout."""
+    if layout == "conv":
+        return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if layout == "dense":
+        return arr.T
+    return arr
+
+
+def _lstm_leaves(lstm: nn.LSTM, cells: tuple[str, str]) -> list[tuple[list, str, torch.Tensor]]:
+    """([flax paths], kind, port tensor) of a one-layer bidirectional LSTM
+    whose directions are the flax cells ``cells`` (forward, reverse)."""
+    if lstm.num_layers != 1 or not lstm.bidirectional or not lstm.batch_first:
+        raise ValueError("the bridge maps a one-layer, bidirectional, batch-first LSTM")
+    out = []
+    for cell, sfx in zip(cells, ("", "_reverse")):
+        p = ("params", cell)
+        out.append(([(*p, f"i{g}", "kernel") for g in GATES], "stack",
+                    getattr(lstm, f"weight_ih_l0{sfx}")))
+        out.append(([(*p, f"h{g}", "kernel") for g in GATES], "stack",
+                    getattr(lstm, f"weight_hh_l0{sfx}")))
+        out.append(([(*p, f"h{g}", "bias") for g in GATES], "cat",
+                    getattr(lstm, f"bias_hh_l0{sfx}")))
+        out.append(([], "zero", getattr(lstm, f"bias_ih_l0{sfx}")))
+    return out
+
+
+def _copy(tensor: torch.Tensor, arr: np.ndarray, what: str) -> None:
+    if tuple(arr.shape) != tuple(tensor.shape):
+        raise ValueError(f"{what}: flax {arr.shape} vs port {tuple(tensor.shape)}")
+    tensor.copy_(torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32))
 
 
 @torch.no_grad()
-def from_flax(root: nn.Module, variables: dict) -> None:
-    """Fill ``root`` (a ``YoloGraph``) in place from a flax variables tree."""
+def from_flax(root: nn.Module, variables: dict, lstm_cells: dict | None = None) -> None:
+    """Fill ``root`` in place from a flax variables tree. ``lstm_cells``
+    names, per port LSTM module, the flax cells of its two directions."""
     leaves = _flatten({k: variables[k] for k in ("params", "batch_stats") if k in variables})
     used: set[tuple] = set()
     missing = []
-    for path, tensor, is_kernel in _targets(root):
+
+    def take(path: tuple) -> np.ndarray | None:
         if path not in leaves:
             missing.append("/".join(path))
-            continue
+            return None
         if path in used:
             raise ValueError(f"flax leaf {'/'.join(path)} consumed twice")
         used.add(path)
-        arr = leaves[path]
-        if is_kernel:
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        if tuple(arr.shape) != tuple(tensor.shape):
-            raise ValueError(f"{'/'.join(path)}: flax {arr.shape} vs port "
-                             f"{tuple(tensor.shape)}")
-        tensor.copy_(torch.tensor(arr, dtype=torch.float32))
+        return leaves[path]
+
+    for path, tensor, layout in _targets(root):
+        arr = take(path)
+        if arr is not None:
+            _copy(tensor, _to_port(arr, layout), "/".join(path))
+    for name, cells in (lstm_cells or {}).items():
+        for paths, kind, tensor in _lstm_leaves(root.get_submodule(name), cells):
+            if kind == "zero":
+                tensor.zero_()
+                continue
+            arrs = [take(p) for p in paths]
+            if any(a is None for a in arrs):
+                continue
+            arr = (np.concatenate([a.T for a in arrs], 0) if kind == "stack"
+                   else np.concatenate(arrs, 0))
+            _copy(tensor, arr, f"{name} <- {'/'.join(paths[0][:2])}")
     left = sorted("/".join(p) for p in leaves.keys() - used)
     if missing or left:
         raise ValueError(f"flax/port mismatch: missing in flax {missing[:10]}, "
                          f"unused flax leaves {left[:10]}")
+
+
+def crnn_from_flax(model: nn.Module, variables: dict) -> nn.Module:
+    """Fill a ``kuzu_torch.models.crnn.CRNN`` from the JAX CRNN's variables
+    (numpy leaves) and return it. Its BiLSTM's cells are flax's
+    ``OptimizedLSTMCell_0`` (forward) and ``OptimizedLSTMCell_1`` (reverse):
+    the cells are built in ``CRNN.__call__``'s scope, so they carry the
+    parent's automatic names, not ``lstm_fwd`` / ``lstm_bwd``."""
+    from_flax(model, variables,
+              lstm_cells={"lstm": ("OptimizedLSTMCell_0", "OptimizedLSTMCell_1")})
+    return model

@@ -5,8 +5,9 @@ A checkpoint is ``<dir>/<name>/state.pt`` holding the train state's
 ``state_dict()`` (step, model with its BatchNorm statistics, EMA, optimizer)
 beside ``kuzu_meta.json`` (epoch, fitness); ``last`` is written every epoch
 and copied to ``best`` when its fitness is the highest so far.
-``partial_load`` (the P2-head graft) and ``load_inference_params`` are not
-ported yet.
+``load_inference_params`` restores a model's weights for prediction.
+``partial_load`` (the P2-head graft) and the LoRA branch of
+``load_inference_params`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -71,3 +72,19 @@ class CheckpointManager:
 
     def exists(self, name: str = "last") -> bool:
         return (self.dir / name / "state.pt").exists()
+
+
+def load_inference_params(
+    mgr: CheckpointManager, name: str | None = None
+) -> dict[str, torch.Tensor]:
+    """The model's state dict for inference, EMA-preferred: ``best`` when it
+    exists, else ``last`` (or ``name``); the EMA's parameters over the live
+    ones, with the live buffers (BatchNorm statistics) beside them, as the
+    trainer's ``TrainState.ema_state_dict`` builds it."""
+    if name is None:
+        name = "best" if mgr.exists("best") else "last"
+    sd = mgr.restore(name)
+    out = dict(sd["model"])
+    if sd.get("ema") is not None:
+        out.update(sd["ema"])
+    return out

@@ -1,0 +1,121 @@
+"""CTC CRNN recognizer: conv encoder -> BiLSTM -> per-timestep char logits
+(counterpart of ``kuzu/models/crnn.py``).
+
+The time axis is the column's long side (height for vertical text): the
+encoder's strides halve it twice (T = H / 4) and halve the short side four
+times, then average it away. Runs in f32, as the JAX predictor builds it.
+Module names follow the flax tree, so ``kuzu_torch.bridge.crnn_from_flax``
+maps it one to one (the LSTM's two flax cells are ``lstm``'s two
+directions).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from kuzu_torch.ops.images import from_uint8
+
+STRIDES = ((2, 2), (2, 2), (1, 2), (1, 2))  # (time, short side) per stage
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias) + BatchNorm (eps 1e-3) + SiLU, flax's ``ConvBN``."""
+
+    def __init__(self, cin: int, cout: int, stride=(1, 1)):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-3, momentum=0.03)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.silu(self.bn(self.conv(x)))
+
+
+class ConvEncoder(nn.Module):
+    """Per stage a stride-1 ConvBN (``conv{i}a``), then a strided conv
+    (``down{i}``) with its own BatchNorm (``bn{i}``) and SiLU; the short axis
+    is averaged away at the end."""
+
+    def __init__(self, dims=(64, 128, 256, 256), time_axis: str = "height", cin: int = 3):
+        super().__init__()
+        if time_axis not in ("height", "width"):
+            raise ValueError(f"time_axis is 'height' or 'width', got {time_axis!r}")
+        self.time_axis = time_axis
+        for i, (d, s) in enumerate(zip(dims, STRIDES)):
+            self.add_module(f"conv{i}a", ConvBN(cin, d))
+            self.add_module(f"down{i}", nn.Conv2d(d, d, 3, stride=s, padding=1, bias=False))
+            self.add_module(f"bn{i}", nn.BatchNorm2d(d, eps=1e-3, momentum=0.03))
+            cin = d
+        self.stages = len(dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, H, W) -> (B, T, C)."""
+        if self.time_axis == "width":
+            x = x.transpose(2, 3)  # time axis -> H
+        for i in range(self.stages):
+            x = getattr(self, f"conv{i}a")(x)
+            x = getattr(self, f"bn{i}")(getattr(self, f"down{i}")(x))
+            x = nn.functional.silu(x)
+        return x.mean(dim=3).transpose(1, 2)
+
+
+class CRNN(nn.Module):
+    def __init__(
+        self,
+        num_classes: int,
+        dims=(64, 128, 256, 256),
+        lstm_hidden: int = 256,
+        time_axis: str = "height",
+        max_boxes: int = 0,  # > 0 enables the fixed-size box head
+    ):
+        super().__init__()
+        self.num_classes, self.max_boxes = num_classes, max_boxes
+        self.encoder = ConvEncoder(dims, time_axis)
+        self.lstm = nn.LSTM(dims[-1], lstm_hidden, batch_first=True, bidirectional=True)
+        self.head = nn.Linear(2 * lstm_hidden, num_classes)
+        if max_boxes > 0:
+            self.box_fc = nn.Linear(2 * lstm_hidden, 512)
+            self.box_out = nn.Linear(512, max_boxes * 4)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> "CRNN":
+        """Seeded init, flax's defaults in distribution: every weight lecun
+        normal (truncated normal, variance 1 / fan_in; flax inits the LSTM's
+        recurrent kernels orthogonal instead), biases zero, BatchNorm the
+        identity."""
+        bns = [m for m in self.modules() if isinstance(m, nn.BatchNorm2d)]
+        for m in bns:
+            m.reset_parameters()
+        skip = {id(p) for m in bns for p in m.parameters()}
+        for p in self.parameters():
+            if id(p) in skip:
+                continue
+            if p.dim() >= 2:
+                std = math.sqrt(1.0 / p[0].numel()) / 0.87962566103423978
+                nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            else:
+                p.zero_()
+        return self
+
+    def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(B, H, W, 3) uint8 (or normalised float) -> (logits (B, T,
+        num_classes), boxes (B, max_boxes, 4) normalised xyxy or None).
+
+        cuDNN's convolutions and LSTM run with TF32 off: the reference is
+        f32, and TF32 keeps ~3 digits, far outside the logits' tolerance."""
+        x = from_uint8(images, mean=0.5, std=0.5).permute(0, 3, 1, 2)
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled,
+                benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=False):
+            feat = self.encoder(x)
+            h, _ = self.lstm(feat)
+        logits = self.head(h)
+        boxes = None
+        if self.max_boxes > 0:
+            b = self.box_out(torch.relu(self.box_fc(h.mean(dim=1))))
+            boxes = torch.sigmoid(b.reshape(-1, self.max_boxes, 4))
+        return logits, boxes

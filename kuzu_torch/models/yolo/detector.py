@@ -40,6 +40,7 @@ class YoloDetector:
         dtype: torch.dtype = torch.bfloat16,
         imgsz: int = 640,
         device: torch.device | str | None = None,
+        reg_max: int | None = None,
     ):
         if dtype != torch.bfloat16:
             raise NotImplementedError("the folded executor runs in bf16 only")
@@ -49,6 +50,8 @@ class YoloDetector:
         else:
             path, scale = resolve_model_spec(str(model))
             self.spec = parse_model_yaml(path, scale=scale, nc=nc)
+        if reg_max is not None:  # a run's override of the DFL range
+            self.spec.reg_max = int(reg_max)
         self.graph = YoloGraph(self.spec)
         self.dtype = dtype
         self.imgsz = imgsz

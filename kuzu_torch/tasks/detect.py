@@ -1,5 +1,6 @@
-"""Detection task: YOLOv12 training and mAP validation (counterpart of
-``kuzu/tasks/detect.py``'s ``DetectTrainer``).
+"""Detection task: YOLOv12 training, mAP validation and prediction
+(counterpart of ``kuzu/tasks/detect.py``'s ``DetectTrainer`` and
+``DetectPredictor``).
 
 Training runs the graph's training forward, the TAL assigner and the v8 loss
 in f32; validation folds the EMA parameters with the live BatchNorm
@@ -9,7 +10,9 @@ NMS (``multi_label``) into ``DetMetrics``.
 
 ``build_datasets`` keeps the JAX signature; its folder-dataset body
 (``kuzu/data/yolo_dataset.py``) is not ported yet, so callers subclass it
-and hand their datasets to :meth:`DetectTrainer.make_loaders`.
+and hand their datasets to :meth:`DetectTrainer.make_loaders`, which records
+their ``nc`` and ``names`` in the run dir's ``data_spec.yaml`` for
+:class:`DetectPredictor`.
 """
 
 from __future__ import annotations
@@ -19,15 +22,20 @@ from typing import Any
 
 import numpy as np
 import torch
+import yaml
 
+from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params
+from kuzu_torch.core.config import Config, load_config
 from kuzu_torch.core.metrics import DetMetrics
 from kuzu_torch.core.train import TrainState
 from kuzu_torch.data.loader import DataLoader
-from kuzu_torch.models.yolo.detector import YoloDetector
+from kuzu_torch.models.yolo.detector import YoloDetector, resolve_device
 from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
 from kuzu_torch.ops.detect_loss import detection_loss
 from kuzu_torch.ops.nms import non_max_suppression
 from kuzu_torch.tasks.base import BaseTrainer, resolve_val_batches
+
+DATA_SPEC = "data_spec.yaml"  # a run's nc and names, written by make_loaders
 
 
 class DetectTrainer(BaseTrainer):
@@ -45,6 +53,8 @@ class DetectTrainer(BaseTrainer):
         cfg = self.cfg
         self.train_ds, self.val_ds = train_ds, val_ds
         self.data_spec = {"nc": int(nc), "names": names or {i: str(i) for i in range(nc)}}
+        with open(self.save_dir / DATA_SPEC, "w") as f:
+            yaml.safe_dump(self.data_spec, f, sort_keys=False, allow_unicode=True)
         batch = int(cfg.get("batch", 16))
         workers = int(cfg.get("workers", 4))
         # set_epoch reaches the dataset (per-epoch augmentation seeds)
@@ -137,3 +147,77 @@ def trainer_for(datasets: tuple[Any, Any, int], cls: type = DetectTrainer) -> ty
             return self.make_loaders(*datasets)
 
     return _Trainer
+
+
+def _load_data_spec(run_dir: Path, train_cfg: Config) -> dict:
+    """A run's ``nc`` and ``names``: its ``data_spec.yaml`` where a trainer
+    wrote one, else the dataset yaml its ``data`` names (``nc`` defaults to
+    the number of names, as ``kuzu/data/yolo_dataset.py::load_dataset_yaml``)."""
+    path = run_dir / DATA_SPEC
+    if not path.exists():
+        path = Path(str(train_cfg.get("data")))
+    with open(path) as f:
+        d = yaml.safe_load(f) or {}
+    names = d.get("names", {})
+    if isinstance(names, list):
+        names = dict(enumerate(names))
+    names = {int(k): v for k, v in names.items()}
+    return {"nc": int(d.get("nc", len(names) or 1)), "names": names}
+
+
+class DetectPredictor:
+    """Padded detections on letterboxed uint8 batches: the BN-folded forward
+    (bf16, the port's only executor; the JAX predictor builds its detector
+    in f32), the DFL decode and NMS on the predictor's device.
+
+    ``DetectPredictor(cfg)`` loads the run dir ``cfg.model`` (``args.yaml``
+    and ``weights/`` as ``DetectTrainer`` writes them, EMA preferred, the
+    run's ``reg_max`` and ``imgsz``) at the first :meth:`_setup`;
+    :meth:`from_detector` wraps a built ``YoloDetector``. ``conf``, ``iou``
+    and ``max_det`` come from ``cfg``. Prediction over image paths, videos
+    and streams (``__call__``) waits for a port of the source loaders, which
+    decode with cv2."""
+
+    def __init__(self, cfg: Config, device: torch.device | str | None = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.conf = float(cfg.get("conf") or 0.25)
+        self.iou = float(cfg.get("iou", 0.7))
+        self.max_det = int(cfg.get("max_det", 300))
+        self.ready = False
+
+    @classmethod
+    def from_detector(cls, detector: YoloDetector, conf: float = 0.25, iou: float = 0.7,
+                      max_det: int = 300) -> "DetectPredictor":
+        self = cls(Config(conf=conf, iou=iou, max_det=max_det), device=detector.device)
+        self.detector, self.imgsz, self.names = detector, detector.imgsz, {}
+        self.ready = True
+        return self
+
+    def _setup(self) -> None:
+        run_dir = Path(str(self.cfg.get("model")))
+        if not (run_dir / "weights").is_dir():
+            raise FileNotFoundError(f"{run_dir} holds no weights/ of a port run")
+        args = run_dir / "args.yaml"
+        train_cfg = load_config(args if args.exists() else None)
+        self.imgsz = int(train_cfg.get("imgsz", 640))
+        spec = _load_data_spec(run_dir, train_cfg)
+        self.names = spec["names"]
+        self.detector = YoloDetector(
+            str(train_cfg.get("model") or "yolov12n"), nc=spec["nc"], imgsz=self.imgsz,
+            device=self.device,
+            reg_max=int(train_cfg.get("reg_max")) if train_cfg.get("reg_max") else None)
+        self.detector.load_state_dict(
+            load_inference_params(CheckpointManager(run_dir / "weights")))
+        self.ready = True
+
+    @torch.no_grad()
+    def _fwd(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
+        """(B, imgsz, imgsz, 3) uint8 -> padded NMS output (``boxes``,
+        ``scores``, ``classes``, ``valid``) in the letterbox frame."""
+        if not self.ready:
+            self._setup()
+        det = self.detector
+        pred = det.decode(det.infer(images))
+        return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
+                                   max_det=self.max_det)

@@ -253,6 +253,39 @@ def test_ablock_faults_exceed_the_tolerance():
         assert over > 0 or close <= 0.999, name
 
 
+def test_ablock_scaled_tolerance():
+    """ABLOCK_SCALED_TOL on a residual stream of O(50): s covers every
+    value that reaches the output; one bf16 ulp of s at an entry where the
+    terms cancel breaks ABLOCK_TOL's first bound but not the scaled one; the
+    planted faults still fall outside the scaled tolerance."""
+    from kuzu_torch.testing import ABLOCK_SCALED_TOL, ablock_exact, ablock_faults, ablock_over
+
+    rng = np.random.default_rng(3)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.normal(0, 1, shape) * scale).astype(np.float32))
+
+    x = (t((2, 64, 64)) * 50).to(torch.bfloat16)
+    v, pe = (t((2, 64, 64)).to(torch.bfloat16) for _ in range(2))
+    weights = []
+    for cin, cout in ((64, 128), (64, 64), (64, 96), (96, 64)):
+        weights += [t((cin, cout), cin**-0.5).to(torch.bfloat16), t((1, cout), 0.1)]
+    ref = t_fb.fused_ablock_plain(x, v, pe, weights, 4, 2)
+    scale = ablock_exact(x, v, pe, weights, 4, 2, scale=True)
+    assert (scale >= ref.float().abs()).all() and (scale >= x.float().abs()).all()
+    assert ablock_over(ablock_exact(x, v, pe, weights, 4, 2), ref, scale)[1] == 0
+    i = int(torch.argmax(scale / ref.float().abs().clamp(min=1e-3)))
+    ulp = 2.0 ** (np.floor(np.log2(float(scale.flatten()[i]))) - 7)
+    flipped = ref.float().flatten().clone()
+    flipped[i] += ulp
+    flipped = flipped.reshape(ref.shape)
+    assert ablock_over(flipped, ref)[1] == 1
+    assert ablock_over(flipped, ref, scale)[1] == 0, ABLOCK_SCALED_TOL
+    for name, out in ablock_faults(x, v, pe, weights, 4, 2).items():
+        _, over, close = ablock_over(out, ref, scale)
+        assert over > 0 or close <= 0.999, name
+
+
 @pytest.mark.parametrize("hidden", [128, 576, 640, 704, 1280, 1344, 4096])
 def test_ablock_gemm_smem_fits_at_any_depth(hidden):
     """K2's GEMM streams A and W through its ring at any depth, so its block
