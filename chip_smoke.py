@@ -17,7 +17,10 @@ Phases, each raising on failure:
    C=384 in both call forms, with planted faults, a determinism check,
    every head width at N = 16, 80 and 400 and N=1024, and the
    AreaAttention pair's gradients against autograd through the plain
-   forward; K2 at G=32 and G=8 with planted faults in its epilogues, each
+   forward; K3's f32 route at the TrOCR encoder's shape G=1024, N=256,
+   C=384, 6 heads with planted faults, and at every head width at N = 16,
+   256 and 400, with SDPA in f32 (TF32 off) beside it; K2 at G=32 and G=8
+   with planted faults in its epilogues, each
    launch's device time and torch.matmul on its four GEMM shapes beside
    them): error against a stated tolerance, and times of the
    kernel, the plain version and, where one exists, one PyTorch call
@@ -64,9 +67,21 @@ Phases, each raising on failure:
    host time and the device time of the kernels it launched (the
    pipeline's ``cascade/<stage>`` ranges), the idle share; (c, run before
    b) K1 at the cross-tile shape B=16, K=16384 on synthetic boxes against
-   the plain recurrence on every image, with its times and bound;
+   the plain recurrence on every image, with its times and bound; (d, run
+   after a) a TrOCR at production widths, 2 + 2 layers, on [256, 64] crops,
+   card (encoder through K3's f32 route) against CPU: memory, logits,
+   greedy tokens; (e, after b, on b's pipeline and pages) the TrOCR
+   recognizer at its defaults (encoder 384 / 6 / 6, decoder 256 / 4 / 8,
+   max_len 128, [1024, 64] crops, 4,788 classes) greedy over every crop:
+   launches (K3 f32 6 a call), no plain call, every K3 f32 call held
+   against its plain version on the path's inputs, pages/s, peak memory,
+   the stages of one profiled call, the recognizer's encode and decode
+   times and steps; (f) ``decode="beam"`` and ``"beam_lm"`` (a CharMLM
+   256 / 6 / 8 reranking the 4-best and annotating) over the first two
+   pages, and the LM annotation's time;
 9. training slice check: one train step of yolov12n@128, batch 2, bf16, on
-   the card and on the CPU: loss, gradients, BatchNorm statistics and the
+   the card and on the CPU: loss (the bf16 bound read from the CPU's bf16
+   loss against its f32 loss), gradients, BatchNorm statistics and the
    launch counts (8 K3 + 8 K4); then the same step on the card with
    ``remat=True`` against it: loss, gradients, equal BatchNorm statistics,
    16 K3 launches (the recomputed forward) + 8 K4, peak memory of both;
@@ -185,19 +200,22 @@ def device_times(fn, reps: int = 10, warmup: int = 3,
     Returns the median of the calls' sums in ms and, per kernel name, the
     median of its time per call. Unlike :func:`time_ms` this leaves out the
     host's time in the wrapper and any idle time of the device within a
-    call. Calls whose trace misses a launch's activity are taken again, in
-    up to four more sessions, and their count is printed; with ``least``,
+    call. Calls whose trace misses a launch's activity are left out and
+    more are taken, ``reps`` calls in each of up to seven more sessions
+    (late in a long process the profiler drops records of most calls in a
+    session), and the count of extra sessions is printed; with ``least``,
     that many complete calls will do (the median is then over fewer, as
-    printed). One session for all the calls: a process that opens hundreds
-    of sessions gets empty traces from the profiler on this card."""
+    printed). Few sessions: a process that opens hundreds of them gets
+    empty traces from the profiler on this card."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     calls: list[dict] = []
     sessions = 0
-    while len(calls) < reps and sessions < 5:
-        calls += _session_calls(fn, reps - len(calls))
+    while len(calls) < reps and sessions < 8:
+        calls += _session_calls(fn, reps)
         sessions += 1
+    calls = calls[:reps]
     if sessions > 1:
         print(f"    (device_times: {sessions - 1} more profiler sessions for calls whose "
               f"trace missed a launch's activity)")
@@ -366,6 +384,7 @@ def kernel_phase(dev) -> dict:
               f"{r['library_ms']:.4f}, device {r['library_device_ms']:.4f})")
         k3_shapes[f"G={g} N={n} C={c} h={heads}"] = r
     res["area_attention"] = dict(r, shapes=k3_shapes)
+    res["area_attention_f32"] = k3_f32_check(dev, gen)
     res["area_attention_bwd"] = k4_check(dev, gen, qk, v, heads)
 
     # K2: fused ABlock at yolov12x@640 b8 node 6 (G=32 chunks of na=400,
@@ -435,6 +454,111 @@ def k2_check(dev, gen, g: int, hid: int = 576) -> dict | None:
           f"called by the port): " + ", ".join(f"{nm} {t:.4f} ms" for nm, t in lib.items())
           + f"; sum {sum(lib.values()):.4f}")
     r["matmul_device_ms"] = lib
+    return r
+
+
+TROCR_K3 = (1024, 256, 384, 6)  # (G, N, C, heads): the TrOCR encoder on a bucket of 1024 crops
+
+
+def k3_f32_bound(g: int, n: int, c: int, heads: int) -> tuple[float, str]:
+    """K3 f32's least time: q, k, v read once and o written once in f32
+    against 4 G heads N^2 hd operations on the f32 CUDA cores."""
+    return bound(4 * g * n * c * 4, 4 * g * n * n * c, PEAK_F32)
+
+
+def k3_f32_times(q, k, v, heads: int) -> dict:
+    """K3 f32's times on (q, k, v): the kernel (``ms``, ``device_ms``), the
+    plain version, the bound, and SDPA in f32 with TF32 off on the same
+    heads (a yardstick the port never calls)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from kuzu_torch.ops.flash_attention import area_attention, area_attention_plain
+
+    g, n, c = q.shape
+    hd = c // heads
+    sd = [t.reshape(g, n, heads, hd).transpose(1, 2).contiguous() for t in (q, k, v)]
+    bnd, by = k3_f32_bound(g, n, c, heads)
+    ref = area_attention_plain(q, k, v, heads, hd ** -0.5)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(*sd)
+
+    sdpa_err = float((sdpa().transpose(1, 2).reshape(g, n, c) - ref).abs().max())
+    r = dict(ms=time_ms(lambda: area_attention(q, k, v, heads), reps=10),
+             device_ms=device_times(lambda: area_attention(q, k, v, heads), least=5)[0],
+             plain_ms=time_ms(lambda: area_attention_plain(q, k, v, heads, hd ** -0.5),
+                              reps=3, warmup=1),
+             bound_ms=bnd, bound_by=by, library_ms=time_ms(sdpa, reps=10),
+             library_device_ms=device_times(sdpa, least=5)[0], library_max_abs_err=sdpa_err)
+    with sdpa_kernel(SDPBackend.MATH):  # the materialised route: full f32 products
+        r["library_math_ms"] = time_ms(sdpa, reps=5)
+    return r
+
+
+def k3_f32_check(dev, gen) -> dict:
+    """K3's f32 route (the TrOCR encoder's self-attention) against its plain
+    version: at the TrOCR shape (G=1024 crops, N=256 patches, C=384, 6
+    heads) with planted faults, at every head width at N = 16 (the parity
+    tests' encoder), 256 and 400 (a ragged last key tile), under
+    ``ATTN_F32_TOL`` (TF32 off on the plain side); then its times beside
+    the bound and SDPA in f32."""
+    from kuzu_torch.ops.flash_attention import FWD_DS, area_attention, area_attention_plain
+    from kuzu_torch.testing import ATTN_F32_TOL, attention_f32_over, attention_faults
+
+    g, n, c, heads = TROCR_K3
+    q, k, v = (torch.randn((g, n, c), generator=gen, device=dev) for _ in range(3))
+    out = area_attention(q, k, v, heads)
+    ref = area_attention_plain(q, k, v, heads, (c // heads) ** -0.5)
+    torch.cuda.synchronize()
+    err, n_over, total = attention_f32_over(out, ref)
+    print(f"K3 f32 area_attention G={g} N={n} C={c} h={heads}: max_abs_err {err:.3e} (max|ref| "
+          f"{float(ref.abs().max()):.3e}), over tolerance ({ATTN_F32_TOL}): {n_over} of {total}")
+    require(out.dtype == torch.float32 and n_over == 0 and bool(torch.isfinite(out).all()),
+            "K3 f32 within tolerance at the TrOCR shape")
+    for name, bad in attention_faults(q[:64], k[:64], v[:64], heads).items():
+        e, o, tot = attention_f32_over(bad, ref[:64])
+        print(f"  planted fault, {name}: max_abs_err {e:.3e}, over tolerance {o} of {tot} "
+              f"(must be > 0)")
+        require(o > 0, f"K3 f32's tolerance rejects the fault: {name}")
+    worst = err
+    for hd in FWD_DS:
+        for nn_ in (16, 256, 400):
+            qq, kk, vv = (torch.randn((4, nn_, 2 * hd), generator=gen, device=dev)
+                          for _ in range(3))
+            e, o, _ = attention_f32_over(area_attention(qq, kk, vv, 2),
+                                         area_attention_plain(qq, kk, vv, 2, hd ** -0.5))
+            require(o == 0, f"K3 f32 within tolerance at hd={hd} N={nn_}")
+            worst = max(worst, e)
+    print(f"K3 f32 at G=4, 2 heads, N in (16, 256, 400), hd in {FWD_DS}: every case within "
+          f"tolerance; max_abs_err {worst:.3e}")
+    # more than 65535 heads * groups (a crop bucket past 10922 at 6 heads):
+    # the grid is one-dimensional, so every group is computed
+    big_g, big_heads = 12000, 6
+    qq, kk, vv = (torch.randn((big_g, 16, 16 * big_heads), generator=gen, device=dev)
+                  for _ in range(3))
+    e, o, tot = attention_f32_over(area_attention(qq, kk, vv, big_heads),
+                                   area_attention_plain(qq, kk, vv, big_heads, 0.25))
+    print(f"K3 f32 at G={big_g}, N=16, {big_heads} heads (heads * G = {big_g * big_heads}): "
+          f"max_abs_err {e:.3e}, over tolerance {o} of {tot}")
+    require(o == 0, "K3 f32 within tolerance past 65535 heads * groups")
+    worst = max(worst, e)
+    # a head width the kernel is not built for raises on the card; the
+    # encoder's attention does not leave the kernel for the plain version
+    from kuzu_torch.models.layers import MultiHeadAttention
+    mha = MultiHeadAttention(16, 2, attn_impl="flash").to(dev).eval()
+    try:
+        with torch.no_grad():
+            mha(torch.randn((2, 16, 16), generator=gen, device=dev))
+        raised = False
+    except ValueError as exc:
+        raised = True
+        print(f"K3 f32 route at hd=8 raises on the card: {exc}")
+    require(raised, "the kernel route raises on the card for a head width K3 f32 cannot take")
+    r = dict(max_abs_err=worst, **k3_f32_times(q, k, v, heads))
+    print(f"  K3 f32 at the TrOCR shape: {r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain "
+          f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by {r['bound_by']}; SDPA f32, TF32 "
+          f"off, its default route {r['library_ms']:.4f}, device {r['library_device_ms']:.4f}, "
+          f"max_abs_err {r['library_max_abs_err']:.2e}; its math route {r['library_math_ms']:.4f})")
     return r
 
 
@@ -594,10 +718,12 @@ def k4_check(dev, gen, qk, v, heads) -> dict:
 # ------------------------------------------------------------- phases 4, 5
 
 COUNTERS = ("nms", "area_attention", "fused_ablock", "area_attention_bwd", "flash_attention",
-            "fused_c3k2")
+            "fused_c3k2", "area_attention_f32")
 
 
-def counters():
+def counters() -> dict:
+    """Each kernel's wrapper and the attribute that counts its launches
+    (K3's wrapper counts its bf16 and f32 kernels apart)."""
     from kuzu_torch.ops.flash_attention import (
         area_attention,
         area_attention_bwd,
@@ -607,8 +733,10 @@ def counters():
     from kuzu_torch.ops.fused_c3k2 import fused_c3k2
     from kuzu_torch.ops.nms_kernel import batched_suppress
 
-    return dict(zip(COUNTERS, (batched_suppress, area_attention, fused_ablock,
-                               area_attention_bwd, flash_attention, fused_c3k2)))
+    fns = (batched_suppress, area_attention, fused_ablock, area_attention_bwd, flash_attention,
+           fused_c3k2, area_attention)
+    attrs = ("launches",) * 6 + ("f32_launches",)
+    return {name: (fn, attr) for name, fn, attr in zip(COUNTERS, fns, attrs)}
 
 
 def want(**counts) -> dict:
@@ -617,13 +745,18 @@ def want(**counts) -> dict:
 
 
 def zero_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
         fn.plain_calls = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+
+
+def plain_counts() -> dict:
+    """Calls of each wrapper that ran its plain version (a CPU tensor)."""
+    return {name: fn.plain_calls for name, (fn, _) in counters().items()}
 
 
 def pipeline(det, imgs):
@@ -826,21 +959,28 @@ def train_slice_check(dev, launches: dict) -> None:
     # bf16: at random init the bf16 gradients are noisy (BatchNorm's backward
     # cancels over every position, each layer rounding to bf16): on one card
     # the bf16 and f32 gradients have cosine ~0.8, and the kernels against
-    # their plain versions ~0.97 (one-ulp output changes). So: loss within
-    # 2%, card vs CPU whole cosine >= 0.8, the card's bf16 gradient no
-    # farther from the f32 one than the CPU's bf16 gradient is (by 0.1), and
-    # the running statistics within 5%
+    # their plain versions ~0.97 (one-ulp output changes). So: the card's
+    # bf16 loss no farther from the CPU's bf16 loss than bf16 rounding moves
+    # the loss at all, read on the same weights and batch as the CPU's bf16
+    # loss against its f32 loss (with flax's Detect biases the class loss
+    # dominates and bf16 moves the loss by ~6%, not the <2% of the zero
+    # biases, which a fixed 2e-2 assumed); card vs CPU whole cosine >= 0.8,
+    # the card's bf16 gradient no farther from the f32 one than the CPU's
+    # bf16 gradient is (by 0.1), and the running statistics within 5%
     gb, cb = r["cuda", "bfloat16"], r["cpu", "bfloat16"]
     rel = abs(gb["metrics"]["loss"] - cb["metrics"]["loss"]) / abs(cb["metrics"]["loss"])
+    loss_bound = (abs(cb["metrics"]["loss"] - c32["metrics"]["loss"])
+                  / abs(c32["metrics"]["loss"]))
     wb = whole(("cuda", "bfloat16"), ("cpu", "bfloat16"))
     card_f32 = whole(("cuda", "bfloat16"), ("cpu", "float32"))
     cpu_f32 = whole(("cpu", "bfloat16"), ("cpu", "float32"))
     sb = stats_rel(("cuda", "bfloat16"), ("cpu", "bfloat16"))
     print(f"  bf16: loss card {gb['metrics']['loss']:.5f} CPU {cb['metrics']['loss']:.5f} "
-          f"(rel {rel:.2e}, <= 2e-2); whole-gradient cosine card vs CPU {wb:.4f} (>= 0.8); "
-          f"against the f32 gradient: card {card_f32:.4f}, CPU {cpu_f32:.4f} (card >= CPU - "
-          f"0.1); BN statistics {sb:.4f} (< 0.05)")
-    require(rel <= 2e-2 and wb >= 0.8 and card_f32 >= cpu_f32 - 0.1 and sb < 0.05,
+          f"(rel {rel:.2e}; bound: the CPU's bf16 loss against its f32 loss "
+          f"{c32['metrics']['loss']:.5f}, rel {loss_bound:.2e}); whole-gradient cosine card vs "
+          f"CPU {wb:.4f} (>= 0.8); against the f32 gradient: card {card_f32:.4f}, CPU "
+          f"{cpu_f32:.4f} (card >= CPU - 0.1); BN statistics {sb:.4f} (< 0.05)")
+    require(rel <= loss_bound and wb >= 0.8 and card_f32 >= cpu_f32 - 0.1 and sb < 0.05,
             "card vs CPU bf16 train step")
     # remat: the same bf16 step on the card with every C3k2 and A2C2f block
     # checkpointed. Its forward is the same arithmetic, so the loss and the
@@ -1118,6 +1258,9 @@ def train_step_breakdown(trainer, ds) -> dict:
     return out
 
 
+RANGES = ("cascade/", "trocr/")  # the port's record_function ranges
+
+
 def device_breakdown(fn, ranges: str | None = None) -> dict:
     """Kernel time of one call by group (torch.profiler, CUDA activity) and the
     device's idle share of the call's wall time. With ``ranges``, a prefix of
@@ -1138,8 +1281,9 @@ def device_breakdown(fn, ranges: str | None = None) -> dict:
     kernels = []
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0) or 0
-        if us <= 0 or (ranges and (evt.device_type == DeviceType.CPU  # a range's launches
-                                   or evt.key.startswith(ranges))):  # its span on the device
+        if us <= 0 or (ranges and evt.device_type == DeviceType.CPU):  # a range's launches
+            continue
+        if evt.key.startswith(RANGES):  # a range's span on the device, not a kernel
             continue
         name = evt.key
         kernels.append((us / 1e3, evt.count, name[:70]))
@@ -1147,6 +1291,8 @@ def device_breakdown(fn, ranges: str | None = None) -> dict:
             group = "K2 fused_ablock: GEMMs (qk, proj, mlp1, mlp2)"
         elif "attention_fwd_kernel" in name:  # K2's attention; K3 launches the same kernel
             group = "attention_fwd_kernel (K2, K3)"
+        elif "attn_f32_kernel" in name:
+            group = "K3 f32 attn_f32_kernel"
         elif "nms_" in name:
             group = "K1 nms"
         elif any(s in name.lower() for s in ("rnn", "lstm")):
@@ -1902,12 +2048,272 @@ def cascade_full_width(dev, launches: dict) -> dict:
 
     out["breakdown"] = device_breakdown(lambda: pipe.process_pages(pages), ranges="cascade/")
     require(list(out["breakdown"]["stages"]) == list(STAGES), "every cascade stage profiled")
+    del crnn
+    pipe.recognizer = None
+    torch.cuda.empty_cache()
+    out["trocr"] = trocr_full_width(dev, pipe, pages, tok, launches)
+    return out
+
+
+# ------------------------------------------------------- phase 8: TrOCR
+
+# TrOCR memory and logits, card against CPU on identical crops, f32 with
+# TF32 off: the kernel's online softmax and cuBLAS' sums against the einsum
+# path and oneDNN's, through the encoder and decoder: 1e-4 of the largest
+# value, as the CRNN's logits
+TROCR_TOL = 1e-4
+
+
+def seeded_trocr(dev, vocab: int, image_size=CROP, enc_depth: int = 6, dec_depth: int = 4,
+                 max_len: int = 128, seed: int = 4, decoding: bool = False):
+    """The production TrOCR (encoder 384 wide, 6 heads; decoder 256 wide,
+    8 heads; patch 16) at the depths given, seeded (``flax_init_``, drawn on
+    the CPU). With ``decoding``, the weights the parity tests shape for
+    decoding (``tests/torch_parity.py::jax_trocr_variables``): lm_head x10,
+    pos_embed x5, memory_proj x10, EOS a copy of token 18's row 0.5 above,
+    so tokens depend on the crop and rows end at different steps."""
+    from kuzu_torch.models.layers import flax_init_
+    from kuzu_torch.models.trocr import TrOCR
+
+    model = flax_init_(TrOCR(vocab, image_size, enc_depth=enc_depth, dec_depth=dec_depth,
+                             max_len=max_len), torch.Generator().manual_seed(seed))
+    if decoding:
+        dec = model.decoder
+        with torch.no_grad():
+            dec.lm_head.weight.mul_(10)
+            dec.pos_embed.mul_(5)
+            dec.memory_proj.weight.mul_(10)
+            dec.lm_head.weight[3] = dec.lm_head.weight[18]
+            dec.lm_head.bias[3] = dec.lm_head.bias[18] + 0.5
+    return model.to(dev).eval()
+
+
+def trocr_card_vs_cpu(dev, launches: dict) -> dict:
+    """Phase 8d: a TrOCR at production widths, 2 + 2 layers, on [256, 64]
+    crops (N = 64 patches), max_len 32, with the decoding weights of
+    ``seeded_trocr``: the same 16 crops of ``column_pages`` on the card
+    (encoder attention through K3's f32 route) and on the CPU (the einsum
+    path, as ``attn_impl="auto"`` resolves there): memory, logits and
+    greedy tokens. A vocabulary of 64 ids: among 4,788 random classes the
+    argmax's lead over the runner-up falls to ~5e-4, inside the logits'
+    tolerance, where exact tokens would test rounding; the margin is
+    checked."""
+    import copy
+
+    from kuzu_torch.models.trocr import greedy_generate
+    from kuzu_torch.pipeline.device_pages import device_crops
+    from kuzu_torch.testing import column_pages
+
+    tok = synthetic_tokenizer(59)
+    cpu = seeded_trocr("cpu", len(tok), (256, 64), 2, 2, max_len=32, decoding=True)
+    card = copy.deepcopy(cpu).to(dev)
+    pages = torch.from_numpy(column_pages(2, 384, seed=3))
+    idx, boxes = column_windows(2, 384)
+    crops = device_crops(pages, torch.from_numpy(idx), torch.from_numpy(boxes), out_h=256,
+                         out_w=64)[:16]
+    zero_counts()
+    with torch.no_grad():
+        mem_g = card.encode(crops.to(dev))
+        torch.cuda.synchronize()
+        counts, plain = launch_counts(), plain_counts()
+        mem_c = cpu.encode(crops)
+    print(f"TrOCR card vs CPU (2 + 2 layers, [256, 64] crops, N = 64, 16 crops): encode "
+          f"launches {counts} (want area_attention_f32 2), plain calls on the card "
+          f"{sum(plain.values())} (want 0)")
+    require(counts == want(area_attention_f32=2) and sum(plain.values()) == 0,
+            "TrOCR encoder through K3's f32 route")
+    launches["area_attention_f32"] += counts["area_attention_f32"]
+    err_m, top_m = float((mem_g.cpu() - mem_c).abs().max()), float(mem_c.abs().max())
+    out_c = greedy_generate(cpu, crops, max_len=32)
+    steps_c = greedy_generate.steps
+    zero_counts()
+    out_g = greedy_generate(card, crops.to(dev), max_len=32)
+    torch.cuda.synchronize()
+    launches["area_attention_f32"] += launch_counts()["area_attention_f32"]
+    prev = torch.cat([torch.full((16, 1), tok.bos_id, dtype=torch.long), out_c[:, :-1].long()],
+                     1)
+    with torch.no_grad():
+        lg_c = cpu.decode_tokens(prev, mem_c)
+        lg_g = card.decode_tokens(prev.to(dev), mem_g).cpu()
+    err_l, top_l = float((lg_g - lg_c).abs().max()), float(lg_c.abs().max())
+    ends = [int(np.argmax(r == tok.eos_id)) if (r == tok.eos_id).any() else 32
+            for r in out_c.numpy()]
+    live = torch.arange(32)[None] <= torch.tensor(ends)[:, None]
+    top2 = lg_c.topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1])[live].min())
+    same = bool(torch.equal(out_g.cpu(), out_c))
+    texts = tok.batch_decode(out_c.numpy())
+    print(f"  memory max abs err {err_m:.3e} (<= {TROCR_TOL:g} x max|ref| = "
+          f"{TROCR_TOL * top_m:.3e}); logits {err_l:.3e} (<= {TROCR_TOL * top_l:.3e}); "
+          f"greedy tokens equal {same} (steps {steps_c} CPU, {greedy_generate.steps} card; "
+          f"rows end at {ends}; smallest argmax margin {margin:.3e}); text lengths "
+          f"{[len(t) for t in texts]}")
+    require(err_m <= TROCR_TOL * top_m and err_l <= TROCR_TOL * top_l, "TrOCR card vs CPU")
+    require(margin > 10 * TROCR_TOL * top_l, "argmax margins far above the logits' tolerance")
+    require(same and greedy_generate.steps == steps_c, "TrOCR greedy tokens card vs CPU")
+    return dict(memory_err=err_m, logits_err=err_l, tokens_equal=same, steps=steps_c,
+                margin=margin)
+
+
+def trocr_path_check(pipe, pages) -> dict:
+    """Every K3 f32 call of one ``process_pages`` held against its plain
+    version on the inputs the path gave it (``ATTN_F32_TOL``), then its times
+    at that shape. Launches made here are not counted."""
+    import kuzu_torch.models.layers as layers
+    from kuzu_torch.ops.flash_attention import area_attention_plain
+    from kuzu_torch.testing import ATTN_F32_TOL, attention_f32_over
+
+    calls = []
+
+    def check(fn, q, k, v, heads):
+        out = fn(q, k, v, heads)
+        ref = area_attention_plain(q, k, v, heads, (q.shape[-1] // heads) ** -0.5)
+        err, over, total = attention_f32_over(out, ref)
+        calls.append(dict(shape=tuple(q.shape), heads=heads, err=err, over=over,
+                          max_ref=float(ref.abs().max())))
+        if len(calls) == 1:
+            calls[0]["inputs"] = (q.clone(), k.clone(), v.clone())
+        return out
+
+    with spy(layers, "area_attention", check):
+        pipe.process_pages(pages)
+    torch.cuda.synchronize()
+    require(len(calls) == 6 and all(c["over"] == 0 for c in calls),
+            f"K3 f32 on the path's own inputs within {ATTN_F32_TOL}")
+    q, k, v = calls[0].pop("inputs")
+    g, n, c = q.shape
+    r = dict(calls=calls, **k3_f32_times(q, k, v, calls[0]["heads"]))
+    print(f"  K3 f32 on the path's inputs: {len(calls)} calls at {calls[0]['shape']}, "
+          f"{calls[0]['heads']} heads, max_abs_err {max(x['err'] for x in calls):.3e} (max|ref| "
+          f"up to {max(x['max_ref'] for x in calls):.3e}, over {ATTN_F32_TOL}: 0); "
+          f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} (plain {r['plain_ms']:.4f}, bound "
+          f"{r['bound_ms']:.5f} by {r['bound_by']}, SDPA f32 {r['library_ms']:.4f}, device "
+          f"{r['library_device_ms']:.4f})")
+    return r
+
+
+def trocr_full_width(dev, pipe, pages, tok, launches: dict) -> dict:
+    """Phase 8e: the 8b cascade with the TrOCR recognizer at its defaults
+    (encoder 384 / 6 layers / 6 heads, decoder 256 / 4 / 8, max_len 128,
+    [1024, 64] crops, 4,788 classes, seeded), greedy over every crop: launch
+    counts (K3 f32 6 per call: one encode), no plain call, K3 f32 held on the
+    path's own inputs, pages/s, peak memory, the stages of one profiled
+    call, and the recognizer's encode and decode times with the steps taken
+    (random weights never emit EOS: every row runs all 128 steps, the
+    decode's upper bound). Then (8f) ``decode="beam"`` and ``"beam_lm"``
+    (a seeded CharMLM 256 / 6 / 8 reranking the 4-best, then annotating)
+    over the first two pages' crops."""
+    from kuzu_torch.models.layers import flax_init_
+    from kuzu_torch.models.lm import CharMLM
+    from kuzu_torch.models.trocr import beam_generate, greedy_generate
+    from kuzu_torch.pipeline.cascade import LM_STAGE, STAGES
+    from kuzu_torch.tasks.lm import LMPredictor
+    from kuzu_torch.tasks.recognize import RecognizePredictor
+
+    model = seeded_trocr(dev, len(tok))
+    pipe.recognizer = RecognizePredictor.from_model(model, tok, CROP, device=dev)
+    pipe.rec_task, pipe.decode, pipe.lm = "recognize", "greedy", None
+    n_pages = len(pages)
+    pipe.process_pages(pages)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    res = pipe.process_pages(pages)
+    torch.cuda.synchronize()
+    counts, plain = launch_counts(), plain_counts()
+    steps = greedy_generate.steps
+    print(f"cascade with the TrOCR recognizer, {n_pages} pages of {PAGE}: launches per call "
+          f"{counts} (want nms 3, fused_ablock 16, area_attention_f32 6: the encoder's six "
+          f"layers), plain calls {sum(plain.values())} (want 0); greedy steps {steps}")
+    require(counts == want(nms=3, fused_ablock=16, area_attention_f32=6)
+            and sum(plain.values()) == 0, "TrOCR cascade launch counts")
+    for name, n in counts.items():
+        launches[name] += n
+    texts = [c["text"] for r in res for c in r["columns"]]
+    require(all(isinstance(t, str) for t in texts) and len(texts) > 0, "a text per column")
+    out = dict(launches_per_call=counts, steps=steps, crops=len(texts),
+               text_chars_per_page=[sum(len(c["text"]) for c in r["columns"]) for r in res])
+    out["path_k3_f32"] = trocr_path_check(pipe, pages)
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pipe.process_pages(pages)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    torch.cuda.reset_peak_memory_stats()
+    pipe.process_pages(pages)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out.update(ms_per_call=ms, ms_per_call_all=times, pages_per_s=n_pages / ms * 1e3,
+               peak_gib=peak)
+    print(f"  process_pages: {ms:.2f} ms per {n_pages} pages (median of 3 after a warm-up: "
+          f"{', '.join(f'{t:.1f}' for t in times)}), {out['pages_per_s']:.2f} pages/s, peak "
+          f"memory {peak:.2f} GiB")
+    out["breakdown"] = device_breakdown(lambda: pipe.process_pages(pages), ranges="cascade/")
+    require(list(out["breakdown"]["stages"]) == list(STAGES), "every cascade stage profiled")
+    # the recognizer alone on the call's crop batch: encode, then the decode loop
+    crops = []
+    with spy(pipe, "_decode_crop_batch", lambda fn, images, n: (crops.append(images),
+                                                                fn(images, n))[1]):
+        pipe.process_pages(pages)
+    batch = crops[0]
+    encode = torch.no_grad()(model.encode)  # the kernel route is for inference
+    enc_ms = time_ms(lambda: encode(batch), reps=3, warmup=1)
+    gen_ms = time_ms(lambda: greedy_generate(model, batch, max_len=model.max_len), reps=3,
+                     warmup=1)
+    out.update(crop_bucket=len(batch), encode_ms=enc_ms, decode_ms=gen_ms - enc_ms,
+               decode_ms_per_step=(gen_ms - enc_ms) / greedy_generate.steps)
+    print(f"  recognizer on the call's {len(batch)} crops: encode {enc_ms:.2f} ms, decode "
+          f"{gen_ms - enc_ms:.2f} ms for {greedy_generate.steps} steps "
+          f"({out['decode_ms_per_step']:.3f} ms a step)")
+    out["recognizer_breakdown"] = device_breakdown(
+        lambda: greedy_generate(model, batch, max_len=model.max_len), ranges="trocr/")
+
+    # 8f: beam and beam_lm over the first two pages' crops
+    lm = flax_init_(CharMLM(len(tok)), torch.Generator().manual_seed(6))
+    pipe.lm = LMPredictor.from_model(lm, tok, max_len=128, device=dev)
+    sub = pages[:2]
+    beams = {}
+    for decode, lm_mode in (("beam", "off"), ("beam_lm", "annotate")):
+        pipe.decode, pipe.lm_mode = decode, lm_mode
+        pipe.process_pages(sub)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = pipe.process_pages(sub)
+        end.record()
+        end.synchronize()
+        counts = launch_counts()
+        require(counts == want(nms=3, fused_ablock=16, area_attention_f32=6),
+                f"{decode} cascade launch counts")
+        for name, n in counts.items():
+            launches[name] += n
+        cols = [c for x in r for c in x["columns"]]
+        require(all(isinstance(c["text"], str) for c in cols), f"{decode}: a text per column")
+        if lm_mode == "annotate":
+            require(all(np.isfinite(c["lm_score"]) for c in cols), f"{decode}: lm scores")
+        beams[decode] = dict(ms_per_call=start.elapsed_time(end), crops=len(cols),
+                             steps=beam_generate.steps, launches_per_call=counts)
+        print(f"  {decode} over {len(sub)} pages ({len(cols)} crops, 4 beams): "
+              f"{beams[decode]['ms_per_call']:.2f} ms a call, {beam_generate.steps} steps, "
+              f"launches {counts}")
+    texts = [c["text"] for x in r for c in x["columns"]]
+    beams["lm_annotate_ms"] = time_ms(lambda: pipe.rescore_texts(texts), reps=2, warmup=1)
+    print(f"  LM annotation ({LM_STAGE} stage) of those {len(texts)} texts: "
+          f"{beams['lm_annotate_ms']:.2f} ms")
+    out["beam_subset"] = beams
+    pipe.lm, pipe.decode = None, "greedy"
     return out
 
 
 # ------------------------------------------------------------------- main
 
 KERNELS = {
+    "area_attention_f32": ("kuzu_torch/csrc/attention_f32.cuh",
+                           "kuzu/ops/flash_attention.py:148"),
     "nms": ("kuzu_torch/csrc/nms.cu", "kuzu/ops/pallas_nms.py:314"),
     "area_attention": ("kuzu_torch/csrc/area_attention.cu", "kuzu/ops/flash_attention.py:148"),
     "fused_ablock": ("kuzu_torch/csrc/fused_ablock.cu", "kuzu/ops/fused_ablock.py:117"),
@@ -1950,6 +2356,7 @@ def main() -> int:
     res["flash_attention"] = flash_phase(dev, launches)
     torch.cuda.empty_cache()
     cascade = dict(card_vs_cpu=cascade_card_vs_cpu(dev))
+    cascade["trocr_card_vs_cpu"] = trocr_card_vs_cpu(dev, launches)
     # K1's synthetic cross-tile check before 8b: 8b's profiler sessions (its
     # path checks' timings) leave later sessions missing launch records
     cascade["k1_cross_tile"] = k1_cross_tile(dev)
@@ -1992,6 +2399,7 @@ def _check_smem_formulas() -> None:
         FWD_DS,
         attn_bwd_smem_bytes,
         attn_fwd_smem_bytes,
+        f32_attn_smem_bytes,
         flash_attention_smem_bytes,
     )
     from kuzu_torch.ops.fused_ablock import ablock_smem_bytes
@@ -2004,8 +2412,11 @@ def _check_smem_formulas() -> None:
     fa.restype = fab.restype = fb.restype = ctypes.c_size_t
     fa.argtypes = fab.argtypes = [ctypes.c_int]
     fb.argtypes = [ctypes.c_int] * 2
+    fa32 = _build.library("area_attention").kuzu_area_attention_f32_smem
+    fa32.restype, fa32.argtypes = ctypes.c_size_t, [ctypes.c_int]
     for hd in FWD_DS:
         require(fa(hd) == attn_fwd_smem_bytes(hd), f"forward attention smem hd={hd}")
+        require(fa32(hd) == f32_attn_smem_bytes(hd), f"f32 attention smem hd={hd}")
         require(fab(hd) == attn_bwd_smem_bytes(hd), f"attention backward smem hd={hd}")
     for c, h in ((384, 12), (128, 4), (64, 2), (512, 4)):
         require(fb(c, h) == ablock_smem_bytes(c, h), f"ablock smem c={c} h={h}")

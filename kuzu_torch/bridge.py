@@ -9,7 +9,10 @@ The flax tree comes as nested dicts of numpy arrays. Names map one to one:
   ``....head.weight`` (``(out, in)``, transposed) ``|bias``;
 - ``params .../bn/scale|bias`` -> ``....bn.weight|bias``;
   ``batch_stats .../bn/mean|var`` -> ``....bn.running_mean|running_var``;
-- ``params .../gamma`` -> ``....gamma`` as is.
+- ``params .../gamma`` (and any other bare parameter, e.g. a decoder's
+  ``pos_embed``) -> ``....gamma`` as is;
+- ``params .../norm1/scale|bias`` (a ``LayerNorm``) -> ``....norm1.weight|bias``;
+- ``params .../embed/embedding`` (an ``Embed``) -> ``....embed.weight``.
 
 The CRNN's BiLSTM (:func:`crnn_from_flax`) maps many to one: flax's two
 ``OptimizedLSTMCell``s (``_0`` forward, ``_1`` the reversed ``nn.RNN``)
@@ -54,6 +57,11 @@ def _targets(root: nn.Module):
                 "conv" if isinstance(m, nn.Conv2d) else "dense")
             if m.bias is not None:
                 yield ("params", *path, "bias"), m.bias, None
+        elif isinstance(m, nn.LayerNorm):
+            yield ("params", *path, "scale"), m.weight, None
+            yield ("params", *path, "bias"), m.bias, None
+        elif isinstance(m, nn.Embedding):
+            yield ("params", *path, "embedding"), m.weight, None
         elif isinstance(m, nn.BatchNorm2d):
             yield ("params", *path, "scale"), m.weight, None
             yield ("params", *path, "bias"), m.bias, None
@@ -98,9 +106,13 @@ def _copy(tensor: torch.Tensor, arr: np.ndarray, what: str) -> None:
 
 
 @torch.no_grad()
-def from_flax(root: nn.Module, variables: dict, lstm_cells: dict | None = None) -> None:
-    """Fill ``root`` in place from a flax variables tree. ``lstm_cells``
-    names, per port LSTM module, the flax cells of its two directions."""
+def from_flax(root: nn.Module, variables: dict, lstm_cells: dict | None = None) -> nn.Module:
+    """Fill ``root`` in place from a flax variables tree and return it:
+    conv kernels HWIO -> OIHW, Dense kernels transposed into ``nn.Linear``,
+    ``Embed`` tables, LayerNorm scale/bias, BatchNorm statistics, free
+    parameters (a ``pos_embed``) as they are; every leaf on both sides used
+    once. ``lstm_cells`` names, per port LSTM module, the flax cells of its
+    two directions."""
     leaves = _flatten({k: variables[k] for k in ("params", "batch_stats") if k in variables})
     used: set[tuple] = set()
     missing = []
@@ -133,6 +145,7 @@ def from_flax(root: nn.Module, variables: dict, lstm_cells: dict | None = None) 
     if missing or left:
         raise ValueError(f"flax/port mismatch: missing in flax {missing[:10]}, "
                          f"unused flax leaves {left[:10]}")
+    return root
 
 
 def crnn_from_flax(model: nn.Module, variables: dict) -> nn.Module:
@@ -141,6 +154,5 @@ def crnn_from_flax(model: nn.Module, variables: dict) -> nn.Module:
     ``OptimizedLSTMCell_0`` (forward) and ``OptimizedLSTMCell_1`` (reverse):
     the cells are built in ``CRNN.__call__``'s scope, so they carry the
     parent's automatic names, not ``lstm_fwd`` / ``lstm_bwd``."""
-    from_flax(model, variables,
-              lstm_cells={"lstm": ("OptimizedLSTMCell_0", "OptimizedLSTMCell_1")})
-    return model
+    return from_flax(model, variables,
+                     lstm_cells={"lstm": ("OptimizedLSTMCell_0", "OptimizedLSTMCell_1")})

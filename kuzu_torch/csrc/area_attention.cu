@@ -16,7 +16,16 @@
 // in place of recomputing the softmax statistics and D. What bounds it on
 // this card at N=400: the bytes (each input read once) and the latency of a
 // block's seven tiles; see attention_fwd.cuh.
+//
+// f32 route (kuzu_area_attention_f32): the TPU kernel takes any dtype and
+// computes in f32, writing the output in the input's dtype; the port's f32
+// inputs (the TrOCR encoder's self-attention, built in f32) go to the
+// register-tiled CUDA-core kernel of attention_f32.cuh, shared with K5's
+// f32 path, with K3's head-packed addressing (row stride C, head offset
+// h*hd), one block per (64 query rows, head, group); f32 FMAs, no TF32.
+// What bounds it: operations, 4 G heads N^2 hd on the f32 CUDA cores.
 
+#include "attention_f32.cuh"
 #include "attention_fwd.cuh"
 
 // Shared memory of one block (constant in N).
@@ -37,3 +46,16 @@ extern "C" int kuzu_area_attention(const void* q, int q_stride, const void* k, i
   return kuzu::attention_fwd<kPlain>(q, q_stride, k, k_stride, v, v_stride, o, nullptr, nullptr,
                                      c, nullptr, g, n, heads, c / heads, scale, s);
 }
+
+// The f32 route: q, k, v, o f32 (g, n, c) with the given row strides (in
+// floats; 16-byte aligned bases and strides), o = softmax(scale q_h k_h^T) v_h.
+extern "C" int kuzu_area_attention_f32(const void* q, int q_stride, const void* k,
+                                       int k_stride, const void* v, int v_stride, void* o,
+                                       int o_stride, int g, int n, int c, int heads,
+                                       float scale, void* stream) {
+  return kuzu::attention_f32(q, q_stride, k, k_stride, v, v_stride, o, o_stride, g, n, heads,
+                             c / heads, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory of one block of the f32 route (constant in N).
+extern "C" size_t kuzu_area_attention_f32_smem(int hd) { return kuzu::f32attn::smem_bytes(hd); }

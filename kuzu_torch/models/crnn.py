@@ -16,6 +16,7 @@ import math
 import torch
 from torch import nn
 
+from kuzu_torch.models.layers import f32_products
 from kuzu_torch.ops.images import from_uint8
 
 STRIDES = ((2, 2), (2, 2), (1, 2), (1, 2))  # (time, short side) per stage
@@ -103,19 +104,16 @@ class CRNN(nn.Module):
         """(B, H, W, 3) uint8 (or normalised float) -> (logits (B, T,
         num_classes), boxes (B, max_boxes, 4) normalised xyxy or None).
 
-        cuDNN's convolutions and LSTM run with TF32 off: the reference is
-        f32, and TF32 keeps ~3 digits, far outside the logits' tolerance."""
+        Convolutions, the LSTM and the products run with TF32 off
+        (:func:`f32_products`): the reference is f32, and TF32 keeps ~3
+        digits, far outside the logits' tolerance."""
         x = from_uint8(images, mean=0.5, std=0.5).permute(0, 3, 1, 2)
-        with torch.backends.cudnn.flags(
-                enabled=torch.backends.cudnn.enabled,
-                benchmark=torch.backends.cudnn.benchmark,
-                deterministic=torch.backends.cudnn.deterministic,
-                allow_tf32=False):
+        with f32_products():
             feat = self.encoder(x)
             h, _ = self.lstm(feat)
-        logits = self.head(h)
-        boxes = None
-        if self.max_boxes > 0:
-            b = self.box_out(torch.relu(self.box_fc(h.mean(dim=1))))
-            boxes = torch.sigmoid(b.reshape(-1, self.max_boxes, 4))
+            logits = self.head(h)
+            boxes = None
+            if self.max_boxes > 0:
+                b = self.box_out(torch.relu(self.box_fc(h.mean(dim=1))))
+                boxes = torch.sigmoid(b.reshape(-1, self.max_boxes, 4))
         return logits, boxes

@@ -1,0 +1,299 @@
+"""TrOCR-style recognizer: non-square ViT encoder + autoregressive
+transformer decoder (counterpart of ``kuzu/models/trocr.py``).
+
+f32, as ``RecognizePredictor`` builds it; every product with TF32 off
+(``layers.f32_products``). The encoder's self-attention takes K3
+(:func:`kuzu_torch.ops.flash_attention.area_attention`) on the card, f32
+route, where the reference's gate holds (``attn_impl="auto"``).
+
+Generation is a Python loop over steps with a KV cache, and stops when
+every row is done: the reference's ``lax.while_loop`` exit, the same
+output. Each step's "all done" test reads one flag from the device.
+
+One departure in where work happens, not in what is computed: the
+reference re-runs ``memory_proj`` and every cross-attention's K/V Dense on
+the fixed encoder memory at each decode step; here they run once per
+generate call (:meth:`ARDecoder.start`), the same arithmetic on the same
+input. A beam's hypotheses share their row's memory keys and values
+instead of K copies of them. Nothing else of the loop's arithmetic
+changes.
+
+Not ported: the ``unet`` and ``csa`` encoders (ROADMAP section 1 item 15),
+``graft_lm_decoder`` and ``encode_train`` (the recognize trainer's).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from kuzu_torch.models.layers import (
+    NEG,
+    DecoderBlock,
+    EncoderBlock,
+    PatchEmbed,
+    causal_mask,
+    f32_products,
+    layer_norm,
+    sincos_2d_pos_embed,
+)
+from kuzu_torch.ops.images import from_uint8
+
+
+class ViTEncoder(nn.Module):
+    """Non-square ViT encoder (default 1024x64 / patch 16 -> 64x4 grid)."""
+
+    def __init__(self, image_size=(1024, 64), patch_size=(16, 16), dim: int = 384,
+                 depth: int = 6, num_heads: int = 6, mlp_ratio: float = 4.0,
+                 attn_impl: str = "einsum"):
+        super().__init__()
+        self.PatchEmbed_0 = PatchEmbed(dim, patch_size)
+        gh, gw = image_size[0] // patch_size[0], image_size[1] // patch_size[1]
+        self.register_buffer("pos", torch.from_numpy(sincos_2d_pos_embed(dim, gh, gw)),
+                             persistent=False)
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"block{i}", EncoderBlock(dim, num_heads, mlp_ratio, attn_impl))
+        self.norm = layer_norm(dim)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.PatchEmbed_0(images) + self.pos[None]
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x)
+        return self.norm(x)
+
+
+@dataclass
+class DecodeState:
+    """What the cached decode steps carry: per block the self-attention KV
+    cache (``{"k": (B, h, hd, max_len), "v": (B, h, max_len, hd)}``, zeros
+    past the step) and the cross-attention's keys and values of the memory
+    (``MultiHeadAttention.kv_heads``, batch B' = B / the hypotheses per
+    row)."""
+
+    cache: list[dict]
+    memory_kv: list[tuple[torch.Tensor, torch.Tensor]] = field(default_factory=list)
+
+    def reorder(self, rows: torch.Tensor) -> None:
+        """Each row of the caches taken from row ``rows[i]`` (beams
+        reordered within their batch row; the memory is shared)."""
+        for c in self.cache:
+            c["k"], c["v"] = c["k"][rows], c["v"][rows]
+
+
+class ARDecoder(nn.Module):
+    """Causal transformer decoder with cross-attention and a KV cache."""
+
+    def __init__(self, vocab_size: int, max_len: int = 128, dim: int = 256, depth: int = 4,
+                 num_heads: int = 8, mlp_ratio: float = 4.0, enc_dim: int = 384):
+        super().__init__()
+        self.max_len, self.depth, self.num_heads = max_len, depth, num_heads
+        self.embed = nn.Embedding(vocab_size, dim)
+        self.pos_embed = nn.Parameter(torch.zeros(max_len, dim))
+        self.memory_proj = nn.Linear(enc_dim, dim)
+        for i in range(depth):
+            self.add_module(f"block{i}", DecoderBlock(dim, num_heads, mlp_ratio))
+        self.norm = layer_norm(dim)
+        self.lm_head = nn.Linear(dim, vocab_size)
+
+    def _blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.depth)]
+
+    def forward(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits (B, T, V) for tokens (B, T) over the memory."""
+        t = tokens.shape[1]
+        x = self.embed(tokens) + self.pos_embed[None, :t]
+        mem = self.memory_proj(memory)
+        mask = causal_mask(t, tokens.device)
+        for blk in self._blocks():
+            x = blk(x, mem, self_mask=mask)
+        return self.lm_head(self.norm(x))
+
+    def start(self, memory: torch.Tensor, batch: int) -> DecodeState:
+        """An empty cache for ``batch`` rows (a multiple of the memory's)
+        and the cross-attention keys and values of ``memory``."""
+        mem = self.memory_proj(memory)
+        h = self.num_heads
+        hd = self.pos_embed.shape[1] // h
+        cache = [{"k": mem.new_zeros((batch, h, hd, self.max_len)),
+                  "v": mem.new_zeros((batch, h, self.max_len, hd))} for _ in self._blocks()]
+        return DecodeState(cache, [blk.cross_attn.kv_heads(mem) for blk in self._blocks()])
+
+    def step(self, tokens: torch.Tensor, step: int, state: DecodeState) -> torch.Tensor:
+        """One cached decode step: tokens (B, 1) at position ``step`` ->
+        logits (B, 1, V); the cache gains this step's keys and values."""
+        x = self.embed(tokens) + self.pos_embed[step][None, None]
+        for blk, cache, mkv in zip(self._blocks(), state.cache, state.memory_kv):
+            x = blk(x, cache=cache, step=step, memory_kv=mkv)
+        return self.lm_head(self.norm(x))
+
+
+class TrOCR(nn.Module):
+    """Encoder + decoder; with ``ctc_head`` the auxiliary CTC projection
+    over the encoder memory that checkpoints trained with ``ctc_weight > 0``
+    carry."""
+
+    def __init__(self, vocab_size: int, image_size=(1024, 64), patch_size=(16, 16),
+                 enc_dim: int = 384, enc_depth: int = 6, enc_heads: int = 6,
+                 dec_dim: int = 256, dec_depth: int = 4, dec_heads: int = 8,
+                 max_len: int = 128, encoder_type: str = "vit", ctc_head: bool = False,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        if encoder_type != "vit":
+            raise NotImplementedError(
+                f"encoder_type={encoder_type!r}: the unet and csa encoders are not ported "
+                "(ROADMAP section 1 item 15)")
+        self.image_size, self.patch_size = tuple(image_size), tuple(patch_size)
+        self.max_len = max_len
+        self.encoder = ViTEncoder(image_size, patch_size, enc_dim, enc_depth, enc_heads,
+                                  attn_impl=attn_impl)
+        self.decoder = ARDecoder(vocab_size, max_len, dec_dim, dec_depth, dec_heads,
+                                 enc_dim=enc_dim)
+        self.ctc_proj = nn.Linear(enc_dim, vocab_size) if ctc_head else None
+
+    @staticmethod
+    def _norm(images: torch.Tensor) -> torch.Tensor:
+        """uint8 pixels -> (x/255 - 0.5)/0.5, the TrOCR input convention;
+        float input passes through."""
+        return from_uint8(images, mean=0.5, std=0.5)
+
+    def forward(self, images: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits (B, T, V) for input tokens."""
+        return self.decode_tokens(tokens, self.encode(images))
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images -> memory (B, gh * gw, enc_dim)."""
+        with f32_products():
+            return self.encoder(self._norm(images))
+
+    def decode_tokens(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced decoder logits over a precomputed memory."""
+        with f32_products():
+            return self.decoder(tokens, memory)
+
+    def ctc_logits(self, memory: torch.Tensor) -> torch.Tensor:
+        """Auxiliary CTC logits (B, gh, V): the patch-grid memory averaged
+        over the width axis (time = the vertical reading order), then
+        projected. Only with ``ctc_head``."""
+        gh = self.image_size[0] // self.patch_size[0]
+        gw = self.image_size[1] // self.patch_size[1]
+        with f32_products():
+            return self.ctc_proj(memory.reshape(memory.shape[0], gh, gw, -1).mean(2))
+
+    def start_decode(self, memory: torch.Tensor, batch: int | None = None) -> DecodeState:
+        with f32_products():
+            return self.decoder.start(memory, memory.shape[0] if batch is None else batch)
+
+    def decode_step(self, tokens: torch.Tensor, state: DecodeState, step: int) -> torch.Tensor:
+        """One cached decode step: tokens (B, 1) -> logits (B, 1, V)."""
+        with f32_products():
+            return self.decoder.step(tokens, step, state)
+
+
+# ------------------------------------------------------------- generation
+
+
+def top_k_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row and their indices, the lower index first
+    among equal values, as ``jax.lax.top_k`` orders them (``torch.topk``
+    promises no order among ties; beam search meets exact ties where dead
+    beams sit at -1e30)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+@torch.no_grad()
+def greedy_generate(model: TrOCR, images: torch.Tensor, max_len: int = 128, bos_id: int = 2,
+                    eos_id: int = 3) -> torch.Tensor:
+    """Batched greedy decoding. Returns (B, max_len) int32 tokens, 0 after
+    a row's EOS. Stops when every row has emitted EOS; the steps taken are
+    in ``greedy_generate.steps``."""
+    with record_function("trocr/encode"):
+        memory = model.encode(images)
+    b = images.shape[0]
+    dev = memory.device
+    with record_function("trocr/decode"):
+        state = model.start_decode(memory)
+        tok = torch.full((b, 1), bos_id, dtype=torch.long, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        out = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
+        step = 0
+        while step < max_len and not bool(done.all()):
+            logits = model.decode_step(tok, state, step)
+            nxt = logits[:, -1].argmax(-1)
+            nxt = torch.where(done, 0, nxt)
+            done = done | (nxt == eos_id)
+            out[:, step] = nxt.to(torch.int32)
+            tok = nxt[:, None]
+            step += 1
+    greedy_generate.steps = step
+    return out
+
+
+greedy_generate.steps = 0
+
+
+@torch.no_grad()
+def beam_generate(model: TrOCR, images: torch.Tensor, max_len: int = 128, bos_id: int = 2,
+                  eos_id: int = 3, num_beams: int = 4, length_penalty: float = 1.0,
+                  return_nbest: bool = False):
+    """Batched beam search, beams folded into the batch ((B*K, ...)): the
+    KV cache is gathered when beams reorder. Returns the best sequences
+    (B, max_len), or with ``return_nbest`` every hypothesis ((B, K,
+    max_len) tokens) and its length-normalised score ((B, K) f32) for
+    external rescoring. The steps taken are in ``beam_generate.steps``."""
+    b, k = images.shape[0], num_beams
+    with record_function("trocr/encode"):
+        memory = model.encode(images)
+    dev = memory.device
+    with record_function("trocr/decode"):
+        state = model.start_decode(memory, b * k)
+        scores = torch.full((b, k), NEG, dtype=torch.float32, device=dev)  # dead beams
+        scores[:, 0] = 0.0  # beam 0 alive, the others dead: first candidates differ
+        tokens = torch.zeros((b, k, max_len), dtype=torch.int32, device=dev)
+        done = torch.zeros((b, k), dtype=torch.bool, device=dev)
+        tok = torch.full((b * k, 1), bos_id, dtype=torch.long, device=dev)
+        base = torch.arange(b, device=dev)[:, None] * k
+        step = 0
+        while step < max_len and not bool(done.all()):
+            logits = model.decode_step(tok, state, step)
+            logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+            v = logp.shape[-1]
+            logp = logp.reshape(b, k, v)
+            # finished beams: only PAD, at zero cost, so their score freezes
+            pad_only = torch.full((v,), NEG, dtype=torch.float32, device=dev)
+            pad_only[0] = 0.0
+            logp = torch.where(done[..., None], pad_only, logp)
+            cand = (scores[..., None] + logp).reshape(b, k * v)
+            scores, flat = top_k_stable(cand, k)
+            beam_idx, tok_idx = flat // v, (flat % v).to(torch.int32)
+            state.reorder((beam_idx + base).reshape(-1))
+            tokens = torch.take_along_dim(tokens, beam_idx[..., None], dim=1)
+            done = torch.take_along_dim(done, beam_idx, dim=1)
+            tokens[:, :, step] = torch.where(done, 0, tok_idx)
+            done = done | (tok_idx == eos_id)
+            tok = torch.where(done, 0, tok_idx).reshape(b * k, 1).long()
+            step += 1
+    beam_generate.steps = step
+    lengths = (tokens != 0).sum(-1).float()
+    norm = scores / lengths.clamp(min=1.0) ** length_penalty
+    if return_nbest:
+        return tokens, norm
+    best = norm.argmax(-1)
+    return torch.take_along_dim(tokens, best[:, None, None], dim=1)[:, 0]
+
+
+beam_generate.steps = 0
+
+
+def generate(model: TrOCR, images: torch.Tensor, max_len: int = 128, bos_id: int = 2,
+             eos_id: int = 3, decode: str = "greedy", num_beams: int = 4,
+             length_penalty: float = 1.0) -> torch.Tensor:
+    """``decode='beam'`` runs beam search, anything else greedy."""
+    if decode == "beam" and num_beams > 1:
+        return beam_generate(model, images, max_len=max_len, bos_id=bos_id, eos_id=eos_id,
+                             num_beams=num_beams, length_penalty=length_penalty)
+    return greedy_generate(model, images, max_len=max_len, bos_id=bos_id, eos_id=eos_id)

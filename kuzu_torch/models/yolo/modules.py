@@ -329,7 +329,9 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 def init_weights(root: nn.Module, generator: torch.Generator) -> None:
     """The flax default init in distribution (not in bits): conv kernels
     lecun_normal, BN scale 1 / bias 0 / mean 0 / var 1, Detect biases 1.0
-    (box) and -4.6 (cls), A2C2f gamma 0.01."""
+    (box) and -4.6 (cls), A2C2f gamma 0.01. The Detect biases are set after
+    the walk: ``modules()`` visits a Detect before its convs, whose step
+    zeroes every bias."""
     for m in root.modules():
         if isinstance(m, nn.Conv2d):
             lecun_normal_(m.weight, generator)
@@ -339,6 +341,7 @@ def init_weights(root: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters()
         elif isinstance(m, A2C2f) and m.gamma is not None:
             m.gamma.fill_(0.01)
+    for m in root.modules():
         if isinstance(m, Detect):
             for i in range(m.nl):
                 getattr(m, f"box{i}_2").bias.fill_(1.0)

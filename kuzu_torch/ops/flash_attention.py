@@ -29,6 +29,7 @@ FWD_DS = tuple(range(16, 129, 16))  # head widths of the forward kernel (attenti
 FWD_ROWS = 128  # query rows per forward block, kRowsQ
 FWD_KEYS = 64  # keys per streamed K/V tile, kKeys
 FWD_STAGES = 3  # depth of the K/V ring, kStages
+FLASH_ROWS = 64  # query rows per block of the f32 kernel, kRows in csrc/attention_f32.cuh
 LOG2E = 1.0 / math.log(2.0)
 # the reference executor's term for its area-attention kernel: the N x N f32
 # scores of one group within 8 MiB of VMEM (kuzu/models/yolo/infer.py:279-283)
@@ -54,19 +55,32 @@ def attn_bwd_smem_bytes(hd: int) -> int:
     return 1024 + 2 * FWD_ROWS * hd * 2 + FWD_STAGES * stage + 128
 
 
-def area_attention_fwd_fits(n: int, c: int, num_heads: int) -> bool:
-    """The inference route's gate (``infer.aattn``): the reference
-    executor's terms for its kernel, ``N % 16 == 0`` and ``N^2 * 4 <= 8 MiB``
-    (``kuzu/models/yolo/infer.py:279-283``), so both executors route every
-    node alike, and the forward kernel's own: head widths of 16-128 in steps
-    of 16, its block within the shared memory."""
+def f32_attn_smem_bytes(hd: int) -> int:
+    """Shared memory of one block of the f32 attention kernel
+    (``f32attn::smem_bytes`` in ``csrc/attention_f32.cuh``, K3's f32 route
+    and K5's f32 path): the scaled 64-row Q tile, two cp.async stages of a K
+    and a V tile of 64 keys, rows padded to hd + 4, and the 64 x 64 tile of
+    P, rows padded to 68. It does not depend on N."""
+    return (5 * FLASH_ROWS * (hd + 4) + FLASH_ROWS * (FWD_KEYS + 4)) * 4
+
+
+def area_attention_fwd_fits(n: int, c: int, num_heads: int,
+                            dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The inference route's gate (``infer.aattn``, and the ViT encoder's
+    self-attention in ``models/layers.py``): the reference executor's terms
+    for its kernel, ``N % 16 == 0`` and ``N^2 * 4 <= 8 MiB``
+    (``kuzu/models/yolo/infer.py:279-283``, ``kuzu/models/layers.py:
+    129-150``), so both packages route every node alike, and the kernel's
+    own: head widths of 16-128 in steps of 16, its block within the shared
+    memory (the wgmma kernel's for bf16, the CUDA-core kernel's for f32)."""
     hd = c // num_heads
+    smem = f32_attn_smem_bytes(hd) if dtype == torch.float32 else attn_fwd_smem_bytes(hd)
     return (
         c % num_heads == 0
         and hd in FWD_DS
         and n % 16 == 0
         and n * n * 4 <= JAX_SCORES_BYTES
-        and attn_fwd_smem_bytes(hd) <= SMEM_LIMIT
+        and smem <= SMEM_LIMIT
     )
 
 
@@ -112,6 +126,12 @@ def _kernel_fn():
         ctypes.c_float, ctypes.c_void_p])
 
 
+def _f32_kernel_fn():
+    return _build.function("area_attention", "kuzu_area_attention_f32", [
+        ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                    ctypes.c_void_p])
+
+
 def _row_stride(t: torch.Tensor, n: int) -> int:
     """Row stride of a (G, N, C) tensor whose rows may be column slices."""
     if t.stride(2) != 1 or t.stride(0) != n * t.stride(1):
@@ -120,8 +140,9 @@ def _row_stride(t: torch.Tensor, n: int) -> int:
 
 
 def _tma_stride(t: torch.Tensor, n: int) -> int:
-    """Row stride of a forward kernel input: the kernel reads it through a
-    TMA tensor map, which takes a 16-byte aligned base and row stride."""
+    """Row stride of a forward kernel input: the bf16 kernel reads it
+    through a TMA tensor map, the f32 kernel with 16-byte copies; both take
+    a 16-byte aligned base and row stride."""
     stride = _row_stride(t, n)
     if t.data_ptr() % 16 or (stride * t.element_size()) % 16:
         raise ValueError(f"area_attention kernel takes 16-byte aligned rows; got base "
@@ -130,17 +151,19 @@ def _tma_stride(t: torch.Tensor, n: int) -> int:
 
 
 def area_attention(
-    q: torch.Tensor,  # (G, N, C) bf16, heads packed along C
+    q: torch.Tensor,  # (G, N, C) bf16 or f32, heads packed along C
     k: torch.Tensor,
     v: torch.Tensor,
     num_heads: int,
     return_lse: bool = False,
 ):
-    """softmax(q_h k_h^T / sqrt(hd)) v_h per head, (G, N, C) out; with
-    ``return_lse`` (the training route), ``(out, lse, out_lo)``: each row's
-    base-2 log-sum-exp of the scaled scores, (G, heads, N) f32, and the
-    output's bf16 remainder (P enters P V in two bf16 parts then), which
-    :func:`area_attention_bwd` takes."""
+    """softmax(q_h k_h^T / sqrt(hd)) v_h per head, (G, N, C) out in q's
+    dtype; with ``return_lse`` (the training route, bf16), ``(out, lse,
+    out_lo)``: each row's base-2 log-sum-exp of the scaled scores,
+    (G, heads, N) f32, and the output's bf16 remainder (P enters P V in two
+    bf16 parts then), which :func:`area_attention_bwd` takes. On the card
+    bf16 runs the wgmma kernel, f32 the CUDA-core kernel (f32 FMAs, no
+    TF32), as the TPU kernel takes any dtype and computes in f32."""
     g, n, c = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -150,12 +173,25 @@ def area_attention(
         return area_attention_plain(q, k, v, num_heads, scale, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"area_attention takes CPU or CUDA tensors, got {q.device}")
-    if not all(t.dtype == torch.bfloat16 and t.device == q.device for t in (q, k, v)):
-        raise ValueError("area_attention kernel takes bf16 q/k/v on one device")
-    if not area_attention_fwd_fits(n, c, num_heads):
+    if q.dtype not in (torch.bfloat16, torch.float32) or not all(
+            t.dtype == q.dtype and t.device == q.device for t in (k, v)):
+        raise ValueError("area_attention kernel takes bf16 or f32 q/k/v of one dtype on one "
+                         "device")
+    if not area_attention_fwd_fits(n, c, num_heads, q.dtype):
         raise ValueError(f"area_attention kernel cannot take N={n}, C={c}, "
                          f"heads={num_heads}")
+    if return_lse and q.dtype == torch.float32:
+        raise ValueError("area_attention's training route (return_lse) takes bf16; the f32 "
+                         "route is the forward alone")
     out = torch.empty((g, n, c), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.float32:
+        err = _f32_kernel_fn()(
+            _build.ptr(q), _tma_stride(q, n), _build.ptr(k), _tma_stride(k, n),
+            _build.ptr(v), _tma_stride(v, n), _build.ptr(out), c, g, n, c, num_heads,
+            float(scale), _build.stream_ptr(q))
+        _build.check(err, "kuzu_area_attention_f32")
+        area_attention.f32_launches += 1
+        return out
     lse = out_lo = None
     if return_lse:
         lse = torch.empty((g, num_heads, n), dtype=torch.float32, device=q.device)
@@ -172,7 +208,8 @@ def area_attention(
     return (out, lse, out_lo) if return_lse else out
 
 
-area_attention.launches = 0
+area_attention.launches = 0  # the bf16 kernel's
+area_attention.f32_launches = 0  # the f32 kernel's
 area_attention.plain_calls = 0
 
 
@@ -366,7 +403,6 @@ def materialised_area_attention(
 
 BLOCK_K = 128  # the TPU kernel's key tile where N % 128 == 0
 NEG_INF = -1e30  # the running maximum's start value, as the TPU kernel's
-FLASH_ROWS = 64  # query rows per f32 block, kRows in csrc/flash_attention.cu
 FLASH_DS = FWD_DS  # head widths the kernels are built for
 
 
@@ -385,11 +421,10 @@ def _key_block(n: int) -> int:
 def flash_attention_smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Shared memory of one flash-attention block (``flash_smem_bytes`` in
     ``csrc/flash_attention.cu``). bf16: the forward-attention kernel's
-    (:func:`attn_fwd_smem_bytes`). f32: the scaled Q tile, two cp.async
-    stages of a K and a V tile, rows padded to D + 4, and the 64 x 64 tile of
-    P, rows padded to 68."""
+    (:func:`attn_fwd_smem_bytes`); f32: the CUDA-core kernel's
+    (:func:`f32_attn_smem_bytes`)."""
     if dtype == torch.float32:
-        return (5 * FLASH_ROWS * (d + 4) + FLASH_ROWS * (FWD_KEYS + 4)) * 4
+        return f32_attn_smem_bytes(d)
     return attn_fwd_smem_bytes(d)
 
 

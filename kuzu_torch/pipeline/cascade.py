@@ -1,5 +1,5 @@
-"""Page -> text cascade, the ship-once tiled path with the CTC recognizer
-(counterpart of ``kuzu/pipeline/cascade.py``'s ``KuzushijiPipeline``).
+"""Page -> text cascade, the ship-once tiled path (counterpart of
+``kuzu/pipeline/cascade.py``'s ``KuzushijiPipeline``).
 
 One call of :meth:`KuzushijiPipeline.process_pages` takes a batch of
 equal-shape decoded pages (uint8 RGB) to the device once, then:
@@ -12,14 +12,17 @@ equal-shape decoded pages (uint8 RGB) to the device once, then:
 3. on the host, in numpy as the reference: each column snapped to its
    character support, orphan character segments made columns, dedup again;
 4. every column's crop letterboxed on the device from the resident pages
-   (``device_pages.device_crops``) and read by the CRNN in one batch with
-   greedy CTC decoding.
+   (``device_pages.device_crops``) and read in one batch: by the CTC CRNN
+   with greedy CTC decoding, or by the TrOCR (greedy, ``beam``, or
+   ``beam_lm``: beam n-best reranked by the char-LM's pseudo-log-likelihood);
+5. with a char-LM and ``lm_mode="annotate"``, each column's text scored by
+   that pseudo-log-likelihood (``lm_score``).
 
 The column geometry below is a copy of the reference's numpy (f64 where it
 is f64), so boxes agree to the bit where the detections do. The host path
 (cv2 tiling for mixed page shapes, ``ship_once=False``), ``process_page``'s
-reference-shaped flow (``tile_grid <= 1``), the ``yc`` transport, ``dp``,
-the LM stage and the AR recognizer are not ported and raise.
+reference-shaped flow (``tile_grid <= 1``), the ``yc`` transport and ``dp``
+are not ported and raise.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from kuzu_torch.pipeline.device_pages import device_crops, device_letterbox, dev
 from kuzu_torch.pipeline.tiling import merge_tile_detections_pages
 from kuzu_torch.tasks.ctc import CTCPredictor
 from kuzu_torch.tasks.detect import DetectPredictor
+from kuzu_torch.tasks.lm import LMPredictor
+from kuzu_torch.tasks.recognize import RecognizePredictor
 
 
 def sort_columns_right_to_left(boxes: np.ndarray) -> np.ndarray:
@@ -246,6 +251,7 @@ def _bucket_floor(predictor, base: int = 8) -> int:
 
 
 STAGES = ("columns", "tiles", "cross-tile NMS", "geometry", "crops", "recognizer")
+LM_STAGE = "lm"  # after "recognizer", where the LM annotates the texts
 
 
 def _stage(name: str) -> record_function:
@@ -273,41 +279,42 @@ def _pages_tensor(pages) -> torch.Tensor:
 
 
 class KuzushijiPipeline:
-    """Column detector + tiled character detector + CTC recognizer.
+    """Column detector + tiled character detector + recognizer (+ char-LM).
 
     ``column_model`` / ``char_model`` are port run dirs or
-    ``DetectPredictor``s, ``recognizer`` a CTC run dir or a
-    ``CTCPredictor``; everything runs on ``device`` (the card when None).
-    Each stage runs inside a ``torch.profiler.record_function`` range named
-    ``cascade/<stage>`` (``STAGES``), which costs nothing without a
-    profiler."""
+    ``DetectPredictor``s, ``recognizer`` a run dir or a ``CTCPredictor`` /
+    ``RecognizePredictor``, ``lm`` a run dir or an ``LMPredictor``; a run
+    dir of a recognizer or an LM raises at first use until the port's
+    trainers write them. Everything runs on ``device`` (the card when
+    None). Each stage runs inside a ``torch.profiler.record_function``
+    range named ``cascade/<stage>`` (``STAGES``, then ``LM_STAGE`` where the
+    LM annotates), which costs nothing without a profiler."""
 
     def __init__(
         self,
         column_model: str | Path | DetectPredictor | None = None,
         char_model: str | Path | DetectPredictor | None = None,
-        recognizer: str | Path | CTCPredictor | None = None,
-        lm: str | Path | None = None,
+        recognizer: str | Path | CTCPredictor | RecognizePredictor | None = None,
+        lm: str | Path | LMPredictor | None = None,
         tile_grid: int = 0,  # 0 = no tiling
         tile_overlap: float = 0.15,
         conf: float = 0.25,
         margin: float = 0.05,  # column crop margin (reference padding ratio)
-        decode: str = "greedy",
+        decode: str = "greedy",  # 'beam': num_beams beams; 'beam_lm': n-best + LM rerank
+        num_beams: int = 4,
         max_det: int = 300,  # production char detection: 2000
+        lm_weight: float = 0.3,  # beam_lm: score = beam + lm_weight * PLL
         dp: int = 0,
         col_conf: float | None = None,  # column-stage conf (default: conf)
         col_dedup: bool = True,  # same-region column suppression
         col_refine: bool = True,  # snap column boxes to char-detection support
         col_recover: bool = True,  # columns for char segments no column claims
+        lm_mode: str = "annotate",  # 'annotate': an lm_score per column; 'off'
         ship_once: bool = True,
         transport: str = "rgb",
         col_imgsz: int | None = None,  # column letterbox side (None: the model's)
         device: torch.device | str | None = None,
     ):
-        if lm is not None:
-            raise NotImplementedError(
-                "the LM stage is not ported (ROADMAP section 1 item 14); the "
-                "production cascade runs lm_mode='off'")
         if dp:
             raise NotImplementedError("data-parallel serving (dp > 0) is not ported "
                                       "(ROADMAP section 1 item 12)")
@@ -324,28 +331,35 @@ class KuzushijiPipeline:
         self.tile_overlap = tile_overlap
         self.margin = margin
         self.decode = decode
+        self.num_beams = num_beams
         self.max_det = max_det
+        self.lm_weight = lm_weight
+        self.lm_mode = lm_mode
         self.col_imgsz = int(col_imgsz) if col_imgsz else None
         self.col_dedup = col_dedup
         self.col_refine = col_refine
         self.col_recover = col_recover
-        self.column_det = self.char_det = self.recognizer = None
+        self.column_det = self.char_det = self.recognizer = self.lm = None
         if column_model is not None:
             self.column_det = self._detector(
                 column_model, conf=conf if col_conf is None else col_conf)
         if char_model is not None:
             self.char_det = self._detector(char_model, conf=conf, max_det=max_det)
         self.rec_task = "ctc"
-        if isinstance(recognizer, CTCPredictor):
+        if isinstance(recognizer, (CTCPredictor, RecognizePredictor)):
             self.recognizer = recognizer
+            self.rec_task = "ctc" if isinstance(recognizer, CTCPredictor) else "recognize"
         elif recognizer is not None:
+            # the run dir's args.yaml says whether it is an AR TrOCR run
+            # (task=recognize) or a CTC CRNN run (task=ctc)
             self.rec_task = _run_task(recognizer)
-            if self.rec_task != "ctc":
-                raise NotImplementedError(
-                    f"recognizer task {self.rec_task!r}: the AR recognizer is not "
-                    "ported (ROADMAP section 1 item 14)")
-            self.recognizer = CTCPredictor(load_config(overrides={"model": str(recognizer)}),
-                                           device=self.device)
+            cls = CTCPredictor if self.rec_task == "ctc" else RecognizePredictor
+            self.recognizer = cls(load_config(overrides={"model": str(recognizer)}),
+                                  device=self.device)
+        if isinstance(lm, LMPredictor):
+            self.lm = lm
+        elif lm is not None:
+            self.lm = LMPredictor(load_config(overrides={"model": str(lm)}), device=self.device)
 
     def _detector(self, model, **overrides) -> DetectPredictor:
         if isinstance(model, DetectPredictor):
@@ -408,15 +422,68 @@ class KuzushijiPipeline:
 
     def _decode_crop_batch(self, images: torch.Tensor, n: int) -> list[str]:
         """Decode a device-resident letterboxed crop batch (first n real)."""
-        if self.decode == "beam_lm":
-            raise ValueError(
-                "decode='beam_lm' reranks AR beam candidates; the CTC "
-                "recognizer decodes greedily (use decode='greedy')"
-            )
         tok = self.recognizer.tokenizer
-        (seqs, lens), _ = self.recognizer._fwd(images)
-        seqs, lens = seqs[:n].cpu().numpy(), lens[:n].cpu().numpy()
-        return [tok.decode(s[:m]) for s, m in zip(seqs, lens)]
+        if self.rec_task == "ctc":
+            if self.decode == "beam_lm":
+                raise ValueError(
+                    "decode='beam_lm' reranks AR beam candidates; the CTC "
+                    "recognizer decodes greedily (use decode='greedy')"
+                )
+            (seqs, lens), _ = self.recognizer._fwd(images)
+            seqs, lens = seqs[:n].cpu().numpy(), lens[:n].cpu().numpy()
+            return [tok.decode(s[:m]) for s, m in zip(seqs, lens)]
+        if self.decode == "beam_lm":
+            # n-best reranking: beam candidates rescored by the char-LM's
+            # masked pseudo-log-likelihood
+            if self.lm is None:
+                raise ValueError("decode='beam_lm' needs an LM")
+            tokens, norm = self.recognizer._fwd(images, num_beams=self.num_beams,
+                                                return_nbest=True)
+            tokens, norm = tokens[:n].cpu().numpy(), norm[:n].cpu().numpy()  # (n, K, T), (n, K)
+            k = tokens.shape[1]
+            cand = [tok.batch_decode(tokens[i]) for i in range(n)]  # n lists of K texts
+            pll = np.asarray(self.rescore_texts([t for group in cand for t in group])).reshape(n, k)
+            best = (norm + self.lm_weight * pll).argmax(1)  # in f64, as the reference
+            return [cand[i][int(best[i])] for i in range(n)]
+        out = self.recognizer._fwd(images, decode=self.decode, num_beams=self.num_beams)
+        return tok.batch_decode(out[:n].cpu().numpy())
+
+    @torch.no_grad()
+    def rescore_texts(self, texts: list[str]) -> list[float]:
+        """Masked pseudo-log-likelihood per text by the char-LM, all texts in
+        one batch: for each position p, p masked in every text at once and
+        the log-probability of its character read at p, summed over each
+        text's characters (BOS and EOS excluded) and divided by their count;
+        0.0 for a text of no character.
+
+        As the reference, token rows are cut to a length bucket (next_bucket
+        of the longest, at least 16, at most the LM's ``max_len``). It pads
+        the text count to a bucket for its compiled program; here the rows
+        are taken as they come, and positions where no text has a character
+        are skipped (they add 0). The MLM head runs at position p only
+        (``CharMLM.head``), the same arithmetic for the rows it computes."""
+        if self.lm is None:
+            raise ValueError("no LM configured")
+        if not self.lm.ready:
+            self.lm._setup()
+        if not texts:
+            return []
+        tok, model = self.lm.tokenizer, self.lm.model
+        ids = np.stack([tok.encode(t, max_length=self.lm.max_len) for t in texts])
+        lens = (ids != tok.pad_id).sum(1).astype(np.int32)
+        width = min(next_bucket(int(lens.max()), min_bucket=16), self.lm.max_len)
+        ids = torch.from_numpy(ids[:, :width]).long().to(self.lm.device)
+        lens_t = torch.from_numpy(lens).to(self.lm.device)
+        attn = (ids != tok.pad_id).float()
+        total = torch.zeros(len(texts), dtype=torch.float32, device=ids.device)
+        for p in range(1, int(lens.max()) - 1):  # the characters' positions
+            masked = ids.clone()
+            masked[:, p] = torch.where(ids[:, p] != tok.pad_id, tok.mask_id, ids[:, p])
+            logits = model.head(model.features(masked, attn)[:, p])
+            lp = logits.gather(1, ids[:, p, None])[:, 0] - torch.logsumexp(logits, dim=-1)
+            total += lp * (p < lens_t - 1).float()
+        scores = (total / (lens_t - 2).clamp(min=1).float()).cpu().numpy()
+        return [float(scores[i]) if lens[i] > 2 else 0.0 for i in range(len(texts))]
 
     # ------------------------------------------------ ship-once device path
     def _detect_pages_device(
@@ -634,9 +701,16 @@ class KuzushijiPipeline:
                 [pi for pi, _ in all_crops],
                 [bd for _, bd in all_crops],
             )
+            scores = None
+            if self.lm is not None and self.lm_mode != "off":
+                with _stage(LM_STAGE):
+                    scores = self.rescore_texts(texts)
             for result, (lo, hi) in zip(results, crop_spans):
                 page_texts = texts[lo:hi]
                 for col, t in zip(result["columns"], page_texts):
                     col["text"] = t
                 result["text"] = "\n".join(page_texts)
+                if scores is not None:
+                    for col, sc in zip(result["columns"], scores[lo:hi]):
+                        col["lm_score"] = sc
         return results

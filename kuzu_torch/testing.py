@@ -181,9 +181,9 @@ def box_head(detector, ltrb: tuple[int, int, int, int]):
     """Set a ``YoloDetector``'s Detect biases, then refold; returns the
     detector. The box biases make every anchor's DFL distances ``ltrb``
     bins (a stand-in for a trained head: tall thin columns, small
-    characters); the class biases become flax's init, -4.6 (the port's
-    seeded init leaves them at 0, ROADMAP section 3), so that at init every
-    anchor scores sigmoid(-4.6) on any device."""
+    characters); the class biases are set to flax's init, -4.6, as the
+    seeded init has them, so that at init every anchor scores
+    sigmoid(-4.6) on any device."""
     from kuzu_torch.models.yolo.modules import Detect
 
     rm = detector.spec.reg_max
@@ -211,6 +211,23 @@ def attention_over(out, ref) -> tuple[float, int, int]:
     o, r = out.float(), ref.float()
     err = (o - r).abs()
     tol = 2.0**-7 * float(r.abs().max()) + 2.0**-8 * r.abs()
+    return float(err.max()), int((err > tol).sum()), err.numel()
+
+
+# Attention in f32 (K3's f32 route; K5's f32 path keeps its own absolute
+# 2e-5): the kernel's f32 FMAs sum in another order than the plain
+# version's products (TF32 off on both) and its softmax is online over
+# 64-key tiles, so the two part by f32 rounding grown over hd- and N-term
+# sums: 2e-5 of the output's scale (O(1) for unit-normal inputs; the
+# encoder's own inputs are held relative to their largest output).
+ATTN_F32_TOL = "2e-5 max(1, max|ref|)"
+
+
+def attention_f32_over(out, ref) -> tuple[float, int, int]:
+    """(max abs error, entries over ``ATTN_F32_TOL``, entries) of ``out``
+    against ``ref``."""
+    err = (out.float() - ref.float()).abs()
+    tol = 2e-5 * max(1.0, float(ref.float().abs().max()))
     return float(err.max()), int((err > tol).sum()), err.numel()
 
 

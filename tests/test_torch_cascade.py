@@ -359,6 +359,7 @@ def slice_pair(tmp_path_factory):
     got_variant = port.process_pages(list(pages), names=[str(p) for p in paths])
     port.col_imgsz, port.col_dedup, port.col_refine = None, True, True
     jax_pipe.col_imgsz, jax_pipe.col_dedup, jax_pipe.col_refine = None, True, True
+    ar = _trocr_runs(jax_pipe, port, pages, paths)
 
     on_page = torch.from_numpy(pages)
     col, char = copy.deepcopy(col), copy.deepcopy(char)
@@ -379,7 +380,69 @@ def slice_pair(tmp_path_factory):
     got_cal = port_cal.process_pages(list(pages), names=[str(p) for p in paths])
     return SimpleNamespace(want=want, got=got, stages=stages, port=port, pages=pages,
                            want_variant=want_variant, got_variant=got_variant,
-                           want_cal=want_cal, got_cal=got_cal)
+                           want_cal=want_cal, got_cal=got_cal, ar=ar)
+
+
+def _trocr_runs(jax_pipe, port, pages, paths) -> dict:
+    """Both cascades again with the AR recognizer in place of the CRNN: the
+    tiny TrOCR and CharMLM of ``torch_parity`` on [128, 32] crops, under
+    ``decode`` greedy and ``beam`` (no LM stage) and ``beam_lm`` (n-best
+    reranked by the LM, which then annotates each column,
+    ``lm_mode="annotate"``). Returns {decode: (JAX's results, the port's, the
+    port's stage ranges in order)}."""
+    from types import SimpleNamespace
+
+    from kuzu.data.tokenizer import CharTokenizer as JaxTokenizer
+    from kuzu.models.lm import CharMLM as JaxCharMLM
+    from kuzu.models.trocr import TrOCR as JaxTrOCR
+
+    from kuzu_torch.bridge import from_flax
+    from kuzu_torch.data.tokenizer import CharTokenizer
+    from kuzu_torch.models.lm import CharMLM
+    from kuzu_torch.models.trocr import TrOCR
+    from kuzu_torch.pipeline import cascade
+    from kuzu_torch.pipeline.cascade import KuzushijiPipeline
+    from kuzu_torch.tasks.lm import LMPredictor
+    from kuzu_torch.tasks.recognize import RecognizePredictor
+    from torch_parity import (LM_KW, TOKEN_CHARS, TROCR_KW, jax_lm_variables,
+                              jax_trocr_variables)
+
+    trocr, lm = jax_trocr_variables(), jax_lm_variables()
+    jtok = JaxTokenizer.train([TOKEN_CHARS])
+    crnn = jax_pipe.recognizer
+    jax_pipe.recognizer = SimpleNamespace(
+        ready=True, image_size=(128, 32), tokenizer=jtok, min_bucket=1,
+        model=JaxTrOCR(**TROCR_KW, ctc_head=True), params=trocr["params"])
+    jax_pipe.rec_task = "recognize"
+    jax_pipe.lm = SimpleNamespace(ready=True, tokenizer=jtok, max_len=32, min_bucket=1,
+                                  model=JaxCharMLM(**LM_KW), params=lm["params"],
+                                  _put=jnp.asarray)
+    tok = CharTokenizer.train([TOKEN_CHARS])
+    port_ar = KuzushijiPipeline(
+        column_model=port.column_det, char_model=port.char_det,
+        recognizer=RecognizePredictor.from_model(
+            from_flax(TrOCR(**TROCR_KW, ctc_head=True), trocr), tok, (128, 32),
+            device="cpu"),
+        lm=LMPredictor.from_model(from_flax(CharMLM(**LM_KW), lm), tok, max_len=32,
+                                  device="cpu"),
+        tile_grid=2, max_det=2000, device="cpu")
+    out = {}
+    stage = cascade._stage
+    for decode, lm_mode in (("greedy", "off"), ("beam", "off"), ("beam_lm", "annotate")):
+        jax_pipe.decode = port_ar.decode = decode
+        jax_pipe.lm_mode = port_ar.lm_mode = lm_mode
+        want = jax_pipe.process_pages(paths)
+        stages = []  # the stage ranges entered, in order (a profiler's trace of the
+        # decode loops on the CPU takes seconds to build)
+        cascade._stage = lambda name: (stages.append(f"cascade/{name}"), stage(name))[1]
+        try:
+            got = port_ar.process_pages(list(pages), names=[str(p) for p in paths])
+        finally:
+            cascade._stage = stage
+        out[decode] = (want, got, stages)
+    jax_pipe.recognizer, jax_pipe.rec_task, jax_pipe.lm = crnn, "ctc", None
+    jax_pipe.lm_mode, jax_pipe.decode = "off", "greedy"
+    return out
 
 
 SCORE_RTOL = 1e-6  # torch.sigmoid and jax.nn.sigmoid differ by an f32 ulp at times
@@ -479,6 +542,40 @@ def test_slice_calibrated_matches_jax(slice_pair):
     assert total > 0 and same / total >= CAL_TEXTS, (same, total)
 
 
+# the LM's pseudo-log-likelihoods, f32 sums in another order: 1e-5 of the
+# largest score
+LM_SCORE_REL = 1e-5
+
+
+@pytest.mark.parametrize("decode", ["greedy", "beam", "beam_lm"])
+def test_slice_trocr_texts_match_jax(slice_pair, decode):
+    """The cascade with the TrOCR recognizer: the same columns read the same
+    texts as JAX's, under each decode; under ``beam_lm``, where the LM also
+    annotates, each column's lm_score within 1e-5 of the largest, and the LM
+    stage is entered after the recognizer's."""
+    from kuzu_torch.pipeline.cascade import LM_STAGE, STAGES
+
+    want, got, stages = slice_pair.ar[decode]
+    annotate = decode == "beam_lm"
+    assert stages == [f"cascade/{s}" for s in STAGES + ((LM_STAGE,) if annotate else ())]
+    texts = []
+    for g, w in zip(got, want, strict=True):
+        assert len(g["columns"]) == len(w["columns"]) > 0
+        assert [c["text"] for c in g["columns"]] == [c["text"] for c in w["columns"]]
+        assert g["text"] == w["text"]
+        texts += [c["text"] for c in g["columns"]]
+        if annotate:
+            ws = np.array([c["lm_score"] for c in w["columns"]])
+            np.testing.assert_allclose([c["lm_score"] for c in g["columns"]], ws, rtol=0,
+                                       atol=LM_SCORE_REL * max(np.abs(ws).max(), 1.0))
+        else:
+            assert all("lm_score" not in c for c in g["columns"])
+    assert len(set(texts)) > 2, texts  # texts differ between columns
+    if decode == "beam_lm":  # the rerank chose other hypotheses than the beam's best
+        beam = [c["text"] for r in slice_pair.ar["beam"][1] for c in r["columns"]]
+        assert beam != texts
+
+
 def test_slice_stages_and_refusals(slice_pair):
     from kuzu_torch.pipeline.cascade import STAGES, KuzushijiPipeline
 
@@ -498,7 +595,7 @@ def test_slice_stages_and_refusals(slice_pair):
         port.process_pages(list(pages))
     port.decode = "greedy"
     for kw, what in ((dict(transport="yc"), "yc"), (dict(dp=2), "item 12"),
-                     (dict(lm="lm_run"), "item 14"), (dict(ship_once=False), "host path")):
+                     (dict(ship_once=False), "host path")):
         with pytest.raises(NotImplementedError, match=what):
             KuzushijiPipeline(device="cpu", **kw)
     flat = KuzushijiPipeline(column_model=port.column_det, device="cpu")
@@ -508,9 +605,8 @@ def test_slice_stages_and_refusals(slice_pair):
 
 @pytest.mark.parametrize("task,what", [("recognize", "item 14"), ("ctc", "item 8")])
 def test_recognizer_run_dirs_refuse(tmp_path, task, what):
-    """A recognizer run dir routes by its args.yaml task, as in JAX: an AR
-    run is refused at once; a CTC run at its first use, until the port
-    writes CTC runs."""
+    """A recognizer run dir routes by its args.yaml task, as in JAX, and is
+    refused at its first use until the port's trainers write runs."""
     from kuzu_torch.core.config import load_config
     from kuzu_torch.models.yolo.detector import YoloDetector
     from kuzu_torch.pipeline.cascade import KuzushijiPipeline
@@ -519,10 +615,9 @@ def test_recognizer_run_dirs_refuse(tmp_path, task, what):
     load_config(overrides={"task": task}).to_yaml(tmp_path / "args.yaml")
     det = DetectPredictor.from_detector(
         YoloDetector("yolov12n", nc=1, imgsz=64, device="cpu").init(0), conf=0.001)
+    pipe = KuzushijiPipeline(column_model=det, recognizer=tmp_path, tile_grid=2, device="cpu")
+    assert pipe.rec_task == task
     with pytest.raises(NotImplementedError, match=what):
-        pipe = KuzushijiPipeline(column_model=det, recognizer=tmp_path, tile_grid=2,
-                                 device="cpu")
-        assert pipe.rec_task == "ctc"
         pipe.process_pages(column_pages(1, 96, seed=0))
 
 

@@ -146,3 +146,33 @@ def test_p2_character_detector_runs():
     pred = det.decode(maps)
     assert pred.shape == (1, 5, 32 * 32 + 16 * 16 + 8 * 8 + 4 * 4)
     assert torch.isfinite(pred).all()
+
+
+@pytest.mark.parametrize("name", ["yolov12n", "yolov12-p2n"])
+def test_seeded_init_sets_flax_detect_biases(name):
+    """The seeded init gives every Detect level flax's biases, 1.0 on the
+    box head and -4.6 on the class head (the walk over the modules used to
+    zero them again while visiting the Detect's convs), and zero on every
+    other conv bias; the folded executor carries them."""
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.models.yolo.modules import Detect
+
+    det = YoloDetector(name, nc=2, imgsz=64, device="cpu").init(0)
+    heads = [m for m in det.graph.modules() if isinstance(m, Detect)]
+    assert len(heads) == 1 and heads[0].nl == (4 if "p2" in name else 3)
+    head = heads[0]
+    for i in range(head.nl):
+        assert torch.equal(getattr(head, f"box{i}_2").bias, torch.full_like(
+            getattr(head, f"box{i}_2").bias, 1.0))
+        assert torch.equal(getattr(head, f"cls{i}_2").bias, torch.full_like(
+            getattr(head, f"cls{i}_2").bias, -4.6))
+    others = [m.bias for n, m in det.graph.named_modules()
+              if isinstance(m, torch.nn.Conv2d) and m.bias is not None
+              and not n.endswith(("_2",))]
+    assert all(not b.any() for b in others)
+    # at init every anchor scores about sigmoid(-4.6) through the folded
+    # executor (the class convs' outputs are small)
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 64, 64, 3),
+                                                              dtype=np.uint8))
+    scores = det.decode(det.infer(imgs))[:, 4:].float()
+    np.testing.assert_allclose(scores.numpy(), 1 / (1 + np.exp(4.6)), rtol=0.05)

@@ -115,7 +115,7 @@ def test_remat_is_inert_outside_training():
 def jax_remat_pair():
     from test_torch_train_step import run_step_pair
 
-    return run_step_pair(remat=True)
+    return run_step_pair(remat=True, detect_biases="zero")
 
 
 def test_remat_step_recomputes_against_jax(jax_remat_pair):

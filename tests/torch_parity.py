@@ -59,3 +59,54 @@ def assert_maps_close(ref, out) -> None:
     rel, share = maps_agreement(ref, out)
     assert rel < MAP_MAX_REL, rel
     assert share > MAP_CLOSE_SHARE, share
+
+
+# The TrOCR and CharMLM of the parity tests: 128 x 32 crops at patch 16 (a
+# 8 x 2 grid, N = 16 tokens: the attention kernel's gate holds), encoder 64
+# wide with 2 heads and 2 layers, decoder 64 wide with 4 heads and 2 layers,
+# max_len 16; the LM 64 wide, 4 heads, 2 layers, 32 positions. The vocabulary
+# is TOKEN_CHARS with the five specials (40 ids).
+TOKEN_CHARS = "abcdefghijklmnopqrstuvwxyzABCDEFGHI"
+TROCR_KW = dict(vocab_size=40, image_size=(128, 32), enc_dim=64, enc_depth=2, enc_heads=2,
+                dec_dim=64, dec_depth=2, dec_heads=4, max_len=16)
+LM_KW = dict(vocab_size=40, max_len=32, dim=64, depth=2, num_heads=4)
+
+
+def jax_trocr_variables(seed: int = 0) -> dict:
+    """Seeded flax variables of the tiny TrOCR with its CTC head, shaped for
+    decoding tests (at init the logits are O(0.1) and nearly the same for
+    every crop and position, so the argmax would be one token with margins
+    near the logits' rounding): the decoder's lm_head x10, pos_embed x5 and
+    memory_proj x10, so that tokens depend on the crop and the position;
+    EOS's lm_head column a copy of token 18's, its bias 0.5 above, so that
+    rows end where they would emit 18, at different steps."""
+    from kuzu.models.trocr import TrOCR as JaxTrOCR
+
+    model = JaxTrOCR(**TROCR_KW, ctc_head=True)
+
+    def init(m, images, tokens):
+        mem = m.encode(images)
+        return m.decode_tokens(tokens, mem, train=False), m.ctc_logits(mem)
+
+    variables = numpy_tree(jax.jit(lambda r: model.init(
+        r, jnp.zeros((1, 128, 32, 3), jnp.uint8), jnp.zeros((1, 8), jnp.int32),
+        method=init))(jax.random.key(seed)))
+    dec = variables["params"]["decoder"]
+    dec["pos_embed"] = dec["pos_embed"] * 5
+    dec["memory_proj"]["kernel"] = dec["memory_proj"]["kernel"] * 10
+    kernel, bias = dec["lm_head"]["kernel"] * 10, dec["lm_head"]["bias"].copy()
+    kernel[:, 3], bias[3] = kernel[:, 18], bias[18] + 0.5  # 3: the tokenizer's EOS id
+    dec["lm_head"]["kernel"], dec["lm_head"]["bias"] = kernel, bias
+    return variables
+
+
+def jax_lm_variables(seed: int = 0) -> dict:
+    """Seeded flax variables of the tiny CharMLM, its lm_head x10 (logits of
+    O(1): the pseudo-log-likelihoods spread)."""
+    from kuzu.models.lm import CharMLM as JaxCharMLM
+
+    model = JaxCharMLM(**LM_KW)
+    variables = numpy_tree(jax.jit(lambda r: model.init(
+        r, jnp.zeros((1, 8), jnp.int32)))(jax.random.key(seed)))
+    variables["params"]["lm_head"]["kernel"] = variables["params"]["lm_head"]["kernel"] * 10
+    return variables
