@@ -19,7 +19,13 @@ Phases, each raising on failure:
    AreaAttention pair's gradients against autograd through the plain
    forward; K3's f32 route at the TrOCR encoder's shape G=1024, N=256,
    C=384, 6 heads with planted faults, and at every head width at N = 16,
-   256 and 400, with SDPA in f32 (TF32 off) beside it; K2 at G=32 and G=8
+   256 and 400, with SDPA in f32 (TF32 off) beside it; K3's f32 training
+   route (output and lse) and K4's f32 route at the TrOCR training shape
+   G=16, N=256, C=384, 6 heads with planted faults and a determinism check,
+   at every head width at N = 16 and 256 and at G=12000 (72,000 heads x
+   groups), with SDPA's f32 backward beside it; K3 + K4 bf16 at the TrOCR
+   training shape on separate q/k/v and ``area_attention_trainable``'s
+   gradients in both dtypes; K2 at G=32 and G=8
    with planted faults in its epilogues, each
    launch's device time and torch.matmul on its four GEMM shapes beside
    them): error against a stated tolerance, and times of the
@@ -79,6 +85,22 @@ Phases, each raising on failure:
    times and steps; (f) ``decode="beam"`` and ``"beam_lm"`` (a CharMLM
    256 / 6 / 8 reranking the 4-best and annotating) over the first two
    pages, and the LM annotation's time;
+11. (after 8) the recognizer family's training: (a) K3's bf16 inference
+   route at every head width after K5's launches of the same kernel
+   instantiations (each library keeps its own shared-memory attribute);
+   (b) one ``RecognizeTrainer``
+   step at the production widths cut to 2 + 2 layers on [256, 64] crops,
+   card (K3 + K4) against CPU (their plain versions) in f32 (loss, CTC
+   term, gradients, the weights after AdamW) and bf16 (the loss against
+   the CPU's own bf16-vs-f32 difference); (c) ``LMTrainer`` at the
+   production LM widths (CharMLM 256 / 6 / 8, 4,788 classes, batch 64,
+   bf16) over a seeded corpus, then ``RecognizeTrainer`` at the production
+   recognizer widths (batch 16, bf16, ``decoder_init`` that LM run,
+   ``ctc_weight`` 0.3, ``ss_prob`` 0.25, augment on) for 11 steps and one
+   validation batch (6 K3 + 6 K4 launches a step, no plain call; ms/step,
+   a profiled step, peak memory), then two steps in f32 (6 K3 f32 + 6 K4
+   f32); (d) the cascade from the two run dirs against the same weights
+   in memory;
 9. training slice check: one train step of yolov12n@128, batch 2, bf16, on
    the card and on the CPU: loss (the bf16 bound read from the CPU's bf16
    loss against its f32 loss), gradients, BatchNorm statistics and the
@@ -91,8 +113,8 @@ Phases, each raising on failure:
    BatchNorm statistics moved, ``last`` restores; ms/step, images/s, peak
    memory and a profiled step's breakdown; then three steps of the same
    model with and without ``remat``: ms/step, peak memory, launch counts;
-11. the ``kernels`` JSON line, then the card's name and power limit;
-12. last line: ``{"ok": true, "device": {...}}``.
+12. the ``kernels`` JSON line, then the card's name and power limit;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -386,6 +408,8 @@ def kernel_phase(dev) -> dict:
     res["area_attention"] = dict(r, shapes=k3_shapes)
     res["area_attention_f32"] = k3_f32_check(dev, gen)
     res["area_attention_bwd"] = k4_check(dev, gen, qk, v, heads)
+    res["area_attention_bwd_f32"] = k4_f32_check(dev, gen)
+    res["area_attention_bwd"]["trocr_shape"] = trocr_bf16_train_check(dev, gen)
 
     # K2: fused ABlock at yolov12x@640 b8 node 6 (G=32 chunks of na=400,
     # C=384, 12 heads, hidden 576; the kernels line) and node 8 (G=8)
@@ -715,15 +739,177 @@ def k4_check(dev, gen, qk, v, heads) -> dict:
     return r
 
 
+TROCR_TRAIN = (16, 256, 384, 6)  # (G, N, C, heads): the TrOCR encoder in a training step, batch 16
+
+
+def k4_f32_bound(g: int, n: int, c: int, heads: int) -> tuple[float, str]:
+    """K4 f32's least time: q, k, v, o, dO and lse read once, dq, dk, dv
+    written once, in f32, against its five products of 2 N^2 hd per head
+    on the f32 CUDA cores."""
+    return bound(8 * g * n * c * 4 + g * heads * n * 4, 10 * g * n * n * c, PEAK_F32)
+
+
+def k4_f32_check(dev, gen) -> dict:
+    """K3's f32 training route (the output and each row's base-2 lse) and
+    K4's f32 route against their plain versions: at the TrOCR training
+    shape (G=16 crops, N=256, C=384, 6 heads) with planted faults and a
+    determinism check, every head width at N = 16 and 256, and G=12000 at
+    N=16, 6 heads (72,000 heads x groups); ``ATTN_F32_TOL`` for the forward
+    and the lse, ``BWD_F32_TOL`` for each gradient. Then K4 f32's times
+    beside its bound and SDPA's f32 backward (TF32 off)."""
+    from kuzu_torch.ops.flash_attention import (
+        FWD_DS,
+        area_attention,
+        area_attention_bwd,
+        area_attention_bwd_plain,
+        area_attention_plain,
+    )
+    from kuzu_torch.testing import (
+        ATTN_F32_TOL,
+        BWD_F32_TOL,
+        attention_bwd_faults,
+        attention_f32_over,
+        bwd_f32_over,
+    )
+
+    def case(g, n, c, heads, faults=False):
+        scale = (c // heads) ** -0.5
+        q, k, v, do = (torch.randn((g, n, c), generator=gen, device=dev) for _ in range(4))
+        out, lse, lo = area_attention(q, k, v, heads, return_lse=True)
+        ref_o, ref_l, _ = area_attention_plain(q, k, v, heads, scale, return_lse=True)
+        got = area_attention_bwd(q, k, v, do, heads, out, lse)
+        ref = area_attention_bwd_plain(q, k, v, do, heads, scale, ref_o, ref_l)
+        torch.cuda.synchronize()
+        fwd = [attention_f32_over(out, ref_o), attention_f32_over(lse, ref_l)]
+        bwd = [bwd_f32_over(a, b) for a, b in zip(got, ref)]
+        require(lo is None and all(x[1] == 0 for x in fwd) and all(x[1] == 0 for x in bwd)
+                and all(bool(torch.isfinite(t).all()) for t in got),
+                f"K3 f32 with lse and K4 f32 within tolerance at G={g} N={n} C={c} h={heads}: "
+                f"fwd {fwd}, bwd {bwd}")
+        if faults:
+            again = area_attention_bwd(q, k, v, do, heads, out, lse)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    "K4 f32 is deterministic (no atomics)")
+            for name, outs in attention_bwd_faults(q, k, v, do, heads, lse).items():
+                overs = [bwd_f32_over(a, b)[1] for a, b in zip(outs, ref)]
+                print(f"  planted fault, {name}: over {BWD_F32_TOL} dq/dk/dv {overs} of "
+                      f"{ref[0].numel()} each (must be > 0 in one)")
+                require(max(overs) > 0, f"K4 f32's tolerance rejects the fault: {name}")
+        return max(x[0] for x in fwd), max(x[0] for x in bwd), (q, k, v, do, out, lse)
+
+    g, n, c, heads = TROCR_TRAIN
+    f_err, b_err, (q, k, v, do, out, lse) = case(g, n, c, heads, faults=True)
+    print(f"K3 f32 training route + K4 f32 at G={g} N={n} C={c} h={heads}: forward and lse "
+          f"max_abs_err {f_err:.3e} (within {ATTN_F32_TOL}), dq/dk/dv {b_err:.3e} (within "
+          f"{BWD_F32_TOL}); two runs bit-identical")
+    worst_f, worst_b = f_err, b_err
+    for hd in FWD_DS:
+        for nn_ in (16, 256):
+            e_f, e_b, _ = case(4, nn_, 2 * hd, 2)
+            worst_f, worst_b = max(worst_f, e_f), max(worst_b, e_b)
+    e_f, e_b, _ = case(12000, 16, 96, 6)
+    worst_f, worst_b = max(worst_f, e_f), max(worst_b, e_b)
+    print(f"K3 f32 + K4 f32 at G=4, 2 heads, N in (16, 256), hd in {FWD_DS}, and G=12000, "
+          f"N=16, 6 heads (72,000 heads x groups): every case within tolerance; max_abs_err "
+          f"forward {worst_f:.3e}, backward {worst_b:.3e}")
+    hd = c // heads
+    scale = hd ** -0.5
+
+    def split(t):
+        return t.reshape(g, n, heads, hd).transpose(1, 2).contiguous()
+
+    sd = [split(t).requires_grad_() for t in (q, k, v)]
+    sd_out = torch.nn.functional.scaled_dot_product_attention(*sd)
+    sd_do = split(do)
+    bnd, by = k4_f32_bound(g, n, c, heads)
+    dev_total, dev_split = device_times(lambda: area_attention_bwd(q, k, v, do, heads, out, lse),
+                                        least=5)
+    r = dict(
+        max_abs_err=worst_b, ms=time_ms(lambda: area_attention_bwd(q, k, v, do, heads, out, lse)),
+        device_ms=dev_total,
+        plain_ms=time_ms(lambda: area_attention_bwd_plain(q, k, v, do, heads, scale, out, lse),
+                         reps=5, warmup=1),
+        bound_ms=bnd, bound_by=by,
+        library_ms=time_ms(lambda: torch.autograd.grad(sd_out, sd, sd_do, retain_graph=True)),
+        library_device_ms=device_times(
+            lambda: torch.autograd.grad(sd_out, sd, sd_do, retain_graph=True), least=5)[0],
+        forward_lse_ms=time_ms(lambda: area_attention(q, k, v, heads, return_lse=True)),
+        forward_lse_device_ms=device_times(
+            lambda: area_attention(q, k, v, heads, return_lse=True), least=5)[0],
+        forward_bound_ms=k3_f32_bound(g, n, c, heads)[0])
+    print(f"  K4 f32 at the TrOCR training shape: {r['ms']:.4f} ms, device {dev_total:.4f} "
+          f"(dQ and dK/dV: " + ", ".join(f"{nm[:24]} {t:.4f}" for nm, t in sorted(
+              dev_split.items())) + f"; plain {r['plain_ms']:.4f}, bound {bnd:.5f} by {by}, "
+          f"SDPA f32 backward {r['library_ms']:.4f}, device {r['library_device_ms']:.4f}); "
+          f"K3 f32 with lse {r['forward_lse_ms']:.4f} ms, device "
+          f"{r['forward_lse_device_ms']:.4f} (bound {r['forward_bound_ms']:.5f})")
+    return r
+
+
+def trocr_bf16_train_check(dev, gen) -> dict:
+    """K3 bf16 with lse and K4 bf16 at the TrOCR training shape on separate
+    q, k, v (three Dense outputs; YOLO passes q and k as halves of one
+    tensor) against their plain versions (``ATTN_TOL``, ``BWD_TOL``); the
+    ``area_attention_trainable`` pair's gradients against autograd through
+    the plain forward in bf16 and f32; the pair's times at that shape."""
+    from kuzu_torch.ops.flash_attention import (
+        area_attention,
+        area_attention_bwd,
+        area_attention_bwd_plain,
+        area_attention_plain,
+        area_attention_trainable,
+    )
+    from kuzu_torch.testing import attention_over, bwd_f32_over, bwd_over
+
+    g, n, c, heads = TROCR_TRAIN
+    scale = (c // heads) ** -0.5
+    q, k, v, do = (torch.randn((g, n, c), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse, lo = area_attention(q, k, v, heads, return_lse=True)
+    ref_o, ref_l, ref_lo = area_attention_plain(q, k, v, heads, scale, return_lse=True)
+    got = area_attention_bwd(q, k, v, do, heads, out, lse, lo)
+    ref = area_attention_bwd_plain(q, k, v, do, heads, scale, out, lse, lo)
+    torch.cuda.synchronize()
+    fo = attention_over(out, ref_o)
+    bo = [bwd_over(a, b) for a, b in zip(got, ref)]
+    print(f"K3 bf16 (training route) + K4 bf16 at G={g} N={n} C={c} h={heads}, separate q/k/v: "
+          f"output max_abs_err {fo[0]:.3e} over {fo[1]}, dq/dk/dv "
+          + ", ".join(f"{e:.3e} over {o}" for e, o in bo))
+    require(fo[1] == 0 and all(o == 0 for _, o in bo), "K3/K4 bf16 at the TrOCR shape")
+    for dt, over in ((torch.bfloat16, bwd_over), (torch.float32, bwd_f32_over)):
+        leaves = [t.to(dt).detach().requires_grad_() for t in (q, k, v)]
+        grads = torch.autograd.grad(area_attention_trainable(*leaves, heads), leaves, do.to(dt))
+        plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        grads_p = torch.autograd.grad(area_attention_plain(*plain, heads, scale), plain,
+                                      do.float())
+        errs = [over(a, b) for a, b in zip(grads, grads_p)]
+        print(f"  area_attention_trainable {str(dt)[6:]} vs autograd through the plain forward: "
+              f"dq/dk/dv " + ", ".join(f"{e:.3e} over {o}" for e, o in errs))
+        require(all(o == 0 for _, o in errs), f"area_attention_trainable {dt} gradients")
+    r = dict(
+        k3_ms=time_ms(lambda: area_attention(q, k, v, heads, return_lse=True)),
+        k3_device_ms=device_ms(lambda: area_attention(q, k, v, heads, return_lse=True)),
+        k3_bound_ms=bound(4 * g * n * c * 2 + g * heads * n * 4, 4 * g * n * n * c,
+                          PEAK_BF16)[0],
+        k4_ms=time_ms(lambda: area_attention_bwd(q, k, v, do, heads, out, lse, lo)),
+        k4_device_ms=device_ms(lambda: area_attention_bwd(q, k, v, do, heads, out, lse, lo)),
+        k4_bound_ms=bound(9 * g * n * c * 2 + g * heads * n * 4, 10 * g * n * n * c,
+                          PEAK_BF16)[0])
+    print(f"  at the TrOCR training shape: K3 bf16 with lse {r['k3_ms']:.4f} ms, device "
+          f"{r['k3_device_ms']:.4f} (bound {r['k3_bound_ms']:.5f}); K4 bf16 {r['k4_ms']:.4f} ms, "
+          f"device {r['k4_device_ms']:.4f} (bound {r['k4_bound_ms']:.5f})")
+    return r
+
+
 # ------------------------------------------------------------- phases 4, 5
 
 COUNTERS = ("nms", "area_attention", "fused_ablock", "area_attention_bwd", "flash_attention",
-            "fused_c3k2", "area_attention_f32")
+            "fused_c3k2", "area_attention_f32", "area_attention_bwd_f32")
 
 
 def counters() -> dict:
     """Each kernel's wrapper and the attribute that counts its launches
-    (K3's wrapper counts its bf16 and f32 kernels apart)."""
+    (K3's and K4's wrappers count their bf16 and f32 kernels apart)."""
     from kuzu_torch.ops.flash_attention import (
         area_attention,
         area_attention_bwd,
@@ -734,8 +920,8 @@ def counters() -> dict:
     from kuzu_torch.ops.nms_kernel import batched_suppress
 
     fns = (batched_suppress, area_attention, fused_ablock, area_attention_bwd, flash_attention,
-           fused_c3k2, area_attention)
-    attrs = ("launches",) * 6 + ("f32_launches",)
+           fused_c3k2, area_attention, area_attention_bwd)
+    attrs = ("launches",) * 6 + ("f32_launches",) * 2
     return {name: (fn, attr) for name, fn, attr in zip(COUNTERS, fns, attrs)}
 
 
@@ -1272,11 +1458,14 @@ def device_breakdown(fn, ranges: str | None = None) -> dict:
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
     torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(4):  # a session whose trace came back without kernels is taken again
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if any((getattr(e, "self_device_time_total", 0) or 0) > 0 for e in prof.key_averages()):
+            break
     groups: dict[str, float] = {}
     kernels = []
     for evt in prof.key_averages():
@@ -1293,6 +1482,10 @@ def device_breakdown(fn, ranges: str | None = None) -> dict:
             group = "attention_fwd_kernel (K2, K3)"
         elif "attn_f32_kernel" in name:
             group = "K3 f32 attn_f32_kernel"
+        elif "f32bwd::" in name:
+            group = "K4 f32 (dq_kernel, dkdv_kernel)"
+        elif "attn_bwd_" in name:
+            group = "K4 bf16 (attn_bwd_dq_kernel, attn_bwd_dkdv_kernel)"
         elif "nms_" in name:
             group = "K1 nms"
         elif any(s in name.lower() for s in ("rnn", "lstm")):
@@ -1495,15 +1688,21 @@ def k6_launch_times(per_name: dict) -> dict:
 
 
 def kernel_launch_counts(fn) -> dict:
-    """Device kernels launched by one call of fn: {name: count}."""
+    """Device kernels launched by one call of fn: {name: count}; a session
+    whose trace came back empty (late in a long process the profiler drops
+    whole sessions at times) is taken again, up to four times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()}
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()}
+        if counts:
+            break
+    return counts
 
 
 def c3k2_phase(dev, det, imgs, launches: dict) -> dict:
@@ -2259,7 +2458,7 @@ def trocr_full_width(dev, pipe, pages, tok, launches: dict) -> dict:
                                                                 fn(images, n))[1]):
         pipe.process_pages(pages)
     batch = crops[0]
-    encode = torch.no_grad()(model.encode)  # the kernel route is for inference
+    encode = torch.no_grad()(model.encode)  # inference: K3 without its row statistics
     enc_ms = time_ms(lambda: encode(batch), reps=3, warmup=1)
     gen_ms = time_ms(lambda: greedy_generate(model, batch, max_len=model.max_len), reps=3,
                      warmup=1)
@@ -2309,11 +2508,454 @@ def trocr_full_width(dev, pipe, pages, tok, launches: dict) -> dict:
     return out
 
 
+# ------------------------------------------------- phase 11: recognizer training
+
+# Card against CPU, one f32 recognize step, TF32 off: the kernels' sums and
+# cuBLAS' against the plain versions' and oneDNN's through 2 + 2 layers,
+# the CE, the CTC recursion and the backward: the loss, the CTC term and the
+# gradient norm within 1e-4 relative
+REC_STEP_TOL = 1e-4
+CHARS = "".join(chr(0x4E00 + i) for i in range(VOCAB))  # synthetic_tokenizer's characters
+# the production LM and recognizer runs (kuzu/tools/production.py:526-538,
+# 556-580); epochs, data and the run dirs are the phase's own
+LM_RUN = dict(max_length=128, dim=256, depth=6, heads=8, batch=64, lr0=3e-4,
+              optimizer="adamw", dtype="bfloat16")
+REC_RUN = dict(imgsz=list(CROP), patch=16, enc_dim=384, enc_depth=6, enc_heads=6, dec_dim=256,
+               dec_depth=4, dec_heads=8, max_label_length=128, batch=16, optimizer="adamw",
+               lr0=3e-4, warmup_epochs=1.0, ctc_weight=0.3, ss_prob=0.25, augment=True,
+               dtype="bfloat16")
+REC_TEXT_CHARS = (5, 60)  # characters a synthetic crop holds (a column's, under its 64 CTC frames)
+
+
+def _scale_decoder(model) -> None:
+    """``seeded_trocr``'s decoding weights (lm_head x10, pos_embed x5,
+    memory_proj x10): argmax margins far above the logits' tolerance, so
+    scheduled sampling picks the same tokens on both devices."""
+    dec = model.decoder
+    with torch.no_grad():
+        dec.lm_head.weight.mul_(10)
+        dec.pos_embed.mul_(5)
+        dec.memory_proj.weight.mul_(10)
+
+
+def _flat(d: dict) -> torch.Tensor:
+    return torch.cat([t.double().flatten() for t in d.values()])
+
+
+def recognize_card_vs_cpu(dev, launches: dict) -> dict:
+    """Phase 11b: one ``RecognizeTrainer`` step at the production widths cut
+    to 2 + 2 layers on [256, 64] crops (N = 64 patches, 16 CTC frames), 64
+    ids, max_label_length 32, batch 4 (one label with no CTC alignment),
+    ``ctc_weight`` 0.3, ``ss_prob`` 0.25 with the same replacement draws on
+    both devices, augment off (the devices' generators differ), AdamW: in
+    f32 on the card (K3 f32 with lse + K4 f32, 2 + 2 launches) and on the
+    CPU (their plain versions on the same route): loss, CTC term, gradient
+    norm, gradients and the weights after the update. In bf16 (K3 + K4
+    bf16; no replacement on either side, since bf16 rounding may flip an
+    argmax): the card's loss no farther from the CPU's bf16 loss than the
+    CPU's bf16 loss is from its f32 loss on the same step."""
+    import tempfile
+
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
+    from kuzu_torch.data.loader import default_collate
+    from kuzu_torch.models.layers import MultiHeadAttention
+    from kuzu_torch.tasks.recognize import RecognizeTrainer
+    from kuzu_torch.testing import SyntheticLineDataset, synthetic_texts
+
+    tok = synthetic_tokenizer(59)
+    texts = synthetic_texts(3, CHARS[:59], 14, seed=7) + [CHARS[:20]]  # 20 > 16 frames
+    ds = SyntheticLineDataset(texts, tok, (256, 64), 32, seed=3)
+    batch = default_collate([ds[i] for i in range(4)])
+    over = dict(task="recognize", imgsz=[256, 64], patch=16, enc_dim=384, enc_depth=2,
+                enc_heads=6, dec_dim=256, dec_depth=2, dec_heads=8, max_label_length=32,
+                ctc_weight=0.3, ss_prob=0.25, augment=False, dropout=0.0, optimizer="adamw",
+                lr0=3e-4, warmup_epochs=0.0, epochs=1, seed=0, save=False, verbose=False)
+    batch_t = {k: torch.from_numpy(v) for k, v in batch.items()}
+    draws = torch.rand((4, 31), generator=torch.Generator().manual_seed(4))
+    no_draws = torch.ones((4, 31))  # nothing replaced
+    cpu = torch.device("cpu")
+
+    def run(d, dtype, ss, tmp):
+        cfg = load_config(overrides={**over, "dtype": dtype, "project": tmp,
+                                     "name": f"{d.type}-{dtype}", "exist_ok": True})
+        tr = RecognizeTrainer(cfg, device=d)
+        tr.tokenizer = tok
+        model = tr.build_model()
+        _scale_decoder(model)
+        if d.type == "cpu":  # the kernel route's plain versions
+            for m in model.encoder.modules():
+                if isinstance(m, MultiHeadAttention):
+                    m.attn_impl = "flash_interpret"
+        tr.ss_draws = lambda shape, _rng: ss.to(d)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        out = {}
+        if dtype == "float32" and ss is draws:  # the first pass's picks and their margins
+            with torch.no_grad():
+                lg = model.decode_tokens(b["tokens"][:, :-1].long(), model.encode(b["image"]),
+                                         train=False).cpu()
+            rep = ((ss < 0.25) & (torch.arange(31)[None] > 0)
+                   & (batch_t["tokens"][:, :-1] != tok.pad_id))[:, 1:]
+            top2 = lg.topk(2, dim=-1)
+            out["picks"] = top2.indices[..., 0][:, :-1][rep]
+            out["margin"] = float((top2.values[..., 0] - top2.values[..., 1])[:, :-1][rep].min())
+        tx = build_optimizer(cfg, model, 1)
+        state = TrainState(model, tx)
+        p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
+        grads = {}
+        update = tx.step
+
+        def snapshot_then_step(count, grad_norm):
+            grads.update({n: p.grad.detach().double().cpu() for n, p in model.named_parameters()})
+            update(count, grad_norm)
+
+        tx.step = snapshot_then_step
+        zero_counts()
+        metrics = make_train_step(tr.loss_fn, tx)(state, b, torch.Generator(device=d))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        out.update(counts=launch_counts(), plain=plain_counts(), grads=grads, p0=p0,
+                   p1={n: p.detach().double().cpu() for n, p in model.named_parameters()},
+                   metrics={k: float(v) for k, v in metrics.items()},
+                   wd=float(cfg.get("weight_decay", 0.0)), clip=float(cfg.get("grad_clip", 10.0)))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        g32, c32 = run(dev, "float32", draws, tmp), run(cpu, "float32", draws, tmp)
+        gb, cb, c32n = (run(dev, "bfloat16", no_draws, tmp), run(cpu, "bfloat16", no_draws, tmp),
+                        run(cpu, "float32", no_draws, tmp))
+    print(f"recognize step card vs CPU (2 + 2 layers, [256, 64] crops, batch 4): card "
+          f"launches f32 {g32['counts']}, bf16 {gb['counts']} (want 2 + 2 each), plain calls "
+          f"on the card {sum(g32['plain'].values()) + sum(gb['plain'].values())} (want 0), on "
+          f"the CPU {c32['plain']}")
+    require(g32["counts"] == want(area_attention_f32=2, area_attention_bwd_f32=2)
+            and gb["counts"] == want(area_attention=2, area_attention_bwd=2)
+            and sum(g32["plain"].values()) + sum(gb["plain"].values()) == 0,
+            "recognize step launches on the card")
+    require(c32["plain"]["area_attention"] == 2 and c32["plain"]["area_attention_bwd"] == 2,
+            "the CPU step takes the kernel route's plain versions")
+    for c in (g32["counts"], gb["counts"]):
+        for name, n in c.items():
+            launches[name] += n
+    require(len(c32["picks"]) > 0 and torch.equal(g32["picks"], c32["picks"]),
+            "scheduled sampling replaces with the same predictions on both devices")
+    gm, cm = g32["metrics"], c32["metrics"]
+    rel = {k: abs(gm[k] - cm[k]) / abs(cm[k]) for k in ("loss", "ctc_loss", "grad_norm")}
+    names = list(c32["grads"])
+    gcos = _cos(_flat(g32["grads"]), _flat(c32["grads"]))
+    # the weights after AdamW: where the step's direction is decided (the
+    # clipped gradient plus the decay term |g| >= 1e-4) within 1e-3 of the
+    # lr plus 1e-6 of the weight; elsewhere rounding may turn it (within 2 lr)
+    lr, factor = over["lr0"], min(1.0, c32["clip"] / cm["grad_norm"])
+    worst_decided = worst_any = 0.0
+    undecided = total = 0
+    for n in names:
+        p0, gcpu = c32["p0"][n], c32["grads"][n]
+        geff = gcpu * factor + (c32["wd"] * p0 if p0.dim() >= 2 else 0.0)
+        ok = geff.abs() >= 1e-4
+        diff = (g32["p1"][n] - c32["p1"][n]).abs()
+        worst_decided = max(worst_decided, float((diff - 1e-6 * c32["p1"][n].abs())[ok].max())
+                            if bool(ok.any()) else 0.0)
+        worst_any = max(worst_any, float(diff.max()))
+        undecided += int((~ok).sum())
+        total += ok.numel()
+    ucos = _cos(_flat(g32["p1"]) - _flat(g32["p0"]), _flat(c32["p1"]) - _flat(c32["p0"]))
+    print(f"  f32: loss {gm['loss']:.6f} card / {cm['loss']:.6f} CPU, relative differences "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (<= {REC_STEP_TOL:g}); whole-gradient cosine {gcos:.7f}; the weights after "
+          f"AdamW: decided entries max |diff| - 1e-6|w| {worst_decided:.3e} (<= 1e-3 lr = "
+          f"{1e-3 * lr:.1e}), any entry {worst_any:.3e} (<= 2 lr), undecided "
+          f"{undecided} of {total}; update cosine {ucos:.7f}; {len(c32['picks'])} inputs "
+          f"replaced by the same predictions, smallest argmax margin {c32['margin']:.3e} (CPU), "
+          f"{g32['margin']:.3e} (card)")
+    require(all(v <= REC_STEP_TOL for v in rel.values()) and worst_decided <= 1e-3 * lr
+            and worst_any <= 2 * lr * (1 + 1e-6) and gcos >= 0.9999,
+            "card vs CPU f32 recognize step")
+    brel = abs(gb["metrics"]["loss"] - cb["metrics"]["loss"]) / abs(cb["metrics"]["loss"])
+    bound_ = abs(cb["metrics"]["loss"] - c32n["metrics"]["loss"]) / abs(c32n["metrics"]["loss"])
+    print(f"  bf16 (teacher forcing): loss card {gb['metrics']['loss']:.5f}, CPU "
+          f"{cb['metrics']['loss']:.5f} (rel {brel:.2e}; bound: the CPU's bf16 loss against "
+          f"its f32 loss {c32n['metrics']['loss']:.5f}, rel {bound_:.2e})")
+    require(brel <= bound_ and np.isfinite(gb["metrics"]["grad_norm"]),
+            "card vs CPU bf16 recognize step")
+    return dict(f32_rel=rel, grad_cos=gcos, update_cos=ucos, weights_decided_err=worst_decided,
+                weights_any_err=worst_any, bf16_loss_rel=brel, bf16_bound=bound_,
+                margin=c32["margin"])
+
+
+class TrainRecorder(StepRecorder):
+    """``StepRecorder`` that also records each step's plain-version calls."""
+
+    def __init__(self):
+        super().__init__()
+        self.plain = []
+
+    def step(self, trainer, metrics):
+        self.plain.append(plain_counts())
+        super().step(trainer, metrics)
+
+
+def _record(trainer) -> "TrainRecorder":
+    rec = TrainRecorder()
+    for ev, fn in (("on_train_start", rec.start), ("on_step_end", rec.step),
+                   ("on_val_start", rec.val_start), ("on_val_end", rec.val_end)):
+        trainer.callbacks.add(ev, fn)
+    return rec
+
+
+def _step_times(rec, warm: int) -> dict:
+    times = [a.elapsed_time(b) for a, b in zip(rec.events[:-1], rec.events[1:])]
+    return dict(ms_per_step=statistics.median(times[warm:]), step_ms=times[warm:],
+                warmup_ms=times[:warm])
+
+
+def lm_full_width(dev, root) -> dict:
+    """Phase 11c, first half: ``LMTrainer(cfg).train()`` at the production
+    LM widths (``kuzu/tools/production.py:526-538``: CharMLM 256 / 6 / 8,
+    max_length 128, batch 64, AdamW lr0 3e-4, bf16) over a seeded synthetic
+    corpus of the 4,788-class vocabulary written to ``root``: 4 steps and
+    one validation batch, the run dir written."""
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.tasks.lm import LMTrainer
+    from kuzu_torch.testing import synthetic_texts
+
+    tok = synthetic_tokenizer()
+    tok.save(root / "tokenizer.json")
+    corpus = root / "corpus"
+    corpus.mkdir()
+    batch, chars = LM_RUN["batch"], LM_RUN["max_length"] - 2
+    (corpus / "train.txt").write_text("\n".join(synthetic_texts(batch * 4, CHARS, chars, seed=1,
+                                                                min_chars=chars // 6)))
+    (corpus / "val.txt").write_text("\n".join(synthetic_texts(batch, CHARS, chars, seed=2,
+                                                              min_chars=chars // 6)))
+    cfg = load_config(overrides=dict(
+        task="lm", data=str(corpus), tokenizer=str(root / "tokenizer.json"), epochs=1,
+        workers=2, project=str(root / "runs"), name="lm", exist_ok=True, val_batches=1,
+        verbose=False, **LM_RUN))
+    trainer = LMTrainer(cfg, device=dev)
+    rec = _record(trainer)
+    t0 = time.perf_counter()
+    final = trainer.train()
+    wall = time.perf_counter() - t0
+    losses = [float(m["loss"]) for m in rec.metrics]
+    r = dict(final=final, losses=losses, wall_s=wall, peak_gib=rec.peak / 2**30,
+             **_step_times(rec, 1))
+    print(f"LMTrainer CharMLM 256/6/8, 4,788 classes, max_length 128, batch 64, bf16: "
+          f"{len(rec.counts)} steps + validation in {wall:.1f} s; ms/step "
+          f"{r['ms_per_step']:.3f} (median after a warm-up: {[round(t, 2) for t in r['step_ms']]}), "
+          f"peak {r['peak_gib']:.2f} GiB; losses {[round(x, 4) for x in losses]}; final {final}")
+    require(len(rec.counts) == 4 and all(np.isfinite(losses))
+            and np.isfinite(final.get("masked_acc", np.nan)), "LM trainer steps and validation")
+    require(all((trainer.save_dir / f).exists() for f in
+                ("args.yaml", "tokenizer.json", "weights/last/state.pt")), "LM run dir")
+    r["save_dir"], r["trainer"] = trainer.save_dir, trainer
+    return r
+
+
+def recognize_full_width(dev, root, lm_dir, launches: dict, dtype: str = "bfloat16",
+                         steps: int = WARM_STEPS + TIMED_STEPS) -> dict:
+    """Phase 11c, second half: ``RecognizeTrainer`` at the production
+    recognizer widths (``kuzu/tools/production.py:556-580``: encoder 384 / 6
+    / 6 heads, decoder 256 / 4 / 8, max_label_length 128, [1024, 64] crops,
+    batch 16, AdamW lr0 3e-4, warmup 1 epoch, ``ctc_weight`` 0.3,
+    ``ss_prob`` 0.25, augment on, ``decoder_init`` the LM run) over seeded
+    crops of 5-60 characters: ``steps`` steps, then (bf16) one validation
+    batch; K3 + K4 launches a step (6 + 6: one per encoder layer) and no
+    plain call, ms/step, one profiled step's device time and idle share,
+    peak memory; in f32 the same with K3 f32 + K4 f32 and no validation."""
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.data.loader import default_collate
+    from kuzu_torch.data.tokenizer import CharTokenizer
+    from kuzu_torch.tasks.recognize import trainer_for
+    from kuzu_torch.testing import SyntheticLineDataset, synthetic_texts
+
+    tok = CharTokenizer.load(lm_dir / "tokenizer.json")
+    batch, crop, max_len = REC_RUN["batch"], tuple(REC_RUN["imgsz"]), REC_RUN["max_label_length"]
+    lo, hi = REC_TEXT_CHARS
+    train_ds = SyntheticLineDataset(synthetic_texts(batch * steps, CHARS, hi, seed=3,
+                                                    min_chars=lo), tok, crop, max_len, seed=0)
+    val_ds = SyntheticLineDataset(synthetic_texts(batch, CHARS, hi, seed=4, min_chars=lo), tok,
+                                  crop, max_len, seed=1)
+    f32 = dtype == "float32"
+    cfg = load_config(overrides=dict(
+        REC_RUN, task="recognize", dtype=dtype, epochs=1, decoder_init=str(lm_dir), workers=2,
+        project=str(root / "runs"), name=f"rec-{dtype}", exist_ok=True, val=not f32,
+        save=not f32, val_batches=1, val_gen_batches=1, verbose=False))
+    trainer = trainer_for((train_ds, val_ds, tok))(cfg, device=dev)
+    rec = _record(trainer)
+    t0 = time.perf_counter()
+    final = trainer.train()
+    wall = time.perf_counter() - t0
+    # the run's weights as its checkpoint holds them (the profiled step below
+    # moves the live state on)
+    ema = {k: v.detach().clone() for k, v in trainer.state.ema_state_dict().items()}
+    depth = REC_RUN["enc_depth"]
+    per_step = (want(area_attention_f32=depth, area_attention_bwd_f32=depth) if f32
+                else want(area_attention=depth, area_attention_bwd=depth))
+    print(f"RecognizeTrainer {dtype} (encoder 384/6/6, decoder 256/4/8, [1024, 64] crops, "
+          f"batch 16, decoder_init from the LM run): {len(rec.counts)} steps"
+          f"{'' if f32 else ' + validation'} in {wall:.1f} s; launches per step "
+          f"{rec.counts[0]} (want {per_step}), plain calls {sum(sum(p.values()) for p in rec.plain)} "
+          f"(want 0); final {final}")
+    require(len(rec.counts) == steps and all(c == per_step for c in rec.counts)
+            and all(sum(p.values()) == 0 for p in rec.plain),
+            f"recognize {dtype} per-step launches {rec.counts[0]}")
+    for c in rec.counts + ([rec.val_counts] if rec.val_counts else []):
+        for name, n in c.items():
+            launches[name] += n
+    losses = [float(m["loss"]) for m in rec.metrics]
+    ctc = [float(m["ctc_loss"]) for m in rec.metrics]
+    require(all(np.isfinite(losses)) and all(np.isfinite(ctc)), f"finite {dtype} losses")
+    r = dict(final=final, losses=losses, ctc_losses=ctc, wall_s=wall, launches_per_step=per_step,
+             **_step_times(rec, WARM_STEPS if steps > WARM_STEPS else 0))
+    if not f32:
+        require(rec.val_counts == want(area_attention=2 * depth), f"validation launches "
+                f"{rec.val_counts} (the teacher-forced pass and the greedy encode)")
+        require(all(k in final for k in ("cer", "tf_acc")) and trainer.ckpt.exists("best"),
+                "recognize validation and run dir")
+        r["peak_gib"] = rec.peak / 2**30
+        r["val_launches"] = rec.val_counts
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in default_collate([train_ds[i] for i in range(batch)]).items()}
+    r["breakdown"] = device_breakdown(
+        lambda: trainer._step(trainer.state, b, trainer.step_rng(trainer.state.step)))
+    print(f"  losses {[round(x, 4) for x in losses]}, CTC terms {[round(x, 3) for x in ctc]}; "
+          f"ms/step {r['ms_per_step']:.3f} (steps {[round(t, 2) for t in r['step_ms']]}), "
+          f"peak {r.get('peak_gib', float('nan')):.2f} GiB")
+    r.update(save_dir=trainer.save_dir, trainer=trainer, val_ds=val_ds, ema=ema)
+    return r
+
+
+def run_dirs_cascade(dev, lm, rec, launches: dict) -> dict:
+    """Phase 11d: ``KuzushijiPipeline(recognizer=<11c's recognize run dir>,
+    lm=<11c's LM run dir>)`` over four synthetic pages of 384 with 8a's
+    detectors (yolov12n columns, yolov12-p2n characters at init, boxes
+    shaped): greedy texts and LM annotations equal to a pipeline over the
+    same weights built in memory (the runs' EMA as trained: one epoch, so
+    best is last), and so are the recognizers' teacher-forced logits on
+    crops and the LMs' scores of texts with characters; K3 f32 6 launches
+    a call (the predictor's TrOCR is f32)."""
+    from kuzu_torch.models.lm import CharMLM
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.pipeline.cascade import KuzushijiPipeline
+    from kuzu_torch.tasks.detect import DetectPredictor
+    from kuzu_torch.tasks.lm import LMPredictor
+    from kuzu_torch.tasks.recognize import RecognizePredictor, build_trocr
+    from kuzu_torch.testing import box_head, column_pages
+
+    pages = torch.from_numpy(column_pages(4, 384, seed=3))
+    col = box_head(YoloDetector("yolov12n", nc=1, imgsz=256, device=dev, reg_max=32).init(0),
+                   (1, 6, 1, 6))
+    char = box_head(YoloDetector("yolov12-p2n", nc=1, imgsz=160, device=dev).init(1),
+                    (1, 1, 1, 1))
+    dets = dict(column_model=DetectPredictor.from_detector(col, conf=CONF, max_det=300),
+                char_model=DetectPredictor.from_detector(char, conf=CONF, max_det=2000),
+                tile_grid=2, max_det=2000, device=dev)
+    rt, lt = rec["trainer"], lm["trainer"]
+    trocr = build_trocr(rt.cfg, len(rt.tokenizer))
+    trocr.load_state_dict(rec["ema"])
+    charlm = CharMLM(len(lt.tokenizer), max_len=LM_RUN["max_length"], dim=LM_RUN["dim"],
+                     depth=LM_RUN["depth"], num_heads=LM_RUN["heads"])
+    charlm.load_state_dict(lt.state.ema_state_dict())
+    pipes = {
+        "run dirs": KuzushijiPipeline(recognizer=rec["save_dir"], lm=lm["save_dir"], **dets),
+        "memory": KuzushijiPipeline(
+            recognizer=RecognizePredictor.from_model(trocr, rt.tokenizer,
+                                                     tuple(REC_RUN["imgsz"]), device=dev),
+            lm=LMPredictor.from_model(charlm, lt.tokenizer, max_len=LM_RUN["max_length"],
+                                      device=dev), **dets)}
+    # beside the cascade's texts (a briefly trained decoder may end every
+    # row at once), the loaded weights themselves: teacher-forced logits on
+    # crops of the pages and the LM's scores of texts with characters
+    val = [rec["val_ds"][i] for i in range(min(8, len(rec["val_ds"])))]
+    crops = torch.stack([torch.from_numpy(x["image"]) for x in val]).to(dev)
+    tokens = torch.stack([torch.from_numpy(x["tokens"]) for x in val])
+    tokens = tokens[:, :-1].long().to(dev)
+    texts = [rt.tokenizer.decode(t) for t in tokens.tolist()]
+    out, logits, scores = {}, {}, {}
+    for label, pipe in pipes.items():
+        zero_counts()
+        res = pipe.process_pages(pages)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        require(counts["area_attention_f32"] == REC_RUN["enc_depth"]
+                and sum(plain_counts().values()) == 0,
+                f"cascade with the {label}: K3 f32 launches {counts}")
+        for name, n in counts.items():
+            launches[name] += n
+        out[label] = [(c["text"], c["lm_score"]) for r in res for c in r["columns"]]
+        model = pipe.recognizer.model
+        with torch.no_grad():
+            logits[label] = model.decode_tokens(tokens, model.encode(crops), train=False).cpu()
+        scores[label] = pipe.rescore_texts(texts)
+    same = out["run dirs"] == out["memory"]
+    same_logits = torch.equal(logits["run dirs"], logits["memory"])
+    same_scores = scores["run dirs"] == scores["memory"]
+    n_chars = [len(t) for t, _ in out["memory"]]
+    print(f"cascade from the run dirs (4 pages of 384): {len(out['memory'])} columns, texts "
+          f"and LM scores equal to the in-memory weights' {same}; text lengths "
+          f"{n_chars[:12]}...; the recognizers' teacher-forced logits on {len(val)} crops equal "
+          f"{same_logits} (max |logit| {float(logits['memory'].abs().max()):.3f}), the LMs' "
+          f"scores of {len(texts)} texts of {min(len(t) for t in texts)}-{max(len(t) for t in texts)} "
+          f"characters equal {same_scores} ({[round(x, 3) for x in scores['memory'][:4]]})")
+    require(len(out["memory"]) > 0 and same and same_logits and same_scores
+            and all(np.isfinite(x) for _, x in out["memory"]), "cascade from the run dirs")
+    return dict(columns=len(out["memory"]), texts_equal=same, text_chars=n_chars,
+                logits_equal=same_logits, lm_scores_equal=same_scores)
+
+
+def k3_after_k5_check(dev) -> None:
+    """Phase 11a: K3's bf16 inference route (the recognizer's validation and
+    serving in bf16) at every head width, after K5 (phase 7) launched the
+    same ``attention_fwd_kernel<D, kPlain>`` instantiations from its own
+    library: each library keeps its own shared-memory attribute (the
+    header's internal linkage), against the plain version."""
+    from kuzu_torch.ops.flash_attention import FWD_DS, area_attention, area_attention_plain
+    from kuzu_torch.testing import attention_over
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+    for hd in FWD_DS:
+        q, k, v = (torch.randn((16, 256, 6 * hd), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        err, over, _ = attention_over(area_attention(q, k, v, 6),
+                                      area_attention_plain(q, k, v, 6, hd ** -0.5))
+        require(over == 0, f"K3 bf16 inference route at hd={hd} after K5")
+        worst = max(worst, err)
+    print(f"K3 bf16 inference route after K5's launches, G=16 N=256 6 heads, hd in {FWD_DS}: "
+          f"every case within tolerance, max_abs_err {worst:.3e}")
+
+
+def recognizer_training_phase(dev, launches: dict) -> dict:
+    """Phase 11: a, b, c (the LM, then the recognizer in bf16 and two f32
+    steps), d."""
+    import tempfile
+    from pathlib import Path
+
+    k3_after_k5_check(dev)
+    out = dict(card_vs_cpu=recognize_card_vs_cpu(dev, launches))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        lm = lm_full_width(dev, root)
+        rec = recognize_full_width(dev, root, lm["save_dir"], launches)
+        rec32 = recognize_full_width(dev, root, lm["save_dir"], launches, dtype="float32",
+                                     steps=2)
+        out["run_dirs_cascade"] = run_dirs_cascade(dev, lm, rec, launches)
+        for r in (lm, rec, rec32):
+            for key in ("trainer", "val_ds", "ema"):
+                r.pop(key, None)
+            r["save_dir"] = str(r["save_dir"])
+    out.update(lm=lm, recognize_bf16=rec, recognize_f32=rec32)
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 KERNELS = {
     "area_attention_f32": ("kuzu_torch/csrc/attention_f32.cuh",
                            "kuzu/ops/flash_attention.py:148"),
+    "area_attention_bwd_f32": ("kuzu_torch/csrc/attention_f32_bwd.cuh",
+                               "kuzu/ops/flash_attention.py:247"),
     "nms": ("kuzu_torch/csrc/nms.cu", "kuzu/ops/pallas_nms.py:314"),
     "area_attention": ("kuzu_torch/csrc/area_attention.cu", "kuzu/ops/flash_attention.py:148"),
     "fused_ablock": ("kuzu_torch/csrc/fused_ablock.cu", "kuzu/ops/fused_ablock.py:117"),
@@ -2362,6 +3004,8 @@ def main() -> int:
     cascade["k1_cross_tile"] = k1_cross_tile(dev)
     cascade["full_width"] = cascade_full_width(dev, launches)
     torch.cuda.empty_cache()
+    recognizer_training = recognizer_training_phase(dev, launches)
+    torch.cuda.empty_cache()
     train_slice_check(dev, launches)
     train = train_full_width(dev, launches)
     train["remat"] = remat_full_width(dev, launches)
@@ -2370,7 +3014,7 @@ def main() -> int:
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
              launches=launches[name],
              **{k: v for k, v in res[name].items()
-                if k not in ("shapes", "nodes", "matmul_device_ms")})
+                if k not in ("shapes", "nodes", "matmul_device_ms", "trocr_shape")})
         for name in COUNTERS
     ]
     print(json.dumps({"flash_attention_shapes": res["flash_attention"]["shapes"],
@@ -2381,6 +3025,7 @@ def main() -> int:
     print(json.dumps({"e2e_yolov12x_640_b8": e2e, "card": card}))
     print(json.dumps({"cascade_16_pages_1280": cascade, "card": card}))
     print(json.dumps({"train_yolov12p2x_640_b8": train, "card": card}))
+    print(json.dumps({"recognizer_training": recognizer_training, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2397,8 +3042,10 @@ def _check_smem_formulas() -> None:
     from kuzu_torch.ops.flash_attention import (
         FLASH_DS,
         FWD_DS,
+        SMEM_LIMIT,
         attn_bwd_smem_bytes,
         attn_fwd_smem_bytes,
+        f32_attn_bwd_smem_bytes,
         f32_attn_smem_bytes,
         flash_attention_smem_bytes,
     )
@@ -2414,9 +3061,13 @@ def _check_smem_formulas() -> None:
     fb.argtypes = [ctypes.c_int] * 2
     fa32 = _build.library("area_attention").kuzu_area_attention_f32_smem
     fa32.restype, fa32.argtypes = ctypes.c_size_t, [ctypes.c_int]
+    fab32 = _build.library("area_attention_bwd").kuzu_area_attention_bwd_f32_smem
+    fab32.restype, fab32.argtypes = ctypes.c_size_t, [ctypes.c_int] * 2
     for hd in FWD_DS:
         require(fa(hd) == attn_fwd_smem_bytes(hd), f"forward attention smem hd={hd}")
         require(fa32(hd) == f32_attn_smem_bytes(hd), f"f32 attention smem hd={hd}")
+        require(max(fab32(hd, 0), fab32(hd, 1)) == f32_attn_bwd_smem_bytes(hd) <= SMEM_LIMIT,
+                f"f32 attention backward smem hd={hd}")
         require(fab(hd) == attn_bwd_smem_bytes(hd), f"attention backward smem hd={hd}")
     for c, h in ((384, 12), (128, 4), (64, 2), (512, 4)):
         require(fb(c, h) == ablock_smem_bytes(c, h), f"ablock smem c={c} h={h}")

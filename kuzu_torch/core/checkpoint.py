@@ -5,9 +5,10 @@ A checkpoint is ``<dir>/<name>/state.pt`` holding the train state's
 ``state_dict()`` (step, model with its BatchNorm statistics, EMA, optimizer)
 beside ``kuzu_meta.json`` (epoch, fitness); ``last`` is written every epoch
 and copied to ``best`` when its fitness is the highest so far.
-``load_inference_params`` restores a model's weights for prediction.
-``partial_load`` (the P2-head graft) and the LoRA branch of
-``load_inference_params`` are not ported yet.
+``load_inference_params`` restores a model's weights for prediction;
+``partial_load`` grafts the name- and shape-matching tensors of one state
+dict onto another (``pretrained=``, the LM -> decoder graft). The LoRA
+branch of ``load_inference_params`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -88,3 +89,23 @@ def load_inference_params(
     if sd.get("ema") is not None:
         out.update(sd["ema"])
     return out
+
+
+def partial_load(target: dict[str, torch.Tensor], source: dict[str, torch.Tensor],
+                 verbose: bool = False) -> tuple[dict[str, torch.Tensor], int, int]:
+    """Graft the tensors of ``source`` whose name and shape match onto
+    ``target`` (state dicts), as ``kuzu/core/checkpoint.py::partial_load``
+    grafts a flax tree by path; each grafted tensor is cast to the target's
+    dtype and device. Returns ``(state dict, n_loaded, n_total)``, n_total
+    the number of tensors in ``target``."""
+    out, loaded = {}, 0
+    for name, leaf in target.items():
+        src = source.get(name)
+        if src is not None and tuple(src.shape) == tuple(leaf.shape):
+            out[name] = src.detach().to(dtype=leaf.dtype, device=leaf.device)
+            loaded += 1
+        else:
+            out[name] = leaf
+    if verbose:
+        print(f"partial_load: transferred {loaded}/{len(target)} tensors")
+    return out, loaded, len(target)

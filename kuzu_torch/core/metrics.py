@@ -1,6 +1,7 @@
-"""Detection metrics: mAP (101-point and 11-point), IoU matching (the
-detection part of ``kuzu/core/metrics.py``, copied: the port may not import
-it; CER and character accuracy come with the recognizer slice).
+"""Detection metrics: mAP (101-point and 11-point), IoU matching, and the
+recognizer's edit distance and corpus CER (copied from
+``kuzu/core/metrics.py``: the port may not import it; character accuracy
+is not copied yet).
 
 Capability parity with the reference's two metric stacks:
 - engine metrics (``yolov12/ultralytics/utils/metrics.py``): ``box_iou``,
@@ -228,3 +229,28 @@ class DetMetrics:
         self._conf.clear()
         self._pred_cls.clear()
         self._target_cls.clear()
+
+
+def levenshtein(a, b) -> int:
+    """Edit distance over sequences (chars or token-id lists)."""
+    if len(a) < len(b):
+        a, b = b, a
+    if not b:
+        return len(a)
+    prev = np.arange(len(b) + 1)
+    for i, ca in enumerate(a, 1):
+        cur = np.empty(len(b) + 1, dtype=np.int64)
+        cur[0] = i
+        for j, cb in enumerate(b, 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb))
+        prev = cur
+    return int(prev[-1])
+
+
+def character_error_rate(preds: list, targets: list) -> float:
+    """Corpus CER = sum(edit) / sum(len(target)) (reference ``calculate_cer``)."""
+    total_edit, total_len = 0, 0
+    for p, t in zip(preds, targets):
+        total_edit += levenshtein(p, t)
+        total_len += len(t)
+    return total_edit / max(total_len, 1)

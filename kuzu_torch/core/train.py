@@ -9,7 +9,9 @@ during its training forward, and the step is eager. What stays the same:
   ``grad_clip`` first, then weight decay added to the gradient of the params
   with ``ndim >= 2`` only (two parameter groups), then SGD with Nesterov
   momentum (``torch.optim.SGD(nesterov=True, dampening=0)`` keeps optax's
-  trace) or Adam;
+  trace) or Adam (``adam`` / ``adamw``, the recognize and LM trainers' auto
+  optimizer: ``optax.adam(b1=momentum, b2=0.999, eps=1e-8)`` after the
+  decay, which ``torch.optim.Adam``'s L2 ``weight_decay`` is);
 - the learning rate of update ``n`` is the schedule at ``n`` *before* it is
   counted, as optax evaluates it, so with warmup the first update has lr 0;
 - the EMA averages the parameters only, not the BatchNorm statistics, with
@@ -176,20 +178,25 @@ def ema_update(ema: dict[str, torch.Tensor], model: nn.Module, d: float) -> None
 
 
 def make_train_step(
-    loss_fn: Callable[[nn.Module, dict], tuple[torch.Tensor, dict]],
+    loss_fn: Callable[..., tuple[torch.Tensor, dict]],
     tx: Optimizer,
     ema_decay: float = 0.9999,
     ema_tau: float = 2000.0,
     accumulate: int = 1,
-) -> Callable[[TrainState, dict], dict[str, torch.Tensor]]:
-    """``step(state, batch) -> metrics``: one update of ``state`` in place.
+) -> Callable[..., dict[str, torch.Tensor]]:
+    """``step(state, batch, rng=None) -> metrics``: one update of ``state``
+    in place.
 
     ``loss_fn(model, batch) -> (loss, metrics)`` sees a (micro-)batch of
-    tensors on the model's device; the model is in training mode, so its
-    BatchNorm statistics move with every micro-batch. Metrics come back as
-    0-d tensors on the device (no host sync)."""
+    tensors on the model's device, and with ``rng`` (a ``torch.Generator``,
+    the step's randomness: the JAX step's ``rng``)
+    ``loss_fn(model, batch, rng)``, the micro-batches drawing from it in
+    turn; the model is in training mode, so its BatchNorm statistics move
+    with every micro-batch. Metrics come back as 0-d tensors on the device
+    (no host sync)."""
 
-    def step_fn(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+    def step_fn(state: TrainState, batch: dict,
+                rng: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         model = state.model
         model.train()
         tx.zero_grad()
@@ -200,7 +207,7 @@ def make_train_step(
         loss_sum, metrics_sum = None, {}
         for i in range(accumulate):
             mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()} if accumulate > 1 else batch
-            loss, metrics = loss_fn(model, mb)
+            loss, metrics = loss_fn(model, mb) if rng is None else loss_fn(model, mb, rng)
             loss.backward()  # gradients sum over the micro-batches
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss

@@ -22,7 +22,9 @@
 // inputs (the TrOCR encoder's self-attention, built in f32) go to the
 // register-tiled CUDA-core kernel of attention_f32.cuh, shared with K5's
 // f32 path, with K3's head-packed addressing (row stride C, head offset
-// h*hd), one block per (64 query rows, head, group); f32 FMAs, no TF32.
+// h*hd), one block per (64 query rows, head, group); f32 FMAs, no TF32; its
+// training route writes each row's base-2 log-sum-exp as the bf16 one does
+// (there is no o_lo in f32: the output is exact to f32 already).
 // What bounds it: operations, 4 G heads N^2 hd on the f32 CUDA cores.
 
 #include "attention_f32.cuh"
@@ -48,13 +50,15 @@ extern "C" int kuzu_area_attention(const void* q, int q_stride, const void* k, i
 }
 
 // The f32 route: q, k, v, o f32 (g, n, c) with the given row strides (in
-// floats; 16-byte aligned bases and strides), o = softmax(scale q_h k_h^T) v_h.
+// floats; 16-byte aligned bases and strides), o = softmax(scale q_h k_h^T) v_h;
+// lse null, or (g, heads, n) f32 for each row's base-2 log-sum-exp (the
+// training route: the f32 backward of area_attention_bwd.cu reads it).
 extern "C" int kuzu_area_attention_f32(const void* q, int q_stride, const void* k,
                                        int k_stride, const void* v, int v_stride, void* o,
-                                       int o_stride, int g, int n, int c, int heads,
+                                       int o_stride, float* lse, int g, int n, int c, int heads,
                                        float scale, void* stream) {
-  return kuzu::attention_f32(q, q_stride, k, k_stride, v, v_stride, o, o_stride, g, n, heads,
-                             c / heads, scale, static_cast<cudaStream_t>(stream));
+  return kuzu::attention_f32(q, q_stride, k, k_stride, v, v_stride, o, o_stride, lse, g, n,
+                             heads, c / heads, scale, static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory of one block of the f32 route (constant in N).

@@ -43,7 +43,14 @@
 // consumer warpgroups per SM. Measured on the H100 at hd=32 (PERF.md): the
 // dK/dV kernel's 16 register-operand products per tile take the largest
 // share, then its loads and stores, the elementwise work and S, dP.
+//
+// f32 route (kuzu_area_attention_bwd_f32): the TPU kernel takes any dtype
+// and computes in f32; f32 inputs (the TrOCR encoder trained in f32) go to
+// the CUDA-core kernels of attention_f32_bwd.cuh (f32 FMAs, no TF32), which
+// read the f32 lse that K3's f32 training route writes and take D from its
+// f32 output (there is no o_lo in f32).
 
+#include "attention_f32_bwd.cuh"
 #include "attention_fwd.cuh"
 
 namespace kuzu {
@@ -523,4 +530,28 @@ extern "C" int kuzu_area_attention_bwd(const void* q, int q_stride, const void* 
       return (int)cudaErrorInvalidValue;
   }
 #undef KUZU_BWD_CASE
+}
+
+// Shared memory of one block of the f32 route's dQ (which == 0) or dK/dV
+// kernel (constant in N).
+extern "C" size_t kuzu_area_attention_bwd_f32_smem(int hd, int which) {
+  return which == 0 ? kuzu::f32bwd::dq_smem_bytes(hd) : kuzu::f32bwd::dkdv_smem_bytes(hd);
+}
+
+// The f32 route: q, k, v, dout, o f32 (g, n, heads * hd) with their own row
+// strides (in floats), lse (g, heads, n) f32 from K3's f32 training route,
+// dvec (g, heads, n) f32 scratch (D); dq, dk, dv written at their own row
+// strides. Bases and strides 16-byte aligned, n % 4 == 0. Two launches
+// (dQ, then dK/dV). Returns a cudaError_t.
+extern "C" int kuzu_area_attention_bwd_f32(const void* q, int q_stride, const void* k,
+                                           int k_stride, const void* v, int v_stride,
+                                           const void* dout, int do_stride, const void* o,
+                                           int o_stride, const float* lse, float* dvec, void* dq,
+                                           int dq_stride, void* dk, int dk_stride, void* dv,
+                                           int dv_stride, int g, int n, int heads, int hd,
+                                           float scale, void* stream) {
+  return kuzu::attention_f32_bwd(q, q_stride, k, k_stride, v, v_stride, dout, do_stride, o,
+                                 o_stride, lse, dvec, dq, dq_stride, dk, dk_stride, dv,
+                                 dv_stride, g, n, heads, hd, scale,
+                                 static_cast<cudaStream_t>(stream));
 }

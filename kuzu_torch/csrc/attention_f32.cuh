@@ -16,7 +16,10 @@
 // tile: m_new = max(m, rowmax(s)), p = exp(s - m_new), alpha = exp(m - m_new),
 // l = l alpha + rowsum(p), acc = acc alpha + p v, o = acc / max(l, 1e-30),
 // m from -1e30; for K3 the exact two-pass maximum becomes this online one,
-// a difference of f32-rounding size.
+// a difference of f32-rounding size. K3's f32 training route also asks for
+// each row's base-2 log-sum-exp of the scaled scores, (m + log l) log2(e),
+// which the f32 backward (attention_f32_bwd.cuh) reads in place of
+// recomputing the softmax statistics.
 //
 // Design. One block per (64 query rows, head, group), 256 threads. Register
 // tiles on the CUDA cores, f32 FMAs only (no TF32: the products keep the
@@ -56,6 +59,7 @@ constexpr int kKeys = 64;     // keys per tile
 static_assert(kRows == kKeys, "a block's row tiles and key tiles are counted alike");
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 scores each
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one block: the scaled Q tile, two cp.async stages of a K
 // and a V tile, rows padded to D + 4 floats (16-byte aligned rows, the 8 rows
@@ -89,7 +93,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 attn_f32_kernel(const float* __restrict__ q, int q_stride, const float* __restrict__ k,
                 int k_stride, const float* __restrict__ v, int v_stride, float* __restrict__ o,
-                int o_stride, int n, int heads, float scale) {
+                int o_stride, float* __restrict__ lse, int n, int heads, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int LD = D + 4, LP = kKeys + 4, CPT = D / 16;
   float* qs = reinterpret_cast<float*>(smem);
@@ -225,14 +229,15 @@ attn_f32_kernel(const float* __restrict__ q, int q_stride, const float* __restri
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < CPT; ++c) o[(size_t)r * o_stride + tx * CPT + c] = acc[i][c] / den;
+      if (lse != nullptr && tx == 0) lse[(size_t)gh * n + r] = (m[i] + logf(den)) * kLog2e;
     }
   }
 }
 
 template <int D>
 int launch(const float* q, int q_stride, const float* k, int k_stride, const float* v,
-           int v_stride, float* o, int o_stride, int g, int n, int heads, float scale,
-           cudaStream_t s) {
+           int v_stride, float* o, int o_stride, float* lse, int g, int n, int heads,
+           float scale, cudaStream_t s) {
   const size_t smem = smem_bytes(D);
   // once per instantiation: the block's shared memory does not depend on the call
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -242,20 +247,21 @@ int launch(const float* q, int q_stride, const float* k, int k_stride, const flo
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   attn_f32_kernel<D><<<grid, kThreads, smem, s>>>(q, q_stride, k, k_stride, v, v_stride, o,
-                                                  o_stride, n, heads, scale);
+                                                  o_stride, lse, n, heads, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace f32attn
 
 // softmax(scale q_h k_h^T) v_h for every head h and group of (g, n,
-// heads * hd) f32 tensors with the given row strides (in floats). Bases and
-// strides must be 16-byte aligned (the caller checks). Returns a
-// cudaError_t (cudaErrorInvalidValue for a head width the kernel is not
-// built for, or more than 2^31 - 1 blocks).
+// heads * hd) f32 tensors with the given row strides (in floats); lse null,
+// or (g, heads, n) f32 for each row's base-2 log-sum-exp. Bases and strides
+// must be 16-byte aligned (the caller checks). Returns a cudaError_t
+// (cudaErrorInvalidValue for a head width the kernel is not built for, or
+// more than 2^31 - 1 blocks).
 inline int attention_f32(const void* q, int q_stride, const void* k, int k_stride,
-                         const void* v, int v_stride, void* o, int o_stride, int g, int n,
-                         int heads, int hd, float scale, cudaStream_t s) {
+                         const void* v, int v_stride, void* o, int o_stride, float* lse, int g,
+                         int n, int heads, int hd, float scale, cudaStream_t s) {
   if (g <= 0 || n <= 0) return 0;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -263,8 +269,8 @@ inline int attention_f32(const void* q, int q_stride, const void* k, int k_strid
   float* of = static_cast<float*>(o);
 #define KUZU_F32_CASE(D)                                                                  \
   case D:                                                                                 \
-    return f32attn::launch<D>(qf, q_stride, kf, k_stride, vf, v_stride, of, o_stride, g, \
-                              n, heads, scale, s);
+    return f32attn::launch<D>(qf, q_stride, kf, k_stride, vf, v_stride, of, o_stride, lse, \
+                              g, n, heads, scale, s);
   switch (hd) {
     KUZU_F32_CASE(16)
     KUZU_F32_CASE(32)

@@ -67,6 +67,13 @@
 // practice, latency: 128-row blocks give 256 (C=64) to 1536 (C=384) blocks,
 // two resident per SM, each streaming its 7 key tiles while the previous
 // tile is computed on.
+//
+// Everything here has internal linkage (an anonymous namespace): several
+// kernel libraries include this header, and a template's static attribute
+// guard with external linkage is one object across every library loaded in
+// the process, so the first library to launch an instantiation would leave
+// the others' copies of it without their shared-memory attribute (their
+// launches then fail with cudaErrorInvalidValue).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is taken from the driver at run time
@@ -76,6 +83,7 @@
 #include "attention.cuh"
 
 namespace kuzu {
+namespace {
 namespace fwd {
 
 constexpr int kRowsQ = 128;          // query rows per block
@@ -640,4 +648,5 @@ int attention_fwd(const void* q, int q_stride, const void* k, int k_stride, cons
 #undef KUZU_FWD_CASE
 }
 
+}  // namespace
 }  // namespace kuzu

@@ -41,11 +41,14 @@
 // ~2300 (each tap waits for its products before the next tap's fragments
 // may load), and the epilogue's SiLU (two MUFU operations an output) runs
 // while the tensor cores wait.
+// Internal linkage (an anonymous namespace), as attention_fwd.cuh's, whose
+// note says why.
 #pragma once
 
 #include "gemm.cuh"
 
 namespace kuzu {
+namespace {
 namespace conv {
 
 using fwd::fence_regs;
@@ -411,4 +414,5 @@ inline int run3x3(const void* in, int in_cs, const void* wt, Conv a, cudaStream_
 }
 
 }  // namespace conv
+}  // namespace
 }  // namespace kuzu

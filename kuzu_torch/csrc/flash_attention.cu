@@ -46,5 +46,5 @@ extern "C" int kuzu_flash_attention(const void* q, const void* k, const void* v,
   if (f32 == 0)
     return kuzu::attention_fwd<kuzu::fwd::kPlain>(q, d, k, d, v, d, o, nullptr, nullptr, d,
                                                   nullptr, bh, n, 1, d, scale, s);
-  return kuzu::attention_f32(q, d, k, d, v, d, o, d, bh, n, 1, d, scale, s);
+  return kuzu::attention_f32(q, d, k, d, v, d, o, d, nullptr, bh, n, 1, d, scale, s);
 }

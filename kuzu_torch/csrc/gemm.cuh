@@ -49,11 +49,14 @@
 // batch 8 (m = 12,800) at the bf16 peak, and next to them the slabs'
 // traffic from L2 (A once per column tile); K6's 1x1 convs, at k and n of
 // 96-1536, the bytes of their input and output.
+// Internal linkage (an anonymous namespace), as attention_fwd.cuh's, whose
+// note says why.
 #pragma once
 
 #include "attention_fwd.cuh"
 
 namespace kuzu {
+namespace {
 namespace gemm {
 
 using fwd::fence_regs;
@@ -462,4 +465,5 @@ int run(const Gemm& g, cudaStream_t stream) {
 }
 
 }  // namespace gemm
+}  // namespace
 }  // namespace kuzu

@@ -1,13 +1,22 @@
 """Transformer building blocks of the TrOCR and char-LM families
 (counterpart of ``kuzu/models/layers.py``).
 
-f32 throughout, as the JAX predictors build them. flax's defaults where
-they differ from torch's: LayerNorm eps 1e-6, GELU the tanh approximation,
-masks as ``where(mask, s, -1e30)``. Module and parameter names follow the
-flax tree, so ``kuzu_torch.bridge`` maps them one to one. Inference only:
-dropout (0 in every configuration the predictors build) and training
-through the kernel route wait for the recognize trainer (ROADMAP section 1
-item 14). ``ConvBN`` is not copied: the YOLO modules have their own.
+flax's defaults where they differ from torch's: LayerNorm eps 1e-6, GELU
+the tanh approximation, masks as ``where(mask, s, -1e30)``. Module and
+parameter names follow the flax tree, so ``kuzu_torch.bridge`` maps them
+one to one. ``ConvBN`` is not copied: the YOLO modules have their own.
+
+``dtype`` has flax's meaning: parameters stay f32; :class:`Dense`,
+:class:`Embed` and the patch conv compute in ``dtype``; :class:`LayerNorm`
+takes its statistics in f32 and returns ``dtype``; attention scores and
+softmax are f32, P is cast to ``dtype`` before P V. The JAX predictors
+build f32, the trainers ``cfg.dtype``.
+
+``train`` has flax's meaning (``deterministic = not train``) and is passed
+down explicitly, not read from ``nn.Module.training``: it switches dropout
+(on the masks of :class:`Mlp` and of the attention probabilities) and the
+kernel route's train-mode gate. Dropout draws from the generator ``rng``
+passed down beside it, the counterpart of flax's ``rngs={"dropout": key}``.
 """
 
 from __future__ import annotations
@@ -20,10 +29,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kuzu_torch.ops.flash_attention import JAX_SCORES_BYTES, area_attention
+from kuzu_torch.ops.flash_attention import (
+    JAX_SCORES_BYTES,
+    area_attention,
+    area_attention_trainable,
+)
 
 NEG = -1e30  # masked scores and dead beams, as the reference's where(mask, s, -1e30)
 KERNEL_IMPLS = ("flash", "flash_train", "flash_interpret")
+TRAIN_KERNEL_IMPLS = ("flash_train", "flash_interpret")  # the kernel route in train mode too
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            rng: torch.Generator | None) -> torch.Tensor:
+    """flax's ``nn.Dropout``: with ``train`` and ``rate > 0``, each entry
+    kept with probability ``1 - rate`` (a uniform draw from ``rng`` below
+    it) and scaled by ``1 / (1 - rate)``, the rest 0; else ``x``."""
+    if not train or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout in train mode draws from a generator: pass rng")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @contextlib.contextmanager
@@ -93,31 +120,78 @@ def flax_init_(root: nn.Module, generator: torch.Generator) -> nn.Module:
     return root
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
+class Dense(nn.Linear):
+    """flax's ``nn.Dense(dtype=...)``: f32 parameters, input, kernel and
+    bias cast to ``dtype`` and the product in ``dtype``."""
+
+    def __init__(self, din: int, dout: int, dtype: torch.dtype = torch.float32):
+        super().__init__(din, dout)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embed(nn.Embedding):
+    """flax's ``nn.Embed(dtype=...)``: the f32 table's rows in ``dtype``."""
+
+    def __init__(self, num: int, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(num, dim)
+        self.dtype = dtype
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return super().forward(tokens).to(self.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm(dtype=...)``: eps 1e-6, scale and bias; the
+    statistics and the normalisation in f32, the output in ``dtype``."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=1e-6)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(self.dtype)
+
+
+def layer_norm(dim: int, dtype: torch.dtype = torch.float32) -> LayerNorm:
     """flax's ``nn.LayerNorm``: eps 1e-6, scale and bias."""
-    return nn.LayerNorm(dim, eps=1e-6)
+    return LayerNorm(dim, dtype)
 
 
 class PatchEmbed(nn.Module):
     """Conv patchifier: (B, H, W, C) NHWC -> (B, H/p * W/p, dim), tokens in
-    h-major order as flax's reshape of its NHWC output."""
+    h-major order as flax's reshape of its NHWC output; the conv in
+    ``dtype``."""
 
-    def __init__(self, dim: int, patch_size=(16, 16), cin: int = 3):
+    def __init__(self, dim: int, patch_size=(16, 16), cin: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.proj = nn.Conv2d(cin, dim, tuple(patch_size), stride=tuple(patch_size))
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+        dt, p = self.dtype, self.proj
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), p.weight.to(dt), p.bias.to(dt),
+                     stride=p.stride)
+        return y.flatten(2).transpose(1, 2)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int, out_dim: int | None = None):
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int | None = None,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, out_dim or dim)
+        self.fc1 = Dense(dim, hidden_dim, dtype)
+        self.fc2 = Dense(hidden_dim, out_dim or dim, dtype)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: torch.Generator | None = None) -> torch.Tensor:
+        x = dropout(F.gelu(self.fc1(x), approximate="tanh"), self.dropout, train, rng)
+        return dropout(self.fc2(x), self.dropout, train, rng)
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:
@@ -132,15 +206,20 @@ class MultiHeadAttention(nn.Module):
 
     - the kernel route, for unmasked, uncached self-attention with
       ``attn_impl`` one of ``KERNEL_IMPLS`` where the reference's gate holds
-      (N % 16 == 0, N^2 * 4 <= 8 MiB): q, k, v head-packed (B, N, C) into
-      :func:`area_attention` (K3), which runs its plain version for a CPU
-      tensor (the counterpart of ``flash_interpret``) and the kernel for a
-      CUDA tensor, raising for a shape the kernel cannot take (a head width
-      outside 16-128 in steps of 16) rather than leaving the card's kernel
-      for the plain version. ``"auto"`` takes it on the card and the einsum
+      (N % 16 == 0, N^2 * 4 <= 8 MiB; in train mode only for
+      ``TRAIN_KERNEL_IMPLS``, and only where dropout is 0): q, k, v
+      head-packed (B, N, C) into :func:`area_attention` (K3), or, where a
+      gradient is wanted, :func:`area_attention_trainable` (K3 with its row
+      statistics forward, K4 backward), in the compute dtype (bf16 or f32).
+      Each runs its plain version for a CPU tensor (the counterpart of
+      ``flash_interpret``) and its kernel for a CUDA tensor, raising for a
+      shape the kernel cannot take (a head width outside 16-128 in steps of
+      16) rather than leaving the card's kernel for the plain version.
+      ``"auto"`` takes it on the card (as ``flash_train``) and the einsum
       path on the CPU (``kuzu/models/trocr.py:146-153``);
     - the einsum path for everything else: f32 scores divided by sqrt(hd)
-      after the product, masked scores -1e30, softmax, P V.
+      after the product, masked scores -1e30, f32 softmax cast to the
+      compute dtype, dropout, P V accumulated in f32 and cast back.
 
     With ``cache`` (a dict with ``"k"`` of shape (B, h, hd, max_len) and
     ``"v"`` of shape (B, h, max_len, hd), the layouts the products take, so
@@ -152,31 +231,26 @@ class MultiHeadAttention(nn.Module):
     not recomputed; each group of B / B' consecutive queries shares one
     memory (a beam's hypotheses)."""
 
-    def __init__(self, dim: int, num_heads: int, attn_impl: str = "einsum"):
+    def __init__(self, dim: int, num_heads: int, attn_impl: str = "einsum",
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.num_heads, self.attn_impl = num_heads, attn_impl
-        self.q = nn.Linear(dim, dim)
-        self.k = nn.Linear(dim, dim)
-        self.v = nn.Linear(dim, dim)
-        self.out = nn.Linear(dim, dim)
+        self.num_heads, self.attn_impl, self.dropout = num_heads, attn_impl, dropout
+        self.q = Dense(dim, dim, dtype)
+        self.k = Dense(dim, dim, dtype)
+        self.v = Dense(dim, dim, dtype)
+        self.out = Dense(dim, dim, dtype)
 
-    def _kernel_route(self, x: torch.Tensor) -> bool:
+    def _kernel_route(self, x: torch.Tensor, train: bool) -> bool:
+        """The reference's ``flash_ok`` (``kuzu/models/layers.py:129-141``)
+        for unmasked, uncached self-attention."""
         impl = self.attn_impl
         if impl == "auto":
             impl = "flash_train" if x.is_cuda else "einsum"
-        if impl not in KERNEL_IMPLS:
-            return False
         n = x.shape[1]
-        if self.training and impl == "flash":  # the reference's train mode: einsum
-            return False
-        if not (n % 16 == 0 and n * n * 4 <= JAX_SCORES_BYTES):
-            return False
-        if x.is_cuda and torch.is_grad_enabled() and (
-                x.requires_grad or self.q.weight.requires_grad):
-            raise NotImplementedError(
-                "training through K3's f32 route needs K4's f32 route, the recognize "
-                "trainer's slice (ROADMAP section 1 item 14)")
-        return True
+        return (impl in KERNEL_IMPLS
+                and (not train or impl in TRAIN_KERNEL_IMPLS)
+                and (self.dropout == 0.0 or not train)
+                and n % 16 == 0 and n * n * 4 <= JAX_SCORES_BYTES)
 
     def kv_heads(self, memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """This layer's keys and values of ``memory`` in the layouts the
@@ -194,12 +268,18 @@ class MultiHeadAttention(nn.Module):
         cache: dict | None = None,
         step: int | None = None,
         kv_heads: tuple[torch.Tensor, torch.Tensor] | None = None,
+        train: bool = False,
+        rng: torch.Generator | None = None,
     ) -> torch.Tensor:
         b, t, d = x.shape
         h = self.num_heads
         if (kv is None and kv_heads is None and mask is None and cache is None
-                and self._kernel_route(x)):
-            out = area_attention(self.q(x), self.k(x), self.v(x), h)
+                and self._kernel_route(x, train)):
+            q, k, v = self.q(x), self.k(x), self.v(x)
+            if torch.is_grad_enabled() and any(u.requires_grad for u in (q, k, v)):
+                out = area_attention_trainable(q, k, v, h)
+            else:
+                out = area_attention(q, k, v, h)
             return self.out(out)
         k, v = kv_heads if kv_heads is not None else self.kv_heads(x if kv is None else kv)
         if cache is not None:  # k, v of this step into the cache, kept in the products' layouts
@@ -210,12 +290,13 @@ class MultiHeadAttention(nn.Module):
             mask = (pos <= step)[None, None, None, :]
         r = b // k.shape[0]  # queries sharing one memory
         q = self.q(x).reshape(k.shape[0], r * t, h, -1).transpose(1, 2)  # (B', h, r*Tq, hd)
-        s = q @ k  # (B', h, r*Tq, Tk)
+        dt = q.dtype
+        s = q.float() @ k.float()  # (B', h, r*Tq, Tk), f32 as preferred_element_type
         s = s / torch.full((), math.sqrt(d // h), dtype=s.dtype, device=s.device)
         if mask is not None:
             s = torch.where(mask, s, NEG)
-        p = torch.softmax(s, dim=-1)
-        out = (p @ v).transpose(1, 2).reshape(b, t, d)
+        p = dropout(torch.softmax(s, dim=-1).to(dt), self.dropout, train, rng)
+        out = (p.float() @ v.float()).to(dt).transpose(1, 2).reshape(b, t, d)
         return self.out(out)
 
 
@@ -223,30 +304,33 @@ class EncoderBlock(nn.Module):
     """Pre-norm transformer encoder block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 attn_impl: str = "einsum"):
+                 attn_impl: str = "einsum", dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm1 = layer_norm(dim)
-        self.attn = MultiHeadAttention(dim, num_heads, attn_impl)
-        self.norm2 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.norm1 = layer_norm(dim, dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, attn_impl, dropout, dtype)
+        self.norm2 = layer_norm(dim, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout=dropout, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), mask=mask)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, train: bool = False,
+                rng: torch.Generator | None = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), mask=mask, train=train, rng=rng)
+        return x + self.mlp(self.norm2(x), train, rng)
 
 
 class DecoderBlock(nn.Module):
     """Pre-norm transformer decoder block: causal self-attention,
     cross-attention over the memory, MLP."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm1 = layer_norm(dim)
-        self.self_attn = MultiHeadAttention(dim, num_heads)
-        self.norm2 = layer_norm(dim)
-        self.cross_attn = MultiHeadAttention(dim, num_heads)
-        self.norm3 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.norm1 = layer_norm(dim, dtype)
+        self.self_attn = MultiHeadAttention(dim, num_heads, dropout=dropout, dtype=dtype)
+        self.norm2 = layer_norm(dim, dtype)
+        self.cross_attn = MultiHeadAttention(dim, num_heads, dropout=dropout, dtype=dtype)
+        self.norm3 = layer_norm(dim, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout=dropout, dtype=dtype)
 
     def forward(
         self,
@@ -256,7 +340,11 @@ class DecoderBlock(nn.Module):
         cache: dict | None = None,
         step: int | None = None,
         memory_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+        train: bool = False,
+        rng: torch.Generator | None = None,
     ) -> torch.Tensor:
-        x = x + self.self_attn(self.norm1(x), mask=self_mask, cache=cache, step=step)
-        x = x + self.cross_attn(self.norm2(x), kv=memory, kv_heads=memory_kv)
-        return x + self.mlp(self.norm3(x))
+        x = x + self.self_attn(self.norm1(x), mask=self_mask, cache=cache, step=step,
+                               train=train, rng=rng)
+        x = x + self.cross_attn(self.norm2(x), kv=memory, kv_heads=memory_kv, train=train,
+                                rng=rng)
+        return x + self.mlp(self.norm3(x), train, rng)

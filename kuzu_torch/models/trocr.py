@@ -1,10 +1,14 @@
 """TrOCR-style recognizer: non-square ViT encoder + autoregressive
 transformer decoder (counterpart of ``kuzu/models/trocr.py``).
 
-f32, as ``RecognizePredictor`` builds it; every product with TF32 off
+f32 as ``RecognizePredictor`` builds it, or ``dtype`` (bf16) as the
+recognize trainer builds it from ``cfg.dtype``, with flax's meaning
+(``models/layers.py``); every f32 product with TF32 off
 (``layers.f32_products``). The encoder's self-attention takes K3
-(:func:`kuzu_torch.ops.flash_attention.area_attention`) on the card, f32
-route, where the reference's gate holds (``attn_impl="auto"``).
+(:func:`kuzu_torch.ops.flash_attention.area_attention`) on the card, in the
+compute dtype, where the reference's gate holds (``attn_impl="auto"``); in
+training K3 with its row statistics and K4 as one autograd pair
+(``area_attention_trainable``).
 
 Generation is a Python loop over steps with a KV cache, and stops when
 every row is done: the reference's ``lax.while_loop`` exit, the same
@@ -18,8 +22,7 @@ input. A beam's hypotheses share their row's memory keys and values
 instead of K copies of them. Nothing else of the loop's arithmetic
 changes.
 
-Not ported: the ``unet`` and ``csa`` encoders (ROADMAP section 1 item 15),
-``graft_lm_decoder`` and ``encode_train`` (the recognize trainer's).
+Not ported: the ``unet`` and ``csa`` encoders (ROADMAP section 1 item 15).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from torch.profiler import record_function
 from kuzu_torch.models.layers import (
     NEG,
     DecoderBlock,
+    Dense,
+    Embed,
     EncoderBlock,
     PatchEmbed,
     causal_mask,
@@ -48,21 +53,25 @@ class ViTEncoder(nn.Module):
 
     def __init__(self, image_size=(1024, 64), patch_size=(16, 16), dim: int = 384,
                  depth: int = 6, num_heads: int = 6, mlp_ratio: float = 4.0,
-                 attn_impl: str = "einsum"):
+                 attn_impl: str = "einsum", dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.PatchEmbed_0 = PatchEmbed(dim, patch_size)
+        self.PatchEmbed_0 = PatchEmbed(dim, patch_size, dtype=dtype)
         gh, gw = image_size[0] // patch_size[0], image_size[1] // patch_size[1]
         self.register_buffer("pos", torch.from_numpy(sincos_2d_pos_embed(dim, gh, gw)),
                              persistent=False)
         self.depth = depth
         for i in range(depth):
-            self.add_module(f"block{i}", EncoderBlock(dim, num_heads, mlp_ratio, attn_impl))
-        self.norm = layer_norm(dim)
+            self.add_module(f"block{i}", EncoderBlock(dim, num_heads, mlp_ratio, attn_impl,
+                                                      dropout, dtype))
+        self.norm = layer_norm(dim, dtype)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = self.PatchEmbed_0(images) + self.pos[None]
+    def forward(self, images: torch.Tensor, train: bool = False,
+                rng: torch.Generator | None = None) -> torch.Tensor:
+        x = self.PatchEmbed_0(images)
+        x = x + self.pos[None].to(x.dtype)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"block{i}")(x, train=train, rng=rng)
         return self.norm(x)
 
 
@@ -88,28 +97,31 @@ class ARDecoder(nn.Module):
     """Causal transformer decoder with cross-attention and a KV cache."""
 
     def __init__(self, vocab_size: int, max_len: int = 128, dim: int = 256, depth: int = 4,
-                 num_heads: int = 8, mlp_ratio: float = 4.0, enc_dim: int = 384):
+                 num_heads: int = 8, mlp_ratio: float = 4.0, enc_dim: int = 384,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.max_len, self.depth, self.num_heads = max_len, depth, num_heads
-        self.embed = nn.Embedding(vocab_size, dim)
+        self.embed = Embed(vocab_size, dim, dtype)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, dim))
-        self.memory_proj = nn.Linear(enc_dim, dim)
+        self.memory_proj = Dense(enc_dim, dim, dtype)
         for i in range(depth):
-            self.add_module(f"block{i}", DecoderBlock(dim, num_heads, mlp_ratio))
-        self.norm = layer_norm(dim)
-        self.lm_head = nn.Linear(dim, vocab_size)
+            self.add_module(f"block{i}", DecoderBlock(dim, num_heads, mlp_ratio, dropout, dtype))
+        self.norm = layer_norm(dim, dtype)
+        self.lm_head = Dense(dim, vocab_size)  # f32, as the reference's
 
     def _blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
 
-    def forward(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, memory: torch.Tensor, train: bool = False,
+                rng: torch.Generator | None = None) -> torch.Tensor:
         """Teacher-forced logits (B, T, V) for tokens (B, T) over the memory."""
         t = tokens.shape[1]
-        x = self.embed(tokens) + self.pos_embed[None, :t]
+        x = self.embed(tokens)
+        x = x + self.pos_embed[None, :t].to(x.dtype)
         mem = self.memory_proj(memory)
         mask = causal_mask(t, tokens.device)
         for blk in self._blocks():
-            x = blk(x, mem, self_mask=mask)
+            x = blk(x, mem, self_mask=mask, train=train, rng=rng)
         return self.lm_head(self.norm(x))
 
     def start(self, memory: torch.Tensor, batch: int) -> DecodeState:
@@ -125,7 +137,8 @@ class ARDecoder(nn.Module):
     def step(self, tokens: torch.Tensor, step: int, state: DecodeState) -> torch.Tensor:
         """One cached decode step: tokens (B, 1) at position ``step`` ->
         logits (B, 1, V); the cache gains this step's keys and values."""
-        x = self.embed(tokens) + self.pos_embed[step][None, None]
+        x = self.embed(tokens)
+        x = x + self.pos_embed[step][None, None].to(x.dtype)
         for blk, cache, mkv in zip(self._blocks(), state.cache, state.memory_kv):
             x = blk(x, cache=cache, step=step, memory_kv=mkv)
         return self.lm_head(self.norm(x))
@@ -134,25 +147,26 @@ class ARDecoder(nn.Module):
 class TrOCR(nn.Module):
     """Encoder + decoder; with ``ctc_head`` the auxiliary CTC projection
     over the encoder memory that checkpoints trained with ``ctc_weight > 0``
-    carry."""
+    carry (f32, as the reference's)."""
 
     def __init__(self, vocab_size: int, image_size=(1024, 64), patch_size=(16, 16),
                  enc_dim: int = 384, enc_depth: int = 6, enc_heads: int = 6,
                  dec_dim: int = 256, dec_depth: int = 4, dec_heads: int = 8,
                  max_len: int = 128, encoder_type: str = "vit", ctc_head: bool = False,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if encoder_type != "vit":
             raise NotImplementedError(
                 f"encoder_type={encoder_type!r}: the unet and csa encoders are not ported "
                 "(ROADMAP section 1 item 15)")
         self.image_size, self.patch_size = tuple(image_size), tuple(patch_size)
-        self.max_len = max_len
+        self.max_len, self.dec_dim = max_len, dec_dim
         self.encoder = ViTEncoder(image_size, patch_size, enc_dim, enc_depth, enc_heads,
-                                  attn_impl=attn_impl)
+                                  attn_impl=attn_impl, dropout=dropout, dtype=dtype)
         self.decoder = ARDecoder(vocab_size, max_len, dec_dim, dec_depth, dec_heads,
-                                 enc_dim=enc_dim)
-        self.ctc_proj = nn.Linear(enc_dim, vocab_size) if ctc_head else None
+                                 enc_dim=enc_dim, dropout=dropout, dtype=dtype)
+        self.ctc_proj = Dense(enc_dim, vocab_size) if ctc_head else None
 
     @staticmethod
     def _norm(images: torch.Tensor) -> torch.Tensor:
@@ -160,19 +174,30 @@ class TrOCR(nn.Module):
         float input passes through."""
         return from_uint8(images, mean=0.5, std=0.5)
 
-    def forward(self, images: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, tokens: torch.Tensor, train: bool = False,
+                rng: torch.Generator | None = None) -> torch.Tensor:
         """Teacher-forced logits (B, T, V) for input tokens."""
-        return self.decode_tokens(tokens, self.encode(images))
+        return self.decode_tokens(tokens, self.encode_train(images, train, rng), train, rng)
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) images -> memory (B, gh * gw, enc_dim)."""
-        with f32_products():
-            return self.encoder(self._norm(images))
+        """(B, H, W, 3) images -> memory (B, gh * gw, enc_dim), deterministic."""
+        return self.encode_train(images, train=False)
 
-    def decode_tokens(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced decoder logits over a precomputed memory."""
+    def encode_train(self, images: torch.Tensor, train: bool = True,
+                     rng: torch.Generator | None = None) -> torch.Tensor:
+        """The encoder with dropout active (``train``, drawing from
+        ``rng``): the trainer encodes once and runs the decoder twice
+        (scheduled sampling)."""
         with f32_products():
-            return self.decoder(tokens, memory)
+            return self.encoder(self._norm(images), train, rng)
+
+    def decode_tokens(self, tokens: torch.Tensor, memory: torch.Tensor, train: bool = True,
+                      rng: torch.Generator | None = None) -> torch.Tensor:
+        """Teacher-forced decoder logits over a precomputed memory; dropout
+        active with ``train`` (the reference's default), drawing from
+        ``rng``."""
+        with f32_products():
+            return self.decoder(tokens, memory, train, rng)
 
     def ctc_logits(self, memory: torch.Tensor) -> torch.Tensor:
         """Auxiliary CTC logits (B, gh, V): the patch-grid memory averaged
@@ -191,6 +216,40 @@ class TrOCR(nn.Module):
         """One cached decode step: tokens (B, 1) -> logits (B, 1, V)."""
         with f32_products():
             return self.decoder.step(tokens, step, state)
+
+
+def graft_lm_decoder(decoder_sd: dict[str, torch.Tensor],
+                     lm_sd: dict[str, torch.Tensor]) -> tuple[dict, int, int]:
+    """The AR decoder initialised from a pretrained ``CharMLM``'s state
+    dict, as ``kuzu/models/trocr.py::graft_lm_decoder``: the LM's
+    transferable submodules renamed into the decoder's namespace and
+    grafted by name and shape (:func:`kuzu_torch.core.checkpoint.
+    partial_load`)::
+
+        CharMLM           ARDecoder
+        embed             embed
+        block{i}.norm1    block{i}.norm1
+        block{i}.attn     block{i}.self_attn
+        block{i}.norm2    block{i}.norm3  (the pre-MLP norm)
+        block{i}.mlp      block{i}.mlp
+        norm, lm_head     norm, lm_head
+
+    pos_embed, memory_proj, the cross-attention and its norm2 keep their
+    fresh values. Returns ``(state dict, n_loaded, n_decoder_total)``."""
+    from kuzu_torch.core.checkpoint import partial_load
+
+    renamed = {}
+    for key, value in lm_sd.items():
+        top, _, rest = key.partition(".")
+        if top.startswith("block"):
+            sub, _, leaf = rest.partition(".")
+            sub = {"norm1": "norm1", "attn": "self_attn", "norm2": "norm3",
+                   "mlp": "mlp"}.get(sub)
+            if sub is not None:
+                renamed[f"{top}.{sub}.{leaf}"] = value
+        elif top in ("embed", "norm", "lm_head"):
+            renamed[key] = value
+    return partial_load(decoder_sd, renamed)
 
 
 # ------------------------------------------------------------- generation

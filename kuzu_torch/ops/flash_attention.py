@@ -5,8 +5,12 @@ attention (``csrc/flash_attention.cu``), each with its plain version
 
 Replaces ``kuzu/ops/flash_attention.py::area_attention`` (forward),
 ``::area_attention_bwd`` (backward) and ``::flash_attention``;
-:class:`AreaAttention` pairs the first two as ``area_attention_trainable``
-does. For area attention q, k, v are head-packed ``(G, N, C)``: head h owns
+:func:`area_attention_trainable` pairs the first two over separate q, k, v
+as ``area_attention_trainable`` does (the TrOCR encoder's self-attention),
+:class:`AreaAttention` over YOLO's packed qk. Both the forward and the
+backward have a bf16 route (wgmma kernels) and an f32 route (CUDA-core
+kernels, f32 FMAs, no TF32), as the TPU kernels take any dtype and compute
+in f32. For area attention q, k, v are head-packed ``(G, N, C)``: head h owns
 channels ``[h*hd, (h+1)*hd)``; flash attention takes ``(BH, N, D)`` with the
 heads folded into the batch. Each wrapper runs its plain version for a CPU
 tensor and launches its kernel for a CUDA tensor. :func:`xla_attention` is
@@ -64,6 +68,17 @@ def f32_attn_smem_bytes(hd: int) -> int:
     return (5 * FLASH_ROWS * (hd + 4) + FLASH_ROWS * (FWD_KEYS + 4)) * 4
 
 
+def f32_attn_bwd_smem_bytes(hd: int) -> int:
+    """Shared memory of the larger block of the f32 backward's two kernels
+    (``f32bwd::dq_smem_bytes`` / ``dkdv_smem_bytes`` in
+    ``csrc/attention_f32_bwd.cuh``): six 64-row tiles padded to hd + 4
+    (dQ: scaled Q, dO, two stages of K and V; dK/dV: K, V, two stages of Q
+    and dO), one 64 x 64 tile padded to 68, and for dK/dV two stages of 64
+    lse and 64 D values. It does not depend on N (221,184 bytes at
+    hd=128)."""
+    return (6 * FLASH_ROWS * (hd + 4) + FLASH_ROWS * (FWD_KEYS + 4) + 4 * FLASH_ROWS) * 4
+
+
 def area_attention_fwd_fits(n: int, c: int, num_heads: int,
                             dtype: torch.dtype = torch.bfloat16) -> bool:
     """The inference route's gate (``infer.aattn``, and the ViT encoder's
@@ -84,11 +99,12 @@ def area_attention_fwd_fits(n: int, c: int, num_heads: int,
     )
 
 
-# The training route's gate (``AAttn.forward``, the forward and backward
-# kernels as a pair) is the forward's: the backward kernels stream their
-# tiles and take every shape the forward takes (attn_bwd_smem_bytes), as
-# ``area_attention_trainable`` does wherever the JAX executor takes its
-# kernel.
+# The training route's gate (``AAttn.forward``, the TrOCR encoder's
+# self-attention; the forward and backward kernels as a pair) is the
+# forward's: the backward kernels of both dtypes stream their tiles and take
+# every shape the forward takes (attn_bwd_smem_bytes, f32_attn_bwd_smem_bytes
+# fit at every head width), as ``area_attention_trainable`` does wherever
+# the JAX executor takes its kernel.
 area_attention_train_fits = area_attention_fwd_fits
 
 
@@ -102,7 +118,8 @@ def area_attention_plain(
     ``(out, lse, out_lo)`` as the kernel's training route writes them: each
     row's log-sum-exp in base 2, (G, heads, N) f32, and the output's
     remainder rounded to its dtype (out + out_lo is the f32 output to about
-    16 significant bits)."""
+    16 significant bits); for f32 inputs ``out_lo`` is None (the output is
+    f32 already)."""
     g, n, c = q.shape
     hd = c // num_heads
 
@@ -116,7 +133,8 @@ def area_attention_plain(
     o32 = (p @ heads(v)).transpose(1, 2).reshape(g, n, c)
     o = o32.to(q.dtype)
     if return_lse:
-        return o, torch.logsumexp(s, dim=-1) * LOG2E, (o32 - o.float()).to(q.dtype)
+        lo = None if q.dtype == torch.float32 else (o32 - o.float()).to(q.dtype)
+        return o, torch.logsumexp(s, dim=-1) * LOG2E, lo
     return o
 
 
@@ -128,8 +146,8 @@ def _kernel_fn():
 
 def _f32_kernel_fn():
     return _build.function("area_attention", "kuzu_area_attention_f32", [
-        ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                                    ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_int] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p])
 
 
 def _row_stride(t: torch.Tensor, n: int) -> int:
@@ -158,12 +176,13 @@ def area_attention(
     return_lse: bool = False,
 ):
     """softmax(q_h k_h^T / sqrt(hd)) v_h per head, (G, N, C) out in q's
-    dtype; with ``return_lse`` (the training route, bf16), ``(out, lse,
-    out_lo)``: each row's base-2 log-sum-exp of the scaled scores,
-    (G, heads, N) f32, and the output's bf16 remainder (P enters P V in two
-    bf16 parts then), which :func:`area_attention_bwd` takes. On the card
-    bf16 runs the wgmma kernel, f32 the CUDA-core kernel (f32 FMAs, no
-    TF32), as the TPU kernel takes any dtype and computes in f32."""
+    dtype; with ``return_lse`` (the training route), ``(out, lse, out_lo)``:
+    each row's base-2 log-sum-exp of the scaled scores, (G, heads, N) f32,
+    and in bf16 the output's bf16 remainder (P enters P V in two bf16 parts
+    then), in f32 None in its place (the output is f32 already), which
+    :func:`area_attention_bwd` takes. On the card bf16 runs the wgmma
+    kernel, f32 the CUDA-core kernel (f32 FMAs, no TF32), as the TPU kernel
+    takes any dtype and computes in f32."""
     g, n, c = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -180,21 +199,20 @@ def area_attention(
     if not area_attention_fwd_fits(n, c, num_heads, q.dtype):
         raise ValueError(f"area_attention kernel cannot take N={n}, C={c}, "
                          f"heads={num_heads}")
-    if return_lse and q.dtype == torch.float32:
-        raise ValueError("area_attention's training route (return_lse) takes bf16; the f32 "
-                         "route is the forward alone")
     out = torch.empty((g, n, c), dtype=q.dtype, device=q.device)
-    if q.dtype == torch.float32:
-        err = _f32_kernel_fn()(
-            _build.ptr(q), _tma_stride(q, n), _build.ptr(k), _tma_stride(k, n),
-            _build.ptr(v), _tma_stride(v, n), _build.ptr(out), c, g, n, c, num_heads,
-            float(scale), _build.stream_ptr(q))
-        _build.check(err, "kuzu_area_attention_f32")
-        area_attention.f32_launches += 1
-        return out
     lse = out_lo = None
     if return_lse:
         lse = torch.empty((g, num_heads, n), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        err = _f32_kernel_fn()(
+            _build.ptr(q), _tma_stride(q, n), _build.ptr(k), _tma_stride(k, n),
+            _build.ptr(v), _tma_stride(v, n), _build.ptr(out), c,
+            None if lse is None else _build.ptr(lse), g, n, c, num_heads, float(scale),
+            _build.stream_ptr(q))
+        _build.check(err, "kuzu_area_attention_f32")
+        area_attention.f32_launches += 1
+        return (out, lse, None) if return_lse else out
+    if return_lse:
         out_lo = torch.empty_like(out)
     err = _kernel_fn()(
         _build.ptr(q), _tma_stride(q, n), _build.ptr(k), _tma_stride(k, n),
@@ -224,8 +242,9 @@ def area_attention_bwd_plain(
     D = rowsum(dP o P), dQ = scale dS K, dK = dS^T (scale Q); outputs rounded
     once to q's dtype. Given the forward's ``out``, ``lse`` and ``out_lo``
     (``area_attention(..., return_lse=True)``), as the kernels take them: P
-    is exp2(log2(e) S - lse) and D = rowsum(dO o (out + out_lo)); without
-    them, P is the softmax of S."""
+    is exp2(log2(e) S - lse) and D = rowsum(dO o (out + out_lo)), or
+    rowsum(dO o out) where ``out_lo`` is None (f32); without them, P is the
+    softmax of S."""
     g, n, c = q.shape
     hd = c // num_heads
 
@@ -245,7 +264,8 @@ def area_attention_bwd_plain(
     if out is None:
         d = (dp * p).sum(dim=-1, keepdim=True)
     else:
-        d = (doh * (heads(out) + heads(out_lo))).sum(dim=-1, keepdim=True)
+        o = heads(out) if out_lo is None else heads(out) + heads(out_lo)
+        d = (doh * o).sum(dim=-1, keepdim=True)
     ds = p * (dp - d)
     dq = (ds @ kh) * scale
     dk = ds.transpose(-1, -2) @ qh
@@ -263,13 +283,22 @@ def _bwd_kernel_fn():
         ctypes.c_float, ctypes.c_void_p])
 
 
+def _bwd_f32_kernel_fn():
+    return _build.function("area_attention_bwd", "kuzu_area_attention_bwd_f32", [
+        ctypes.c_void_p, ctypes.c_int] * 5 + [ctypes.c_void_p] * 2 + [
+        ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                                    ctypes.c_void_p])
+
+
 def _bwd(q, k, v, do, num_heads: int, stats: tuple | None, want_qk: bool):
-    """Shared body of :func:`area_attention_bwd` and ``AreaAttention``;
-    ``stats`` is the forward's ``(out, lse, out_lo)`` or None. For a CPU
-    tensor the plain version (``(dq, dk, dv)``, or ``(cat([dq, dk]), dv)``
-    with ``want_qk``); for a CUDA tensor the kernels, which write dq and dk
-    into the two column halves of one (G, N, 2C) tensor ``dqk``:
-    ``(dqk[..., :C], dqk[..., C:], dv)``, or ``(dqk, dv)`` with ``want_qk``."""
+    """Shared body of :func:`area_attention_bwd`, :class:`AreaAttention` and
+    :func:`area_attention_trainable`; ``stats`` is the forward's ``(out,
+    lse, out_lo)`` (``out_lo`` None in f32) or None. For a CPU tensor the
+    plain version (``(dq, dk, dv)``, or ``(cat([dq, dk]), dv)`` with
+    ``want_qk``); for a CUDA tensor the kernels (bf16: the wgmma kernels,
+    f32: the CUDA-core kernels), which write dq and dk into the two column
+    halves of one (G, N, 2C) tensor ``dqk``: ``(dqk[..., :C], dqk[..., C:],
+    dv)``, or ``(dqk, dv)`` with ``want_qk``."""
     g, n, c = q.shape
     if any(t.shape != q.shape for t in (k, v, do)):
         raise ValueError(f"q/k/v/do shapes differ: {q.shape} {k.shape} {v.shape} {do.shape}")
@@ -280,9 +309,12 @@ def _bwd(q, k, v, do, num_heads: int, stats: tuple | None, want_qk: bool):
         return (torch.cat([dq, dk], dim=-1), dv) if want_qk else (dq, dk, dv)
     if q.device.type != "cuda":
         raise ValueError(f"area_attention_bwd takes CPU or CUDA tensors, got {q.device}")
-    if not all(t.dtype == torch.bfloat16 and t.device == q.device for t in (q, k, v, do)):
-        raise ValueError("area_attention_bwd kernel takes bf16 q/k/v/do on one device")
-    if not area_attention_train_fits(n, c, num_heads):
+    f32 = q.dtype == torch.float32
+    if q.dtype not in (torch.bfloat16, torch.float32) or not all(
+            t.dtype == q.dtype and t.device == q.device for t in (k, v, do)):
+        raise ValueError("area_attention_bwd kernel takes bf16 or f32 q/k/v/do of one dtype "
+                         "on one device")
+    if not area_attention_train_fits(n, c, num_heads, q.dtype):
         raise ValueError(f"area_attention_bwd kernel cannot take N={n}, C={c}, "
                          f"heads={num_heads}")
     if stats is None:  # the forward's output and row statistics, from K3
@@ -292,24 +324,31 @@ def _bwd(q, k, v, do, num_heads: int, stats: tuple | None, want_qk: bool):
             or not lse.is_contiguous() or lse.data_ptr() % 16):
         raise ValueError(f"lse must be contiguous (G, heads, N) f32 on {q.device}, 16-byte "
                          f"aligned; got {tuple(lse.shape)} {lse.dtype}")
-    if any(t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
-           or not t.is_contiguous() for t in (out, out_lo)):
-        raise ValueError("out and out_lo must be contiguous (G, N, C) like q, from "
-                         "area_attention(..., return_lse=True)")
+    parts = (out,) if f32 else (out, out_lo)
+    if (f32 and out_lo is not None) or any(
+            t is None or t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+            or not t.is_contiguous() or t.data_ptr() % 16 for t in parts):
+        raise ValueError("out (and in bf16 out_lo; None in f32) must be contiguous (G, N, C) "
+                         "like q, from area_attention(..., return_lse=True)")
     do = _build.aligned(do)
     dqk = torch.empty((g, n, 2 * c), dtype=q.dtype, device=q.device)
     dv = torch.empty((g, n, c), dtype=q.dtype, device=q.device)
     dvec = torch.empty((g, num_heads, n), dtype=torch.float32, device=q.device)  # D
-    err = _bwd_kernel_fn()(
-        _build.ptr(q), _tma_stride(q, n), _build.ptr(k), _tma_stride(k, n),
-        _build.ptr(v), _tma_stride(v, n), _build.ptr(do), _tma_stride(do, n),
-        _build.ptr(out), _build.ptr(out_lo), c, _build.ptr(lse), _build.ptr(dvec),
-        _build.ptr(dqk), 2 * c,
-        ctypes.c_void_p(dqk.data_ptr() + c * dqk.element_size()), 2 * c, _build.ptr(dv), c,
-        g, n, num_heads, c // num_heads, float(scale), _build.stream_ptr(q),
-    )
-    _build.check(err, "kuzu_area_attention_bwd")
-    area_attention_bwd.launches += 1
+    dk_ptr = ctypes.c_void_p(dqk.data_ptr() + c * dqk.element_size())
+    head = (_build.ptr(q), _tma_stride(q, n), _build.ptr(k), _tma_stride(k, n),
+            _build.ptr(v), _tma_stride(v, n), _build.ptr(do), _tma_stride(do, n))
+    tail = (_build.ptr(dqk), 2 * c, dk_ptr, 2 * c, _build.ptr(dv), c, g, n, num_heads,
+            c // num_heads, float(scale), _build.stream_ptr(q))
+    if f32:
+        err = _bwd_f32_kernel_fn()(*head, _build.ptr(out), c, _build.ptr(lse),
+                                   _build.ptr(dvec), *tail)
+        _build.check(err, "kuzu_area_attention_bwd_f32")
+        area_attention_bwd.f32_launches += 1
+    else:
+        err = _bwd_kernel_fn()(*head, _build.ptr(out), _build.ptr(out_lo), c,
+                               _build.ptr(lse), _build.ptr(dvec), *tail)
+        _build.check(err, "kuzu_area_attention_bwd")
+        area_attention_bwd.launches += 1
     return (dqk, dv) if want_qk else (dqk[..., :c], dqk[..., c:], dv)
 
 
@@ -323,19 +362,23 @@ def area_attention_bwd(
     lse: torch.Tensor | None = None,
     out_lo: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of :func:`area_attention`, each (G, N, C). ``out``,
-    ``lse`` and ``out_lo`` are the forward's, all three or none
-    (``area_attention(..., return_lse=True)``); without them the kernel
-    route runs the forward kernel first to get them. On the card dq and dk
-    are the column halves of one (G, N, 2C) tensor."""
-    given = [t is not None for t in (out, lse, out_lo)]
+    """(dq, dk, dv) of :func:`area_attention`, each (G, N, C), in q's dtype
+    (bf16 or f32). ``out``, ``lse`` and ``out_lo`` are the forward's
+    (``area_attention(..., return_lse=True)``): all three in bf16, ``out``
+    and ``lse`` in f32 (its ``out_lo`` is None), or none; without them the
+    kernel route runs the forward kernel first to get them. On the card dq
+    and dk are the column halves of one (G, N, 2C) tensor."""
+    need = (out, lse) if q.dtype == torch.float32 else (out, lse, out_lo)
+    given = [t is not None for t in need]
     if any(given) and not all(given):
-        raise ValueError("area_attention_bwd takes out, lse and out_lo together, or none")
+        raise ValueError("area_attention_bwd takes the forward's out, lse and (bf16) out_lo "
+                         "together, or none")
     return _bwd(q, k, v, do, num_heads, (out, lse, out_lo) if all(given) else None,
                 want_qk=False)
 
 
-area_attention_bwd.launches = 0
+area_attention_bwd.launches = 0  # the bf16 kernels'
+area_attention_bwd.f32_launches = 0  # the f32 kernels'
 area_attention_bwd.plain_calls = 0
 
 
@@ -368,6 +411,42 @@ class AreaAttention(torch.autograd.Function):
         dqk, dv = _bwd(qk[..., :c], qk[..., c:], v, do, ctx.num_heads, (out, lse, out_lo),
                        want_qk=True)
         return dqk, dv, None
+
+
+class AreaAttentionTrainable(torch.autograd.Function):
+    """:func:`area_attention_trainable`'s autograd pair over separate q, k,
+    v (each (G, N, C), bf16 or f32, with its own row stride): forward
+    through :func:`area_attention` with ``return_lse`` (K3's training route
+    in the inputs' dtype), backward through :func:`area_attention_bwd`'s
+    kernels (K4: the bf16 kernels for bf16, the f32 kernels for f32), the
+    forward's output and row statistics saved between them (the TPU pair
+    saves q, k, v and recomputes them). On the card dq and dk come back as
+    the column halves of one (G, N, 2C) tensor (strided gradients); for a
+    CPU tensor both directions run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                num_heads: int) -> torch.Tensor:
+        ctx.num_heads = num_heads
+        out, lse, out_lo = area_attention(q, k, v, num_heads, return_lse=True)
+        ctx.has_lo = out_lo is not None
+        ctx.save_for_backward(q, k, v, out, lse, *((out_lo,) if ctx.has_lo else ()))
+        return out
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        q, k, v, out, lse, *lo = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, do, ctx.num_heads, (out, lse, lo[0] if lo else None),
+                          want_qk=False)
+        return dq, dk, dv, None
+
+
+def area_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             num_heads: int) -> torch.Tensor:
+    """:func:`area_attention` with a hand-written backward (the counterpart
+    of ``kuzu/ops/flash_attention.py::area_attention_trainable``): K3 with
+    its row statistics forward, K4 backward, in bf16 or f32."""
+    return AreaAttentionTrainable.apply(q, k, v, num_heads)
 
 
 def xla_attention(

@@ -107,9 +107,19 @@ class BaseTrainer:
         """(train_loader, val_loader-or-None)."""
         raise NotImplementedError
 
-    def loss_fn(self, model: torch.nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
-        """(loss, metrics) for one batch of device tensors."""
+    def loss_fn(self, model: torch.nn.Module, batch: dict,
+                rng: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
+        """(loss, metrics) for one batch of device tensors; ``rng`` is the
+        step's generator (:meth:`step_rng`), where the loss draws (dropout,
+        masking, augmentation), as the JAX trainer's ``rng``."""
         raise NotImplementedError
+
+    def step_rng(self, step: int) -> torch.Generator:
+        """The randomness of update ``step``: a generator on the trainer's
+        device seeded from ``cfg.seed`` and the step, so a resumed run draws
+        what an unbroken one would."""
+        seed = np.random.SeedSequence([int(self.cfg.get("seed", 0)), int(step)])
+        return torch.Generator(device=self.device).manual_seed(int(seed.generate_state(1)[0]))
 
     def validate(self, state: TrainState) -> dict[str, float]:
         """Metrics incl. ``fitness`` (higher better). Default: none."""
@@ -195,7 +205,7 @@ class BaseTrainer:
             n_steps = 0
             te = time.perf_counter()
             for batch in self._device_prefetch(train_loader):
-                metrics = self._step(self.state, batch)
+                metrics = self._step(self.state, batch, self.step_rng(self.state.step))
                 n_steps += 1
                 for k, v in metrics.items():  # summed on the device, read once
                     agg[k] = agg[k] + v if k in agg else v

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 import yaml
 
-from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params
+from kuzu_torch.core.callbacks import LOGGER
+from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params, partial_load
 from kuzu_torch.core.config import Config, load_config
 from kuzu_torch.core.metrics import DetMetrics
 from kuzu_torch.core.train import TrainState
@@ -73,19 +74,28 @@ class DetectTrainer(BaseTrainer):
         spec = parse_model_yaml(path, scale=scale, nc=self.data_spec["nc"])
         if cfg.get("reg_max"):
             spec.reg_max = int(cfg.get("reg_max"))
-        pre = cfg.get("pretrained")
-        if isinstance(pre, str) and Path(pre).exists():
-            raise NotImplementedError(
-                "pretrained grafts (partial_load, the P2-head graft) are not ported "
-                "yet: a later slice")
         graph = YoloGraph(spec, dtype=dtype, remat=bool(cfg.get("remat", False)))
         graph.reset_parameters(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
+        pre = cfg.get("pretrained")
+        if isinstance(pre, str) and Path(pre).exists():
+            # the reference's partial load (the P2-head graft): a port weights
+            # dir's live parameters (best, else last), by name and shape; the
+            # BatchNorm statistics stay fresh, as the JAX trainer grafts params
+            mgr = CheckpointManager(Path(pre))
+            src = mgr.restore("best" if mgr.exists("best") else "last")["model"]
+            own = {n: p.detach() for n, p in graph.named_parameters()}
+            grafted, n, total = partial_load(own, src)
+            graph.load_state_dict(grafted, strict=False)
+            LOGGER.info(f"pretrained graft: {n}/{total} tensors from {pre}")
         self.spec, self.nc, self.strides = spec, spec.nc, list(spec.strides)
         # the validation executor: refilled and refolded from the EMA each time
         self._val_det = YoloDetector(spec, imgsz=self.imgsz, device=self.device)
         return graph.to(self.device)
 
-    def loss_fn(self, model: YoloGraph, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss_fn(self, model: YoloGraph, batch: dict,
+                rng: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
+        """The v8 loss of the training forward; it draws nothing (``rng``
+        unused, as the JAX trainer's)."""
         feats = model(batch["image"])
         return detection_loss(
             feats, batch["gt_labels"], batch["gt_boxes"], batch["mask_gt"],

@@ -114,6 +114,44 @@ class SyntheticDetectionDataset:
 
 
 
+def synthetic_texts(n: int, chars: str, max_chars: int, seed: int = 0,
+                    min_chars: int = 1) -> list[str]:
+    """``n`` seeded texts of ``min_chars``-``max_chars`` characters drawn
+    from ``chars``: the recognize trainer's labels and the LM's corpus."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(min_chars, max_chars + 1, n)
+    return ["".join(chars[j] for j in rng.integers(0, len(chars), m)) for m in lens]
+
+
+class SyntheticLineDataset:
+    """Seeded decoded column crops with their texts, to the recognize
+    trainer's dataset protocol: ``image`` uint8 (H, W, 3), light paper with
+    one dark block per character, top to bottom (the gray level and width
+    from the character's id), and ``tokens`` (max_length,) int32, the text
+    encoded by ``tokenizer`` with BOS, EOS and padding."""
+
+    def __init__(self, texts: list[str], tokenizer, image_size=(1024, 64),
+                 max_length: int = 128, seed: int = 0):
+        self.texts, self.tokenizer = texts, tokenizer
+        self.h, self.w = int(image_size[0]), int(image_size[1])
+        self.max_length, self.seed = max_length, seed
+
+    def __len__(self) -> int:
+        return len(self.texts)
+
+    def __getitem__(self, i: int) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed, i))
+        img = rng.integers(215, 250, (self.h, self.w, 3), dtype=np.uint8)
+        tokens = self.tokenizer.encode(self.texts[i], max_length=self.max_length)
+        ids = tokens[1:][(tokens[1:] >= 5)]  # the characters that fit
+        cell = max(self.h // max(len(ids), 1), 1)
+        for j, t in enumerate(ids):
+            w = self.w // 4 + int(t) % (self.w // 2)
+            x0 = (self.w - w) // 2
+            img[j * cell + cell // 8: (j + 1) * cell - cell // 8, x0:x0 + w] = 10 + int(t) * 37 % 80
+        return {"image": img, "tokens": tokens}
+
+
 def column_pages(n: int, size: int, seed: int = 0) -> np.ndarray:
     """Seeded synthetic manuscript pages for the cascade, (n, size, size, 3)
     uint8 RGB: warm paper with grain, and right to left vertical columns of
@@ -298,6 +336,21 @@ def bwd_over(out, ref) -> tuple[float, int]:
     err = (o - r).abs()
     tol = 1e-2 * r.abs() + 1e-3 * float(r.abs().max())
     return float(err.max()), int((err > tol).sum())
+
+
+# Area-attention backward in f32 (K4's f32 route): the kernels' f32 FMAs sum
+# in another order than the plain version's products (TF32 off on both), and
+# both take P from the forward's lse (exp2 of an f32 difference), so the two
+# part by f32 rounding grown over the N- and hd-term sums of dQ, dK, dV:
+# 2e-5 of each tensor's largest entry.
+BWD_F32_TOL = "2e-5 max|ref|"
+
+
+def bwd_f32_over(out, ref) -> tuple[float, int]:
+    """(max abs error, entries over ``BWD_F32_TOL``) of ``out`` against
+    ``ref``."""
+    err = (out.float() - ref.float()).abs()
+    return float(err.max()), int((err > 2e-5 * float(ref.float().abs().max())).sum())
 
 
 def attention_bwd_exact(q, k, v, do, num_heads: int, lse=None, *, tile: int = 64,

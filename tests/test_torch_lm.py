@@ -80,10 +80,12 @@ def test_rescore_texts_matches_jax(lm_pair):
 
 
 def test_lm_run_dirs_refuse(tmp_path):
+    """An LM run dir without the weights an LMTrainer writes is refused at
+    its first use (the trained run dirs load: tests/test_torch_lm_train.py)."""
     from kuzu_torch.core.config import load_config
     from kuzu_torch.pipeline.cascade import KuzushijiPipeline
 
     load_config(overrides={"task": "lm"}).to_yaml(tmp_path / "args.yaml")
     pipe = KuzushijiPipeline(lm=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="LM trainer"):
+    with pytest.raises(FileNotFoundError, match="holds no weights"):
         pipe.rescore_texts(["abc"])
