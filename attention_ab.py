@@ -21,6 +21,10 @@ times at the shapes of ``chip_smoke.py``'s kernels line:
   (yolov12x@640 b8 nodes 6 and 8), with its device time split by kernel;
 - K5 ``flash_attention`` bf16 at BH=16, N=8192, D=64 and BH=384, N=400,
   D=32, and f32 at BH=16, N=2048, D=64;
+- the f32 routes at the TrOCR's shapes: K3 f32 at G=1024, N=256, C=384, 6
+  heads (the encoder over a bucket of 1024 crops), and at G=16 (a training
+  step's batch) K3 f32 with its lse and K4 f32 given the forward's out and
+  lse, with its device time split by kernel; beside SDPA in f32 (TF32 off);
 - K6 ``fused_c3k2`` at the shapes of yolov12x@640 b8 nodes 2, 4 and 20
   (random weights of the block's shapes), with its device time split by
   kernel (its 1x1 convs share K2's GEMM);
@@ -135,6 +139,27 @@ def worker(tree: str) -> dict:
         sd = [t[None] for t in (q, k, v)]
         row(f"K5 BH={bh} N={n} D={d} {str(dtype)[6:]}", lambda: fa.flash_attention(q, k, v),
             lambda: sdpa(*sd))
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # SDPA's f32 yardstick in full f32
+    g, n, c, heads = 1024, 256, 384, 6
+    q, k, v = (torch.randn((g, n, c), generator=gen, device=dev) for _ in range(3))
+    sd = [t.reshape(g, n, heads, c // heads).transpose(1, 2).contiguous() for t in (q, k, v)]
+    row(f"K3 f32 G={g} N={n} C={c} h={heads}", lambda: fa.area_attention(q, k, v, heads),
+        lambda: sdpa(*sd))
+    g = 16
+    q, k, v, do = (torch.randn((g, n, c), generator=gen, device=dev) for _ in range(4))
+    out, lse, _ = fa.area_attention(q, k, v, heads, return_lse=True)
+    row(f"K3 f32 with lse G={g} N={n} C={c} h={heads}",
+        lambda: fa.area_attention(q, k, v, heads, return_lse=True))
+    sd_a = [t.reshape(g, n, heads, c // heads).transpose(1, 2).contiguous().requires_grad_()
+            for t in (q, k, v)]
+    sd_do = do.reshape(g, n, heads, c // heads).transpose(1, 2).contiguous()
+    sd_out = sdpa(*sd_a)
+    k4 = lambda: fa.area_attention_bwd(q, k, v, do, heads, out, lse)  # noqa: E731
+    label = f"K4 f32 with the forward's out, lse G={g} N={n} C={c} h={heads}"
+    row(label, k4, lambda: torch.autograd.grad(sd_out, sd_a, sd_do, retain_graph=True))
+    rows[label]["device_ms_by_kernel"] = {
+        name[:60]: t for name, t in smoke.device_times(k4)[1].items()}
 
     from kuzu_torch.ops.fused_c3k2 import fused_c3k2
 

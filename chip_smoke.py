@@ -17,11 +17,12 @@ Phases, each raising on failure:
    C=384 in both call forms, with planted faults, a determinism check,
    every head width at N = 16, 80 and 400 and N=1024, and the
    AreaAttention pair's gradients against autograd through the plain
-   forward; K3's f32 route at the TrOCR encoder's shape G=1024, N=256,
-   C=384, 6 heads with planted faults, and at every head width at N = 16,
-   256 and 400, with SDPA in f32 (TF32 off) beside it; K3's f32 training
-   route (output and lse) and K4's f32 route at the TrOCR training shape
-   G=16, N=256, C=384, 6 heads with planted faults and a determinism check,
+   forward; K3's f32 route (3xTF32) at the TrOCR encoder's shape G=1024,
+   N=256, C=384, 6 heads with planted faults (plain TF32 among them), and at
+   every head width at N = 16, 256 and 400, with SDPA in f32 (TF32 off)
+   beside it; K3's f32 training route (output and lse) and K4's f32 route at
+   the TrOCR training shape G=16, N=256, C=384, 6 heads with planted faults
+   (plain TF32 among them) and a determinism check,
    at every head width at N = 16 and 256 and at G=12000 (72,000 heads x
    groups), with SDPA's f32 backward beside it; K3 + K4 bf16 at the TrOCR
    training shape on separate q/k/v and ``area_attention_trainable``'s
@@ -135,6 +136,7 @@ import torch
 PEAK_BYTES = 3.35e12       # HBM bytes/s
 PEAK_BF16 = 989e12         # tensor-core bf16 FLOP/s
 PEAK_F32 = 67e12           # f32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12         # tensor-core TF32 FLOP/s; f32-accurate work as 3xTF32 takes 3 x
 CONF = 0.001               # random-init scores are ~sigmoid(-4.6) ~ 0.01
 
 
@@ -484,10 +486,17 @@ def k2_check(dev, gen, g: int, hid: int = 576) -> dict | None:
 TROCR_K3 = (1024, 256, 384, 6)  # (G, N, C, heads): the TrOCR encoder on a bucket of 1024 crops
 
 
+def f32_bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time of f32-accurate work on this card: the bytes against
+    the operations done as 3xTF32, three TF32 products each, on the tensor
+    cores (67 TFLOP/s of the CUDA cores would take 2.5 times as long)."""
+    return bound(nbytes, 3 * flops, PEAK_TF32)
+
+
 def k3_f32_bound(g: int, n: int, c: int, heads: int) -> tuple[float, str]:
     """K3 f32's least time: q, k, v read once and o written once in f32
-    against 4 G heads N^2 hd operations on the f32 CUDA cores."""
-    return bound(4 * g * n * c * 4, 4 * g * n * n * c, PEAK_F32)
+    against 4 G heads N^2 hd operations as 3xTF32 (:func:`f32_bound`)."""
+    return f32_bound(4 * g * n * c * 4, 4 * g * n * n * c)
 
 
 def k3_f32_times(q, k, v, heads: int) -> dict:
@@ -527,7 +536,12 @@ def k3_f32_check(dev, gen) -> dict:
     ``ATTN_F32_TOL`` (TF32 off on the plain side); then its times beside
     the bound and SDPA in f32."""
     from kuzu_torch.ops.flash_attention import FWD_DS, area_attention, area_attention_plain
-    from kuzu_torch.testing import ATTN_F32_TOL, attention_f32_over, attention_faults
+    from kuzu_torch.testing import (
+        ATTN_F32_TOL,
+        attention_f32_over,
+        attention_faults,
+        attention_tf32,
+    )
 
     g, n, c, heads = TROCR_K3
     q, k, v = (torch.randn((g, n, c), generator=gen, device=dev) for _ in range(3))
@@ -544,6 +558,13 @@ def k3_f32_check(dev, gen) -> dict:
         print(f"  planted fault, {name}: max_abs_err {e:.3e}, over tolerance {o} of {tot} "
               f"(must be > 0)")
         require(o > 0, f"K3 f32's tolerance rejects the fault: {name}")
+    # plain TF32, the lo parts dropped (hi x hi alone): the kernel's lo terms
+    # must reach its result, so the tolerance rejects this one too
+    e, o, tot = attention_f32_over(attention_tf32(q[:64], k[:64], v[:64], heads, passes=1)[0],
+                                   ref[:64])
+    print(f"  planted fault, 1xTF32 (the lo terms dropped): max_abs_err {e:.3e}, over tolerance "
+          f"{o} of {tot} (must be > 0)")
+    require(o > 0, "K3 f32's tolerance rejects the fault: 1xTF32")
     worst = err
     for hd in FWD_DS:
         for nn_ in (16, 256, 400):
@@ -745,8 +766,8 @@ TROCR_TRAIN = (16, 256, 384, 6)  # (G, N, C, heads): the TrOCR encoder in a trai
 def k4_f32_bound(g: int, n: int, c: int, heads: int) -> tuple[float, str]:
     """K4 f32's least time: q, k, v, o, dO and lse read once, dq, dk, dv
     written once, in f32, against its five products of 2 N^2 hd per head
-    on the f32 CUDA cores."""
-    return bound(8 * g * n * c * 4 + g * heads * n * 4, 10 * g * n * n * c, PEAK_F32)
+    as 3xTF32 (:func:`f32_bound`)."""
+    return f32_bound(8 * g * n * c * 4 + g * heads * n * 4, 10 * g * n * n * c)
 
 
 def k4_f32_check(dev, gen) -> dict:
@@ -768,6 +789,7 @@ def k4_f32_check(dev, gen) -> dict:
         ATTN_F32_TOL,
         BWD_F32_TOL,
         attention_bwd_faults,
+        attention_bwd_tf32,
         attention_f32_over,
         bwd_f32_over,
     )
@@ -795,6 +817,12 @@ def k4_f32_check(dev, gen) -> dict:
                 print(f"  planted fault, {name}: over {BWD_F32_TOL} dq/dk/dv {overs} of "
                       f"{ref[0].numel()} each (must be > 0 in one)")
                 require(max(overs) > 0, f"K4 f32's tolerance rejects the fault: {name}")
+            # plain TF32 in all five products: every gradient over
+            overs = [bwd_f32_over(a, b)[1]
+                     for a, b in zip(attention_bwd_tf32(q, k, v, do, heads, passes=1), ref)]
+            print(f"  planted fault, 1xTF32 (the lo terms dropped): over {BWD_F32_TOL} dq/dk/dv "
+                  f"{overs} of {ref[0].numel()} each (must be > 0 in each)")
+            require(min(overs) > 0, "K4 f32's tolerance rejects the fault: 1xTF32")
         return max(x[0] for x in fwd), max(x[0] for x in bwd), (q, k, v, do, out, lse)
 
     g, n, c, heads = TROCR_TRAIN
@@ -1480,8 +1508,8 @@ def device_breakdown(fn, ranges: str | None = None) -> dict:
             group = "K2 fused_ablock: GEMMs (qk, proj, mlp1, mlp2)"
         elif "attention_fwd_kernel" in name:  # K2's attention; K3 launches the same kernel
             group = "attention_fwd_kernel (K2, K3)"
-        elif "attn_f32_kernel" in name:
-            group = "K3 f32 attn_f32_kernel"
+        elif "attn_f32_fwd_kernel" in name:
+            group = "K3 f32 attn_f32_fwd_kernel"
         elif "f32bwd::" in name:
             group = "K4 f32 (dq_kernel, dkdv_kernel)"
         elif "attn_bwd_" in name:
@@ -1550,7 +1578,8 @@ def flash_phase(dev, launches: dict) -> dict:
         if ref.dtype == bf16:  # the attention kernels' shared bf16 tolerance
             err, n_over, _ = attention_over(out, ref)
             return err, n_over, ATTN_TOL
-        # f32 FMAs in another order (TF32 off on the plain side); the JAX
+        # 3xTF32 products summed in another order (TF32 off on the plain
+        # side); the JAX
         # tests' 2e-5, and 1e-4 with logits scaled by 30
         a = 1e-4 if large_logits else 2e-5
         e = (out.float() - ref.float()).abs()
@@ -1577,9 +1606,12 @@ def flash_phase(dev, launches: dict) -> dict:
             planted_faults(q, k, v, ref)
         if q_scale != 1.0:
             continue
-        # q, k, v read once, o written once; 4 N^2 D operations per head
-        bnd, by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d,
-                        PEAK_BF16 if dtype == bf16 else PEAK_F32)
+        # q, k, v read once, o written once; 4 N^2 D operations per head (f32:
+        # as 3xTF32)
+        if dtype == bf16:
+            bnd, by = bound(4 * bh * n * d * 2, 4 * bh * n * n * d, PEAK_BF16)
+        else:
+            bnd, by = f32_bound(4 * bh * n * d * 4, 4 * bh * n * n * d)
         sd = [t[None] for t in (q, k, v)]  # (1, BH, N, D)
         r = dict(ms=time_ms(lambda: flash_attention(q, k, v)),
                  device_ms=device_ms(lambda: flash_attention(q, k, v)),

@@ -20,12 +20,17 @@
 // f32 route (kuzu_area_attention_f32): the TPU kernel takes any dtype and
 // computes in f32, writing the output in the input's dtype; the port's f32
 // inputs (the TrOCR encoder's self-attention, built in f32) go to the
-// register-tiled CUDA-core kernel of attention_f32.cuh, shared with K5's
-// f32 path, with K3's head-packed addressing (row stride C, head offset
-// h*hd), one block per (64 query rows, head, group); f32 FMAs, no TF32; its
-// training route writes each row's base-2 log-sum-exp as the bf16 one does
-// (there is no o_lo in f32: the output is exact to f32 already).
-// What bounds it: operations, 4 G heads N^2 hd on the f32 CUDA cores.
+// 3xTF32 wgmma kernel of attention_f32.cuh, shared with K5's f32 path, with
+// K3's head-packed addressing (row stride C, head offset h*hd), one block
+// per (128 query rows, head, group). Its products are f32-accurate: each
+// operand x split into hi = cvt.rna.tf32.f32(x) and lo = cvt.rna.tf32.f32(
+// x - hi), each product taken as A_lo B_hi, A_hi B_lo, then A_hi B_hi,
+// accumulated in f32 by the tensor core, whatever
+// torch.backends.cuda.matmul.allow_tf32 says. Its training route writes
+// each row's base-2 log-sum-exp as the bf16 one does (there is no o_lo in
+// f32: the output is exact to f32 already).
+// What bounds it: operations, 4 G heads N^2 hd as three TF32 products each
+// on the tensor cores.
 
 #include "attention_f32.cuh"
 #include "attention_fwd.cuh"

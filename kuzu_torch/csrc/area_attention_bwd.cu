@@ -46,9 +46,13 @@
 //
 // f32 route (kuzu_area_attention_bwd_f32): the TPU kernel takes any dtype
 // and computes in f32; f32 inputs (the TrOCR encoder trained in f32) go to
-// the CUDA-core kernels of attention_f32_bwd.cuh (f32 FMAs, no TF32), which
-// read the f32 lse that K3's f32 training route writes and take D from its
-// f32 output (there is no o_lo in f32).
+// the 3xTF32 wgmma kernels of attention_f32_bwd.cuh (each operand x split
+// into hi = cvt.rna.tf32.f32(x) and lo = cvt.rna.tf32.f32(x - hi), each of
+// the five products taken as A_lo B_hi, A_hi B_lo, then A_hi B_hi,
+// accumulated in f32 by the tensor core: f32-accurate, whatever
+// torch.backends.cuda.matmul.allow_tf32 says), which read the f32 lse that
+// K3's f32 training route writes and take D from its f32 output (there is
+// no o_lo in f32).
 
 #include "attention_f32_bwd.cuh"
 #include "attention_fwd.cuh"
@@ -541,8 +545,8 @@ extern "C" size_t kuzu_area_attention_bwd_f32_smem(int hd, int which) {
 // The f32 route: q, k, v, dout, o f32 (g, n, heads * hd) with their own row
 // strides (in floats), lse (g, heads, n) f32 from K3's f32 training route,
 // dvec (g, heads, n) f32 scratch (D); dq, dk, dv written at their own row
-// strides. Bases and strides 16-byte aligned, n % 4 == 0. Two launches
-// (dQ, then dK/dV). Returns a cudaError_t.
+// strides. Bases and strides 16-byte aligned. Two launches (dQ, then
+// dK/dV). Returns a cudaError_t.
 extern "C" int kuzu_area_attention_bwd_f32(const void* q, int q_stride, const void* k,
                                            int k_stride, const void* v, int v_stride,
                                            const void* dout, int do_stride, const void* o,

@@ -20,13 +20,17 @@
 // bf16: the shared forward-attention kernel of attention_fwd.cuh with one
 // head of stride D (wgmma, TMA, single-pass online softmax; its note says
 // what bounds it).
-// f32: the register-tiled CUDA-core kernel of attention_f32.cuh (shared
-// with K3's f32 route) with one head of stride D: the products in f32 FMAs
-// with no TF32, so the f32 tolerance is 2e-5.
+// f32: the 3xTF32 wgmma kernel of attention_f32.cuh (shared with K3's f32
+// route) with one head of stride D: each operand x split into hi =
+// cvt.rna.tf32.f32(x) and lo = cvt.rna.tf32.f32(x - hi), each product taken
+// as A_lo B_hi, A_hi B_lo, then A_hi B_hi, accumulated in f32 by the tensor
+// core: f32-accurate products (whatever torch.backends.cuda.matmul.
+// allow_tf32 says), so the f32 tolerance is 2e-5.
 //
 // What bounds it on this card: operations, 4 N^2 D per head (two products)
-// on the bf16 tensor cores (f32: the 67 TFLOP/s of the CUDA cores); the
-// bytes (q, k, v read once, o written once) are far below that at N = 8192.
+// on the bf16 tensor cores (f32: three TF32 products each, at 495 TFLOP/s);
+// the bytes (q, k, v read once, o written once) are far below that at
+// N = 8192.
 
 #include "attention_f32.cuh"
 #include "attention_fwd.cuh"

@@ -8,9 +8,12 @@ Replaces ``kuzu/ops/flash_attention.py::area_attention`` (forward),
 :func:`area_attention_trainable` pairs the first two over separate q, k, v
 as ``area_attention_trainable`` does (the TrOCR encoder's self-attention),
 :class:`AreaAttention` over YOLO's packed qk. Both the forward and the
-backward have a bf16 route (wgmma kernels) and an f32 route (CUDA-core
-kernels, f32 FMAs, no TF32), as the TPU kernels take any dtype and compute
-in f32. For area attention q, k, v are head-packed ``(G, N, C)``: head h owns
+backward have a bf16 route (wgmma kernels) and an f32 route (wgmma kernels
+in 3xTF32: each operand split into two TF32 parts, hi = cvt.rna.tf32.f32(x)
+and lo = the same rounding of x - hi, and each product taken as lo hi + hi
+lo + hi hi, accumulated in f32 by the tensor core: as accurate as f32
+products, whatever ``torch.backends.cuda.matmul.allow_tf32`` says), as the
+TPU kernels take any dtype and compute in f32. For area attention q, k, v are head-packed ``(G, N, C)``: head h owns
 channels ``[h*hd, (h+1)*hd)``; flash attention takes ``(BH, N, D)`` with the
 heads folded into the batch. Each wrapper runs its plain version for a CPU
 tensor and launches its kernel for a CUDA tensor. :func:`xla_attention` is
@@ -33,7 +36,8 @@ FWD_DS = tuple(range(16, 129, 16))  # head widths of the forward kernel (attenti
 FWD_ROWS = 128  # query rows per forward block, kRowsQ
 FWD_KEYS = 64  # keys per streamed K/V tile, kKeys
 FWD_STAGES = 3  # depth of the K/V ring, kStages
-FLASH_ROWS = 64  # query rows per block of the f32 kernel, kRows in csrc/attention_f32.cuh
+F32_ROWS = 128  # query rows per block of the f32 forward, kFwdRows in csrc/attention_f32.cuh
+F32_BWD_ROWS = 64  # fixed rows per block of the f32 backward, kRows in csrc/attention_f32_bwd.cuh
 LOG2E = 1.0 / math.log(2.0)
 # the reference executor's term for its area-attention kernel: the N x N f32
 # scores of one group within 8 MiB of VMEM (kuzu/models/yolo/infer.py:279-283)
@@ -62,21 +66,30 @@ def attn_bwd_smem_bytes(hd: int) -> int:
 def f32_attn_smem_bytes(hd: int) -> int:
     """Shared memory of one block of the f32 attention kernel
     (``f32attn::smem_bytes`` in ``csrc/attention_f32.cuh``, K3's f32 route
-    and K5's f32 path): the scaled 64-row Q tile, two cp.async stages of a K
-    and a V tile of 64 keys, rows padded to hd + 4, and the 64 x 64 tile of
-    P, rows padded to 68. It does not depend on N."""
-    return (5 * FLASH_ROWS * (hd + 4) + FLASH_ROWS * (FWD_KEYS + 4)) * 4
+    and K5's f32 path): 1024 bytes of alignment, the hi and lo TF32 parts of
+    the 128-row Q tile, stages (two up to hd=112, one at 128) of the parts of
+    a K tile and a V^T tile of 64 keys (32 above hd=64), 128 bytes of
+    barriers. It does not depend on N."""
+    keys = 64 if hd <= 64 else 32
+    stages = 2 if hd <= 112 else 1
+    return 1024 + 2 * F32_ROWS * hd * 4 + stages * 16 * keys * hd + 128
 
 
 def f32_attn_bwd_smem_bytes(hd: int) -> int:
     """Shared memory of the larger block of the f32 backward's two kernels
     (``f32bwd::dq_smem_bytes`` / ``dkdv_smem_bytes`` in
-    ``csrc/attention_f32_bwd.cuh``): six 64-row tiles padded to hd + 4
-    (dQ: scaled Q, dO, two stages of K and V; dK/dV: K, V, two stages of Q
-    and dO), one 64 x 64 tile padded to 68, and for dK/dV two stages of 64
-    lse and 64 D values. It does not depend on N (221,184 bytes at
-    hd=128)."""
-    return (6 * FLASH_ROWS * (hd + 4) + FLASH_ROWS * (FWD_KEYS + 4) + 4 * FLASH_ROWS) * 4
+    ``csrc/attention_f32_bwd.cuh``): 1024 bytes of alignment, the hi and lo
+    parts of two fixed 64-row tiles (dQ: scaled Q and dO; dK/dV: K and V),
+    64 bytes of barriers, and stages of streamed tiles: dQ, 32 keys of K
+    (K-major and transposed) and V, two stages up to hd=80; dK/dV, 32
+    query rows (16 at hd=128) of Q and dO in both layouts with their lse and
+    D, two stages up to hd=64. It does not depend on N (230,720 bytes at
+    hd=112)."""
+    dq = 1024 + 4 * F32_BWD_ROWS * hd * 4 + (2 if hd <= 80 else 1) * 24 * 32 * hd + 64
+    rows = 32 if hd <= 112 else 16
+    dkdv = (1024 + 4 * F32_BWD_ROWS * hd * 4
+            + (2 if hd <= 64 else 1) * (32 * rows * hd + 8 * rows) + 64)
+    return max(dq, dkdv)
 
 
 def area_attention_fwd_fits(n: int, c: int, num_heads: int,
@@ -87,7 +100,7 @@ def area_attention_fwd_fits(n: int, c: int, num_heads: int,
     (``kuzu/models/yolo/infer.py:279-283``, ``kuzu/models/layers.py:
     129-150``), so both packages route every node alike, and the kernel's
     own: head widths of 16-128 in steps of 16, its block within the shared
-    memory (the wgmma kernel's for bf16, the CUDA-core kernel's for f32)."""
+    memory (the bf16 wgmma kernel's, or the 3xTF32 kernel's for f32)."""
     hd = c // num_heads
     smem = f32_attn_smem_bytes(hd) if dtype == torch.float32 else attn_fwd_smem_bytes(hd)
     return (
@@ -181,7 +194,8 @@ def area_attention(
     and in bf16 the output's bf16 remainder (P enters P V in two bf16 parts
     then), in f32 None in its place (the output is f32 already), which
     :func:`area_attention_bwd` takes. On the card bf16 runs the wgmma
-    kernel, f32 the CUDA-core kernel (f32 FMAs, no TF32), as the TPU kernel
+    kernel, f32 the 3xTF32 wgmma kernel (f32-accurate products, whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says), as the TPU kernel
     takes any dtype and computes in f32."""
     g, n, c = q.shape
     if k.shape != q.shape or v.shape != q.shape:
@@ -296,7 +310,7 @@ def _bwd(q, k, v, do, num_heads: int, stats: tuple | None, want_qk: bool):
     lse, out_lo)`` (``out_lo`` None in f32) or None. For a CPU tensor the
     plain version (``(dq, dk, dv)``, or ``(cat([dq, dk]), dv)`` with
     ``want_qk``); for a CUDA tensor the kernels (bf16: the wgmma kernels,
-    f32: the CUDA-core kernels), which write dq and dk into the two column
+    f32: the 3xTF32 kernels), which write dq and dk into the two column
     halves of one (G, N, 2C) tensor ``dqk``: ``(dqk[..., :C], dqk[..., C:],
     dv)``, or ``(dqk, dv)`` with ``want_qk``."""
     g, n, c = q.shape
@@ -500,7 +514,7 @@ def _key_block(n: int) -> int:
 def flash_attention_smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Shared memory of one flash-attention block (``flash_smem_bytes`` in
     ``csrc/flash_attention.cu``). bf16: the forward-attention kernel's
-    (:func:`attn_fwd_smem_bytes`); f32: the CUDA-core kernel's
+    (:func:`attn_fwd_smem_bytes`); f32: the 3xTF32 kernel's
     (:func:`f32_attn_smem_bytes`)."""
     if dtype == torch.float32:
         return f32_attn_smem_bytes(d)

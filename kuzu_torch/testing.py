@@ -423,6 +423,79 @@ def attention_bwd_faults(q, k, v, do, num_heads: int, lse) -> dict:
     }
 
 
+# 3xTF32 (K3's and K4's f32 kernels on the tensor cores): every operand of a
+# product split into two TF32 parts, hi + lo, and three TF32 products summed.
+# The emulations below take each product exactly (a TF32 x TF32 product fits
+# in f32) and sum in f32, as the tensor core does up to its order of sums;
+# with ``passes=1`` only hi x hi, plain TF32, which the f32 tolerances must
+# reject. No kernel or model calls them: the tests and chip_smoke.py's
+# planted faults do.
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of f32 ``x`` as the kernels split it: hi =
+    cvt.rna.tf32.f32(x), rounded to nearest (ties away from zero) to TF32's
+    10 mantissa bits, and lo the same rounding of x - hi (exact in f32)."""
+
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a @ b in f32 from TF32 parts: lo hi + hi lo + hi hi (the cross terms
+    first, as the kernels issue them) with ``passes=3``, hi hi alone with
+    ``passes=1``."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _tf32_heads(t, num_heads: int):
+    g, n, c = t.shape
+    return t.float().reshape(g, n, num_heads, c // num_heads).transpose(1, 2)  # (G, H, N, hd)
+
+
+def _tf32_back(t):
+    g, h, n, hd = t.shape
+    return t.transpose(1, 2).reshape(g, n, h * hd)
+
+
+def attention_tf32(q, k, v, num_heads: int, passes: int = 3):
+    """``area_attention``'s f32 function with its two products taken as
+    :func:`tf32_matmul` (q scaled first, exact softmax): (out, lse) with the
+    base-2 log-sum-exp (G, heads, N) of the scaled scores."""
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    s = tf32_matmul(_tf32_heads(q, num_heads) * scale,
+                    _tf32_heads(k, num_heads).transpose(-1, -2), passes)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = tf32_matmul(p, _tf32_heads(v, num_heads), passes) / p.sum(-1, keepdim=True)
+    return _tf32_back(o), torch.logsumexp(s, dim=-1) / math.log(2.0)
+
+
+def attention_bwd_tf32(q, k, v, do, num_heads: int, passes: int = 3):
+    """(dq, dk, dv) of area attention in f32 with its five products taken
+    as :func:`tf32_matmul`, the way K4's f32 kernels take them: P from the
+    (emulated) forward's base-2 lse, D = rowsum(dO o O) from its output."""
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    out, lse = attention_tf32(q, k, v, num_heads, passes)
+    qh = _tf32_heads(q, num_heads) * scale
+    kh, vh, doh = (_tf32_heads(t, num_heads) for t in (k, v, do))
+    s = tf32_matmul(qh, kh.transpose(-1, -2), passes)
+    p = torch.exp2(s * (1.0 / math.log(2.0)) - lse[..., None])
+    dp = tf32_matmul(doh, vh.transpose(-1, -2), passes)
+    ds = p * (dp - (doh * _tf32_heads(out, num_heads)).sum(-1, keepdim=True))
+    dq = tf32_matmul(ds, kh, passes) * scale
+    dk = tf32_matmul(ds.transpose(-1, -2), qh, passes)
+    dv = tf32_matmul(p.transpose(-1, -2), doh, passes)
+    return _tf32_back(dq), _tf32_back(dk), _tf32_back(dv)
+
+
 # The fused ABlock (K2) in bf16: the same rounding points on both sides; an
 # f32 sum on a bf16 rounding edge flips one ulp of an intermediate, which the
 # O(1)-O(10) residual stream carries: every entry within 0.08 + 0.02|ref|,
