@@ -102,6 +102,23 @@ Phases, each raising on failure:
    a profiled step, peak memory), then two steps in f32 (6 K3 f32 + 6 K4
    f32); (d) the cascade from the two run dirs against the same weights
    in memory;
+12. (inside 11's temporary root) the CTC recognizer's training and the
+   training engine's parts: (a) one ``CTCTrainer`` step at the production
+   widths (CRNN 64 / 128 / 256 / 256, hidden 256, 4,788 classes, [1024, 64]
+   crops, box head, batch 2) card against CPU in f32 with the same jitter
+   draws, under adamw and under radam (loss, box term, gradient norm within
+   ``REC_STEP_TOL``, the gradient and update cosines, the weights after the
+   update); (b) the production CTC run (``CTC_RUN``: bf16, batch 16, adamw
+   lr0 3e-4, warmup 1 epoch) for 2 epochs of 8 steps on seeded crops, with
+   validation and the run dir: ms/step, a profiled step's device time and
+   idle share, peak memory, CER; (c) the cascade with ``recognizer=<b's run
+   dir>`` over 8b's 16 pages and detectors against the same cascade over
+   b's EMA weights in memory (columns, characters and texts equal; K1 3 +
+   K2 16 launches a call; pages/s); (d) ``lora_rank=8`` fine-tuning 11c's
+   bf16 recognize run (``pretrained=``) for 2 steps: base bit-equal,
+   adapters moved, K3 + K4 bf16 launches, the LoRA run dir decodes as the
+   merge in memory; (e) ``DetectValidator`` over a yolov12n@320 run dir
+   against the trainer's own validation;
 9. training slice check: one train step of yolov12n@128, batch 2, bf16, on
    the card and on the CPU: loss (the bf16 bound read from the CPU's bf16
    loss against its f32 loss), gradients, BatchNorm statistics and the
@@ -114,8 +131,8 @@ Phases, each raising on failure:
    BatchNorm statistics moved, ``last`` restores; ms/step, images/s, peak
    memory and a profiled step's breakdown; then three steps of the same
    model with and without ``remat``: ms/step, peak memory, launch counts;
-12. the ``kernels`` JSON line, then the card's name and power limit;
-13. last line: ``{"ok": true, "device": {...}}``.
+13. the ``kernels`` JSON line, then the card's name and power limit;
+14. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -2195,6 +2212,31 @@ def k1_cross_tile(dev) -> dict:
     return r
 
 
+def production_pages() -> torch.Tensor:
+    """Phase 8b's 16 seeded pages of 1280 (uint8, on the CPU)."""
+    from kuzu_torch.testing import column_pages
+
+    return torch.from_numpy(column_pages(16, PAGE, seed=5))
+
+
+def production_detectors(dev, pages: torch.Tensor):
+    """Phase 8b's detectors: yolov12s columns at 1280 (reg_max 32) and
+    yolov12-p2x characters at 640, seeded, BatchNorm calibrated on the first
+    pages, box heads biased to tall thin columns and small characters."""
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.pipeline.device_pages import device_letterbox, device_tiles
+    from kuzu_torch.testing import box_head, calibrate_batch_norm
+
+    on_card = pages[:2].to(dev)
+    col = YoloDetector("yolov12s", nc=1, imgsz=PAGE, device=dev, reg_max=32).init(0)
+    char = YoloDetector("yolov12-p2x", nc=1, imgsz=640, device=dev).init(1)
+    calibrate_batch_norm(col.graph, device_letterbox(on_card, PAGE)[0])
+    calibrate_batch_norm(char.graph, device_tiles(on_card[:1], 2, 0.15, 640)[0])
+    box_head(col, (1, 6, 1, 6))  # refolds
+    box_head(char, (1, 1, 1, 1))
+    return col, char
+
+
 def cascade_full_width(dev, launches: dict) -> dict:
     """Phase 8b: ``process_pages`` at the production configuration: 16 pages
     of 1280 x 1280, yolov12s columns at 1280 (reg_max 32), yolov12-p2x
@@ -2204,23 +2246,13 @@ def cascade_full_width(dev, launches: dict) -> dict:
     BatchNorm calibrated on the pages so that detections spread over them,
     box heads biased to tall thin columns and small characters."""
     from kuzu_torch.data.loader import next_bucket
-    from kuzu_torch.models.yolo.detector import YoloDetector
-    from kuzu_torch.pipeline.device_pages import device_letterbox, device_tiles
     from kuzu_torch.pipeline.tiling import _nms_bucket
-    from kuzu_torch.testing import box_head, calibrate_batch_norm, column_pages
 
     n_pages = 16
-    pages = torch.from_numpy(column_pages(n_pages, PAGE, seed=5))
+    pages = production_pages()
     tok = synthetic_tokenizer()
-    on_card = pages[:2].to(dev)
-    col = YoloDetector("yolov12s", nc=1, imgsz=PAGE, device=dev, reg_max=32).init(0)
-    char = YoloDetector("yolov12-p2x", nc=1, imgsz=640, device=dev).init(1)
-    calibrate_batch_norm(col.graph, device_letterbox(on_card, PAGE)[0])
-    calibrate_batch_norm(char.graph, device_tiles(on_card[:1], 2, 0.15, 640)[0])
-    box_head(col, (1, 6, 1, 6))  # refolds
-    box_head(char, (1, 1, 1, 1))
+    col, char = production_detectors(dev, pages)
     crnn = seeded_crnn(dev, pages, CROP, len(tok), seed=2)
-    del on_card
     pipe = cascade_pipeline(dev, col, char, crnn, tok, CROP, COL_MAX_DET)
     for _ in range(2):  # warm-up: cuDNN plans, the allocator
         pipe.process_pages(pages)
@@ -2547,6 +2579,12 @@ def trocr_full_width(dev, pipe, pages, tok, launches: dict) -> dict:
 # the CE, the CTC recursion and the backward: the loss, the CTC term and the
 # gradient norm within 1e-4 relative
 REC_STEP_TOL = 1e-4
+# Phase 12a, card against CPU, f32: each side's encoder gradients are 3e-4
+# to 5e-4 from an f64 step's, from the f32 log-space CTC recursion at T =
+# 256 and 4,788 classes (with the CTC term in f64, 3e-6 to 9e-6). The
+# encoder's gradients within CTC_GRAD_TOL relative: sound 1.77e-4, the
+# card's step with TF32 on 1.74e-3 (NVIDIA H100, PR 11)
+CTC_GRAD_TOL = 5e-4
 CHARS = "".join(chr(0x4E00 + i) for i in range(VOCAB))  # synthetic_tokenizer's characters
 # the production LM and recognizer runs (kuzu/tools/production.py:526-538,
 # 556-580); epochs, data and the run dirs are the phase's own
@@ -2960,7 +2998,8 @@ def k3_after_k5_check(dev) -> None:
 
 def recognizer_training_phase(dev, launches: dict) -> dict:
     """Phase 11: a, b, c (the LM, then the recognizer in bf16 and two f32
-    steps), d."""
+    steps), d; then phase 12 in the same temporary root (12d fine-tunes
+    11c's bf16 recognize run)."""
     import tempfile
     from pathlib import Path
 
@@ -2973,11 +3012,534 @@ def recognizer_training_phase(dev, launches: dict) -> dict:
         rec32 = recognize_full_width(dev, root, lm["save_dir"], launches, dtype="float32",
                                      steps=2)
         out["run_dirs_cascade"] = run_dirs_cascade(dev, lm, rec, launches)
+        torch.cuda.empty_cache()
+        out["ctc_training"] = ctc_training_phase(dev, root, rec["save_dir"], launches)
         for r in (lm, rec, rec32):
             for key in ("trainer", "val_ds", "ema"):
                 r.pop(key, None)
             r["save_dir"] = str(r["save_dir"])
     out.update(lm=lm, recognize_bf16=rec, recognize_f32=rec32)
+    return out
+
+
+# ------------------------------------------------------ phase 12: CTC training
+
+# the production CTC run (kuzu/tools/production.py:539-555); epochs, data and
+# the run dir are the phase's own
+CTC_RUN = dict(imgsz=list(CROP), batch=16, max_label_length=128, dtype="bfloat16",
+               optimizer="adamw", lr0=3e-4, warmup_epochs=1.0)
+CTC_TEXT_CHARS = (10, 120)  # a column's characters: under the 256 CTC frames with repeats
+CTC_EPOCHS, CTC_STEPS = 2, 8  # steps an epoch
+
+
+def _ctc_trainer(dev, root, name: str, over: dict, data=None):
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.tasks.ctc import CTCTrainer, trainer_for
+
+    cfg = load_config(overrides=dict(task="ctc", project=str(root / "runs"), name=name,
+                                     exist_ok=True, workers=2, verbose=False, **over))
+    return (trainer_for(data) if data else CTCTrainer)(cfg, device=dev)
+
+
+@contextlib.contextmanager
+def _tf32_products():
+    """The planted fault of phase 12a: TF32 on for cuBLAS and cuDNN where
+    the port asks for full f32 products."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def _planted_tf32():
+    """The CRNN's forward and the train step's backward run under
+    ``_tf32_products`` instead of ``f32_products``."""
+    import kuzu_torch.core.train as ktrain
+    import kuzu_torch.models.crnn as kcrnn
+
+    saved = ktrain.f32_products, kcrnn.f32_products
+    ktrain.f32_products = kcrnn.f32_products = _tf32_products
+    try:
+        yield
+    finally:
+        ktrain.f32_products, kcrnn.f32_products = saved
+
+
+@contextlib.contextmanager
+def _ctc_in_f64():
+    """The CTC trainer's loss computes its CTC term in f64 (phase 12a's
+    attribution of the f32 gradients' rounding)."""
+    import kuzu_torch.tasks.ctc as kctc
+
+    saved = kctc.ctc_loss
+    kctc.ctc_loss = lambda logits, *a, **k: saved(logits.double(), *a, **k)
+    try:
+        yield
+    finally:
+        kctc.ctc_loss = saved
+
+
+def _ulp32(w: torch.Tensor) -> torch.Tensor:
+    """One f32 ulp of each weight: the spacing above |w|."""
+    a = w.float().abs()
+    return (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+
+
+def _update_err(a: dict, b: dict, net: bool = True) -> float:
+    """The weights after the update, a against b: max |p1_a - p1_b| over
+    the largest entry of b's update; ``net`` of one f32 ulp of each weight
+    (the rounding of the update into f32 storage)."""
+    pa, pb = _flat(a["p1"]), _flat(b["p1"])
+    d = (pa - pb).abs()
+    if net:
+        d = (d - _ulp32(pb)).clamp(min=0.0)
+    return float(d.max() / (pb - _flat(b["p0"])).abs().max())
+
+
+def _largest_update_diff(a: dict, b: dict) -> str:
+    """Where the weights after the update differ most: the tensor, the
+    weight, the difference in f32 ulps of the weight."""
+    pa, pb = _flat(a["p1"]), _flat(b["p1"])
+    i = int((pa - pb).abs().argmax())
+    for name, t in b["p1"].items():
+        if i < t.numel():
+            w = t.flatten()[i]
+            diff = (a["p1"][name].flatten()[i] - w).abs()
+            return f"{name} weight {float(w):.4e}, {float(diff / _ulp32(w)):.2f} ulp"
+        i -= t.numel()
+    raise AssertionError("index past the weights")
+
+
+def _grad_err(a: dict, b: dict, names) -> float:
+    """|g_a - g_b| / |g_b| over the gradients ``names``."""
+    ga, gb = _flat({n: a["grads"][n] for n in names}), _flat({n: b["grads"][n] for n in names})
+    return float((ga - gb).norm() / gb.norm())
+
+
+def ctc_step_card_vs_cpu(dev, root) -> dict:
+    """Phase 12a: one ``CTCTrainer`` step at the production widths (CRNN
+    64 / 128 / 256 / 256, hidden 256, 4,788 classes, [1024, 64] crops) with
+    the box head (4 boxes), batch 2, on the card and on the CPU from the
+    same seeded weights and the same jitter draws (drawn on the CPU, handed
+    to both).
+
+    f32, once with ``optimizer=adamw`` and once with ``radam``: the loss,
+    the box term and the gradient norm within ``REC_STEP_TOL`` relative, the
+    whole-gradient cosine (11b's gates), the encoder's gradients within
+    ``CTC_GRAD_TOL``; adamw's weights where the step's direction is decided
+    within 1e-3 of the lr plus 1e-6 of the weight, elsewhere within 2 lr;
+    radam's first update (lr times the clipped, decayed gradient, so it
+    carries the f32 gradients' rounding): the weights after it within
+    ``REC_STEP_TOL`` of the update's largest entry, net of one f32 ulp of
+    each weight (their storage). The radam pass reads both sides against the same step in
+    f64 on the CPU (the truth), finds where their f32 rounding comes from
+    (the CTC loss alone in f32 against f64; the step with the CTC term in
+    f64 on both sides), and runs a planted fault (the card's step with TF32
+    on where the port asks for full f32 products), which must read above
+    both bounds.
+
+    bf16 (the production dtype), adamw: the card's loss no farther from the
+    CPU's bf16 loss than the CPU's bf16 loss is from its f32 loss (11b's
+    gate), and a finite gradient norm."""
+    from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
+    from kuzu_torch.data.loader import default_collate
+    from kuzu_torch.models.crnn import ctc_frames
+    from kuzu_torch.ops.ctc import ctc_loss, pack_labels
+    from kuzu_torch.ops.images import from_uint8, photometric_draws, photometric_from_draws
+    from kuzu_torch.testing import SyntheticLineDataset, synthetic_texts
+
+    tok = synthetic_tokenizer()
+    ds = SyntheticLineDataset(synthetic_texts(2, CHARS, 120, seed=8, min_chars=60), tok, CROP,
+                              128, seed=2, max_boxes=4)
+    batch = default_collate([ds[i] for i in range(2)])
+    x = from_uint8(torch.from_numpy(batch["image"]))
+    draws = photometric_draws(x, torch.Generator().manual_seed(9))
+    cpu = torch.device("cpu")
+    seconds = {}
+
+    def run(d, optimizer, dtype="float32", f64=False):
+        tag = "f64" if f64 else dtype
+        tr = _ctc_trainer(d, root, f"step-{d.type}-{optimizer}-{tag}", dict(
+            imgsz=list(CROP), max_boxes=4, max_label_length=128, dtype=dtype,
+            optimizer=optimizer, lr0=3e-4, warmup_epochs=0.0, epochs=1, save=False))
+        tr.tokenizer = tok
+        model = tr.build_model()
+        if f64:  # the same step in f64 arithmetic, from the same f32 weights and crops
+            model.double()
+            model.dtype = model.encoder.dtype = torch.float64
+        dd = [t.to(d) for t in draws]
+        tr.aug_images = lambda images, rng: (photometric_from_draws(from_uint8(images), *dd)
+                                             - 0.5) / 0.5
+        tx = build_optimizer(tr.cfg, model, 1)
+        state = TrainState(model, tx)
+        p0 = {n: p.detach().double().cpu().clone() for n, p in model.named_parameters()}
+        grads = {}
+        update = tx.step
+
+        def snapshot_then_step(count, grad_norm):  # clipping scales .grad in place
+            grads.update({n: p.grad.detach().double().cpu().clone()
+                          for n, p in model.named_parameters() if p.grad is not None})
+            update(count, grad_norm)
+
+        tx.step = snapshot_then_step
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        metrics = make_train_step(tr.loss_fn, tx)(state, b, torch.Generator(device=d))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[f"{d.type} {optimizer} {tag}"] = time.perf_counter() - t0
+        return dict(p0=p0, grads=grads, metrics={k: float(v) for k, v in metrics.items()},
+                    p1={n: p.detach().double().cpu().clone() for n, p in model.named_parameters()},
+                    wd=float(tr.cfg.get("weight_decay", 0.0)),
+                    clip=float(tr.cfg.get("grad_clip", 10.0)), lr=float(tr.cfg.lr0))
+
+    def ctc_rounding(d) -> float:
+        """F.ctc_loss alone (``ops/ctc.py::ctc_loss``) on seeded near-uniform
+        logits of the step's shape and the batch's labels: the gradient's
+        f32 distance from its f64 gradient, relative."""
+        labels, lens = pack_labels(torch.from_numpy(batch["tokens"]).long())
+        t = ctc_frames(CROP[0])
+        logits = torch.randn((2, t, len(tok)), generator=torch.Generator().manual_seed(10),
+                             dtype=torch.float64) * 0.1
+        g = []
+        for dt in (torch.float32, torch.float64):
+            z = logits.to(d, dt).requires_grad_()
+            ctc_loss(z, labels.to(d), torch.full_like(lens, t).to(d), lens.to(d),
+                     reduction="none").sum().backward()
+            g.append(z.grad.double().cpu())
+        return float((g[0] - g[1]).norm() / g[1].norm())
+
+    out = {}
+    f32_cpu = {}
+    for optimizer in ("adamw", "radam"):
+        g, c = run(dev, optimizer), run(cpu, optimizer)
+        f32_cpu[optimizer] = c
+        gm, cm = g["metrics"], c["metrics"]
+        rel = {k: abs(gm[k] - cm[k]) / abs(cm[k]) for k in ("loss", "box_loss", "grad_norm")}
+        gcos = _cos(_flat(g["grads"]), _flat(c["grads"]))
+        conv = [n for n in c["grads"] if n.startswith("encoder.")]
+        groups = (("encoder", conv), ("LSTM and heads", [n for n in c["grads"]
+                                                         if n not in conv]))
+        group_diff = {k: _grad_err(g, c, ns) for k, ns in groups}
+        ucos = _cos(_flat(g["p1"]) - _flat(g["p0"]), _flat(c["p1"]) - _flat(c["p0"]))
+        lr, factor = c["lr"], min(1.0, c["clip"] / cm["grad_norm"])
+        r = dict(rel=rel, grad_diff=group_diff, grad_cos=gcos, update_cos=ucos)
+        if optimizer == "adamw":
+            worst = worst_any = 0.0
+            for n in c["grads"]:
+                p0 = c["p0"][n]
+                geff = c["grads"][n] * factor + (c["wd"] * p0 if p0.dim() >= 2 else 0.0)
+                ok = geff.abs() >= 1e-4
+                diff = (g["p1"][n] - c["p1"][n]).abs()
+                if bool(ok.any()):
+                    worst = max(worst, float((diff - 1e-6 * c["p1"][n].abs())[ok].max()))
+                worst_any = max(worst_any, float(diff.max()))
+            weights_ok = worst <= 1e-3 * lr and worst_any <= 2 * lr * (1 + 1e-6)
+            detail = (f"decided entries max |diff| - 1e-6|w| {worst:.3e} (<= {1e-3 * lr:.1e}), "
+                      f"any {worst_any:.3e} (<= 2 lr)")
+        else:
+            t = run(cpu, optimizer, f64=True)
+            with _planted_tf32():
+                fault = run(dev, optimizer)
+            with _ctc_in_f64():
+                g64, c64 = run(dev, optimizer), run(cpu, optimizer)
+            worst, fault_err = _update_err(g, c), _update_err(fault, c)
+            raw = _update_err(g, c, net=False)
+            fault_diff = {k: _grad_err(fault, c, ns) for k, ns in groups}
+            truth = {side: dict({k: _grad_err(a, t, ns) for k, ns in groups},
+                                update=_update_err(a, t))
+                     for side, a in (("card", g), ("CPU", c), ("card, TF32", fault),
+                                     ("card, CTC in f64", g64), ("CPU, CTC in f64", c64))}
+            ctc_f32 = {"card": ctc_rounding(dev), "CPU": ctc_rounding(cpu)}
+            ctc64_diff = {k: _grad_err(g64, c64, ns) for k, ns in groups}
+            weights_ok = (worst <= REC_STEP_TOL < fault_err
+                          and CTC_GRAD_TOL < fault_diff["encoder"])
+            detail = (f"weights after the update: max |diff| net of 1 ulp {worst:.3e} of the "
+                      f"update's largest entry (<= {REC_STEP_TOL:g}); without the ulp {raw:.3e} "
+                      f"(at {_largest_update_diff(g, c)})"
+                      f"\n  the truth, an f64 CPU step: |g - g64| / |g64| by group, the "
+                      f"weights after the update (net of 1 ulp): " + "; ".join(
+                          f"{side} " + ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+                          for side, e in truth.items())
+                      + "\n  the source: the CTC loss alone (seeded logits of the step's shape), "
+                      "its logits' gradient f32 against f64: "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in ctc_f32.items())
+                      + "; the step with the CTC loss in f64 on both sides: |g_card - g_cpu| / "
+                      "|g_cpu| " + ", ".join(f"{k} {v:.2e}" for k, v in ctc64_diff.items())
+                      + f"\n  planted fault (TF32 on in the card's step): encoder "
+                      f"{fault_diff['encoder']:.2e} (> {CTC_GRAD_TOL:g}), LSTM and heads "
+                      f"{fault_diff['LSTM and heads']:.2e}, update {fault_err:.3e} (> "
+                      f"{REC_STEP_TOL:g})")
+            r.update(fault_err=fault_err, raw_update_err=raw, fault_grad_diff=fault_diff, f64=truth,
+                     ctc_f32=ctc_f32, ctc_f64_grad_diff=ctc64_diff)
+        r["weights_err"] = worst
+        print(f"CTC step card vs CPU ({optimizer}, f32, production widths, [1024, 64] crops, "
+              f"batch 2, box head): loss {gm['loss']:.6f} / {cm['loss']:.6f}, relative "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + f" (<= {REC_STEP_TOL:g}); gradient cosine {gcos:.7f} (>= 0.9999), "
+              f"|g_card - g_cpu| / |g_cpu| by group "
+              + ", ".join(f"{k} {v:.2e}" for k, v in group_diff.items())
+              + f" (encoder <= {CTC_GRAD_TOL:g}); update cosine {ucos:.7f}; {detail}")
+        require(all(v <= REC_STEP_TOL for v in rel.values()) and gcos >= 0.9999 and weights_ok
+                and group_diff["encoder"] <= CTC_GRAD_TOL and ucos >= 0.9999,
+                f"card vs CPU f32 CTC step ({optimizer})")
+        out[optimizer] = r
+    gb, cb = run(dev, "adamw", "bfloat16"), run(cpu, "adamw", "bfloat16")
+    c32 = f32_cpu["adamw"]["metrics"]["loss"]
+    brel = abs(gb["metrics"]["loss"] - cb["metrics"]["loss"]) / abs(cb["metrics"]["loss"])
+    bound_ = abs(cb["metrics"]["loss"] - c32) / abs(c32)
+    bcos = _cos(_flat(gb["grads"]), _flat(cb["grads"]))
+    print(f"CTC step card vs CPU (adamw, bf16): loss card {gb['metrics']['loss']:.6f}, CPU "
+          f"{cb['metrics']['loss']:.6f} (rel {brel:.2e}; bound: the CPU's bf16 loss against its "
+          f"f32 loss {c32:.6f}, rel {bound_:.2e}); gradient norm card "
+          f"{gb['metrics']['grad_norm']:.4e}, CPU {cb['metrics']['grad_norm']:.4e}; gradient "
+          f"cosine {bcos:.6f}")
+    require(brel <= bound_ and np.isfinite(gb["metrics"]["grad_norm"]),
+            "card vs CPU bf16 CTC step")
+    out["bf16"] = dict(loss_rel=brel, bound=bound_, grad_cos=bcos)
+    print("  phase 12a step seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    out["seconds"] = seconds
+    return out
+
+
+def ctc_full_width(dev, root) -> dict:
+    """Phase 12b: the production CTC run on the card (``CTC_RUN``: bf16,
+    [1024, 64] crops, batch 16, max_label_length 128, adamw lr0 3e-4,
+    warmup 1 epoch; the CRNN 64-256 / 256 with 4,788 classes) over seeded
+    crops of 10-120 characters: 2 epochs of 8 steps, validation each epoch
+    (16 crops), the run dir written. ms/step, one profiled step's device
+    time and idle share, peak memory, CER. No kernel of the port is on this
+    path: the launch counts are all zero."""
+    from kuzu_torch.data.loader import default_collate
+    from kuzu_torch.testing import SyntheticLineDataset, synthetic_texts
+
+    tok = synthetic_tokenizer()
+    batch, lo, hi = CTC_RUN["batch"], *CTC_TEXT_CHARS
+    train_ds = SyntheticLineDataset(synthetic_texts(batch * CTC_STEPS, CHARS, hi, seed=5,
+                                                    min_chars=lo), tok, CROP, 128, seed=3)
+    val_ds = SyntheticLineDataset(synthetic_texts(batch, CHARS, hi, seed=6, min_chars=lo), tok,
+                                  CROP, 128, seed=4)
+    trainer = _ctc_trainer(dev, root, "ctc", dict(CTC_RUN, epochs=CTC_EPOCHS, val_batches=1),
+                           (train_ds, val_ds, tok))
+    rec = _record(trainer)
+    emas, fits = [], []  # each epoch's EMA and fitness: the run dir's best is the last best
+    trainer.callbacks.add("on_checkpoint_save", lambda t: emas.append(
+        {k: v.detach().clone() for k, v in t.state.ema_state_dict().items()}))
+    trainer.callbacks.add("on_val_end", lambda t, m: fits.append(m.get("fitness")))
+    t0 = time.perf_counter()
+    final = trainer.train()
+    wall = time.perf_counter() - t0
+    steps = CTC_EPOCHS * CTC_STEPS
+    losses = [float(m["loss"]) for m in rec.metrics]
+    require(len(rec.counts) == steps and all(np.isfinite(losses))
+            and all(sum(c.values()) == 0 for c in rec.counts)
+            and all(sum(p.values()) == 0 for p in rec.plain), "CTC trainer steps")
+    require(all(k in final for k in ("cer", "fitness")) and trainer.ckpt.exists("best")
+            and (trainer.save_dir / "tokenizer.json").exists(), "CTC validation and run dir")
+    best = max(range(len(fits)), key=lambda i: (fits[i], i))  # ties: the later, as the save
+    r = dict(final=final, losses=losses, wall_s=wall, peak_gib=rec.peak / 2**30,
+             fitness_per_epoch=fits, **_step_times(rec, WARM_STEPS))
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in default_collate([train_ds[i] for i in range(batch)]).items()}
+    r["breakdown"] = device_breakdown(
+        lambda: trainer._step(trainer.state, b, trainer.step_rng(trainer.state.step)))
+    print(f"CTCTrainer, the production run (bf16, CRNN 64-256 / 256, 4,788 classes, "
+          f"[1024, 64] crops, batch 16, adamw lr0 3e-4, warmup 1 epoch): {steps} steps + "
+          f"{CTC_EPOCHS} validations in {wall:.1f} s; ms/step {r['ms_per_step']:.3f} (median "
+          f"after {WARM_STEPS} warm-up: {[round(t, 2) for t in r['step_ms']]}), peak "
+          f"{r['peak_gib']:.2f} GiB; losses {[round(x, 3) for x in losses]}; CER per epoch "
+          f"{[round(1 - f, 4) for f in fits]}; final {final}")
+    r.update(save_dir=trainer.save_dir, trainer=trainer, ema=emas[best], val_ds=val_ds)
+    return r
+
+
+def ctc_run_dir_cascade(dev, ctc: dict, launches: dict) -> dict:
+    """Phase 12c: ``KuzushijiPipeline(recognizer=<12b's run dir>)`` over
+    phase 8b's 16 pages of 1280 with 8b's detectors, against the same
+    cascade with ``CTCPredictor.from_model`` over 12b's best EMA weights in
+    memory (an f32 CRNN, as the predictor builds it): the same columns,
+    characters and texts, and the two CRNNs' logits on 8 crops; K1 3 + K2
+    16 launches a call; pages/s."""
+    from kuzu_torch.pipeline.cascade import KuzushijiPipeline
+    from kuzu_torch.tasks.ctc import CTCPredictor, build_crnn
+    from kuzu_torch.tasks.detect import DetectPredictor
+
+    pages = production_pages()
+    col, char = production_detectors(dev, pages)
+    tr = ctc["trainer"]
+    crnn = build_crnn(tr.cfg, len(tr.tokenizer))
+    crnn.load_state_dict(ctc["ema"])
+    dets = dict(column_model=DetectPredictor.from_detector(col, conf=CONF, iou=0.7,
+                                                           max_det=COL_MAX_DET),
+                char_model=DetectPredictor.from_detector(char, conf=CONF, iou=0.7, max_det=2000),
+                tile_grid=2, tile_overlap=0.15, max_det=2000, device=dev)
+    pipes = {"run dir": KuzushijiPipeline(recognizer=ctc["save_dir"], **dets),
+             "memory": KuzushijiPipeline(recognizer=CTCPredictor.from_model(
+                 crnn, tr.tokenizer, CROP, device=dev), **dets)}
+    val = ctc["val_ds"]
+    crops = torch.stack([torch.from_numpy(val[i]["image"])
+                         for i in range(min(8, len(val)))]).to(dev)
+    out, ms, logits = {}, {}, {}
+    for label, pipe in pipes.items():
+        pipe.process_pages(pages)  # warm-up (and the run dir's load)
+        with torch.no_grad():  # beside the texts (a briefly trained CRNN emits blanks)
+            logits[label] = pipe.recognizer.model(crops)[0]
+        torch.cuda.synchronize()
+        zero_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = pipe.process_pages(pages)
+        end.record()
+        end.synchronize()
+        ms[label] = start.elapsed_time(end)
+        counts = launch_counts()
+        require(counts == want(nms=3, fused_ablock=16) and sum(plain_counts().values()) == 0,
+                f"cascade with the CTC {label}: launches {counts}")
+        for name, n in counts.items():
+            launches[name] += n
+        out[label] = [(r["columns"], r["characters"]) for r in res]
+    require(pipes["run dir"].rec_task == "ctc", "the run dir routes to the CTC predictor")
+
+    def flat(res):
+        cols = [(tuple(np.round(c["box"], 4)), c["text"]) for r in res for c in r[0]]
+        chars = [np.asarray(r[1]["boxes"]).tobytes() for r in res]
+        return cols, chars
+
+    same = flat(out["run dir"]) == flat(out["memory"])
+    same_logits = torch.equal(logits["run dir"], logits["memory"])
+    n_cols = sum(len(r[0]) for r in out["memory"])
+    text_chars = sum(len(c["text"]) for r in out["memory"] for c in r[0])
+    pps = {k: 16 / v * 1e3 for k, v in ms.items()}
+    print(f"cascade with the CTC run dir (16 pages of 1280): {n_cols} columns, {text_chars} "
+          f"characters of text; columns, characters and texts equal to the in-memory "
+          f"weights' {same}, the CRNNs' logits on {len(crops)} crops equal {same_logits} "
+          f"(max |logit| "
+          f"{float(logits['memory'].abs().max()):.3f}); {ms['run dir']:.1f} / "
+          f"{ms['memory']:.1f} ms a call, pages/s {pps['run dir']:.2f} / {pps['memory']:.2f} "
+          f"(run dir / memory, one call each)")
+    require(same and same_logits and n_cols > 0, "cascade from the CTC run dir")
+    return dict(columns=n_cols, text_chars=text_chars, equal=same, logits_equal=same_logits,
+                ms_per_call=ms, pages_per_s=pps)
+
+
+def lora_recognize(dev, root, rec_dir, launches: dict) -> dict:
+    """Phase 12d: ``RecognizeTrainer`` with ``pretrained=<phase 11's bf16
+    recognize run>`` and ``lora_rank=8`` (REC_RUN's widths, bf16) for 2
+    steps: every base weight bit-equal to the pretrained one, every adapter
+    moved, K3 + K4 bf16 6 + 6 launches a step (the training route); the
+    LoRA run dir in ``RecognizePredictor`` decodes the tokens of the merged
+    EMA built in memory (K3 f32 in both: the predictor is f32)."""
+    from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.core.lora import LoRAModel
+    from kuzu_torch.data.tokenizer import CharTokenizer
+    from kuzu_torch.tasks.recognize import RecognizePredictor, build_trocr, trainer_for
+    from kuzu_torch.testing import SyntheticLineDataset, synthetic_texts
+
+    tok = CharTokenizer.load(rec_dir / "tokenizer.json")
+    batch, max_len = REC_RUN["batch"], REC_RUN["max_label_length"]
+    lo, hi = REC_TEXT_CHARS
+    ds = SyntheticLineDataset(synthetic_texts(batch * 2, CHARS, hi, seed=9, min_chars=lo), tok,
+                              CROP, max_len, seed=5)
+    cfg = load_config(overrides=dict(
+        REC_RUN, task="recognize", epochs=1, pretrained=str(rec_dir), lora_rank=8, workers=2,
+        project=str(root / "runs"), name="rec-lora", exist_ok=True, val=False, verbose=False))
+    trainer = trainer_for((ds, ds, tok))(cfg, device=dev)
+    rec = _record(trainer)
+    trainer.train()
+    model = trainer.state.model
+    require(isinstance(model, LoRAModel) and len(rec.counts) == 2, "LoRA recognize run")
+    depth = REC_RUN["enc_depth"]
+    per_step = want(area_attention=depth, area_attention_bwd=depth)
+    require(all(c == per_step for c in rec.counts) and all(sum(p.values()) == 0
+                                                            for p in rec.plain),
+            f"LoRA step launches {rec.counts}")
+    for c in rec.counts:
+        for name, n in c.items():
+            launches[name] += n
+    pre = load_inference_params(CheckpointManager(rec_dir / "weights"))
+    base_equal = all(torch.equal(p, rec.p0[f"base.{n}"]) and torch.equal(p.cpu(), pre[n])
+                     for n, p in model.base.named_parameters())
+    moved = [not torch.equal(m.a, rec.p0[f"lora.{k}.a"]) and not torch.equal(
+        m.b, rec.p0[f"lora.{k}.b"]) for k, m in model.lora.items()]
+    trocr = build_trocr(cfg, len(tok))
+    trocr.load_state_dict(trainer.state.ema_state_dict())
+    crops = torch.stack([torch.from_numpy(ds[i]["image"]) for i in range(8)]).to(dev)
+    mem = RecognizePredictor.from_model(trocr, tok, CROP, device=dev)._fwd(crops)
+    run = RecognizePredictor(load_config(overrides={"model": str(trainer.save_dir)}),
+                             device=dev)._fwd(crops)
+    same = torch.equal(mem, run)
+    print(f"LoRA fine-tune of the bf16 recognize run (rank 8, alpha 16, {len(moved)} adapted "
+          f"kernels, bf16): launches per step {rec.counts[0]}, base weights bit-equal to the "
+          f"pretrained run's {base_equal}, adapters moved {sum(moved)} of {len(moved)}; the "
+          f"LoRA run dir decodes the merged weights' tokens {same}; losses "
+          f"{[round(float(m['loss']), 4) for m in rec.metrics]}")
+    require(base_equal and all(moved) and same, "LoRA fine-tune")
+    return dict(adapted=len(moved), base_equal=base_equal, tokens_equal=same,
+                losses=[float(m["loss"]) for m in rec.metrics])
+
+
+def detect_validator(dev, root, launches: dict) -> dict:
+    """Phase 12e: a yolov12n@320 detector run (bf16, batch 4, one epoch of 2
+    steps over synthetic pages), then ``DetectValidator`` over its run dir
+    (the trainer class a ``trainer_for`` one): the metrics of the trainer's
+    own ``validate`` on its final state (best is last), the validation on
+    the run's EMA weights (a seeded detector after 2 steps scores 0 mAP, so
+    the weights are compared too)."""
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.tasks.detect import DetectValidator, trainer_for
+    from kuzu_torch.testing import SyntheticDetectionDataset
+
+    train_ds = SyntheticDetectionDataset(8, 320, max_boxes=64, nc=1, seed=0)
+    val_ds = SyntheticDetectionDataset(4, 320, max_boxes=64, nc=1, seed=1)
+    cls = trainer_for((train_ds, val_ds, 1))
+    cfg = load_config(overrides=dict(model="yolov12n", imgsz=320, batch=4, epochs=1, workers=2,
+                                     dtype="bfloat16", project=str(root / "runs"), name="det",
+                                     exist_ok=True, verbose=False))
+    trainer = cls(cfg, device=dev)
+    zero_counts()
+    trainer.train()
+    want_ = trainer.validate(trainer.state)
+    seen = {}
+
+    class Seen(cls):  # the weights the validator's validate folds
+        def validate(self, state):
+            seen.update(state.ema_state_dict())
+            return super().validate(state)
+
+    validator = DetectValidator(load_config(overrides={"model": str(trainer.save_dir)}),
+                                device=dev)
+    validator.trainer_cls = Seen
+    got = validator.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name, n in counts.items():
+        launches[name] += n
+    ema = trainer.state.ema_state_dict()
+    same_weights = sorted(seen) == sorted(ema) and all(torch.equal(seen[k], ema[k]) for k in ema)
+    print(f"DetectValidator over a yolov12n@320 run dir (2 steps): {got}; equal to the "
+          f"trainer's validate {got == want_}, on the run's EMA weights {same_weights}; "
+          f"launches in the phase {counts}")
+    require(got == want_ and same_weights and {"map50", "map", "fitness"} <= set(got),
+            "DetectValidator")
+    return dict(metrics=got, weights_equal=same_weights, launches=counts)
+
+
+def ctc_training_phase(dev, root, rec_dir, launches: dict) -> dict:
+    """Phase 12: a, b, c, d (on phase 11's bf16 recognize run dir), e."""
+    out = dict(card_vs_cpu=ctc_step_card_vs_cpu(dev, root))
+    ctc = ctc_full_width(dev, root)
+    out["run_dir_cascade"] = ctc_run_dir_cascade(dev, ctc, launches)
+    for key in ("trainer", "ema", "val_ds"):
+        ctc.pop(key)
+    ctc["save_dir"] = str(ctc["save_dir"])
+    out["production_run"] = ctc
+    torch.cuda.empty_cache()
+    out["lora"] = lora_recognize(dev, root, rec_dir, launches)
+    out["detect_validator"] = detect_validator(dev, root, launches)
     return out
 
 

@@ -23,9 +23,17 @@ order i, f, g, o into ``weight_ih_l0`` / ``weight_hh_l0`` / ``bias_hh_l0``
 
 Every flax leaf is consumed exactly once and every port tensor is filled;
 anything left over or missing raises.
+
+:func:`param_slots` lists, for every flax ``params`` leaf, the port
+parameter it lands in (a row block of a stacked LSTM weight for a gate's
+kernel) and whether it lands transposed: LoRA (``kuzu_torch.core.lora``)
+selects its targets by the flax paths and merges each adapter into its
+slot. :func:`lora_from_flax` carries a flax adapter tree across as is.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -105,6 +113,60 @@ def _copy(tensor: torch.Tensor, arr: np.ndarray, what: str) -> None:
     tensor.copy_(torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32))
 
 
+@dataclass(frozen=True)
+class Slot:
+    """Where a flax ``params`` leaf lives in the port: ``param``, the port
+    parameter's name; ``rows``, the row block of it (a gate of a stacked
+    LSTM weight) or None for the whole tensor; ``transpose``, whether the
+    flax leaf lands transposed (a Dense or LSTM kernel, ``(in, out)``);
+    ``shape``, the flax leaf's shape."""
+    param: str
+    rows: tuple[int, int] | None
+    transpose: bool
+    shape: tuple[int, ...]
+
+
+def param_slots(root: nn.Module, lstm_cells: dict | None = None) -> dict[tuple, Slot]:
+    """Every flax ``params`` leaf of ``root``'s flax counterpart (path
+    without the collection, as ``jax.tree_util`` walks the params tree) ->
+    its :class:`Slot`. ``lstm_cells`` as in :func:`from_flax` (default:
+    ``root.flax_lstm_cells``)."""
+    names = {id(p): n for n, p in root.named_parameters()}
+    out = {}
+    for path, tensor, layout in _targets(root):
+        if path[0] != "params":
+            continue
+        shape = tuple(tensor.shape)
+        if layout == "conv":
+            shape = (shape[2], shape[3], shape[1], shape[0])
+        elif layout == "dense":
+            shape = shape[::-1]
+        out[path[1:]] = Slot(names[id(tensor)], None, layout == "dense", shape)
+    cells = lstm_cells if lstm_cells is not None else getattr(root, "flax_lstm_cells", None)
+    for name, pair in (cells or {}).items():
+        lstm = root.get_submodule(name)
+        h = lstm.hidden_size
+        for paths, kind, tensor in _lstm_leaves(lstm, pair):
+            if kind == "zero":
+                continue
+            for g, path in enumerate(paths):
+                rows = (g * h, (g + 1) * h)
+                if kind == "stack":
+                    out[path[1:]] = Slot(names[id(tensor)], rows, True,
+                                         (tensor.shape[1], h))
+                else:
+                    out[path[1:]] = Slot(names[id(tensor)], rows, False, (h,))
+    return out
+
+
+def lora_from_flax(adapters: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """A flax adapter tree (``kuzu/core/lora.py::init_lora``: ``{path:
+    {"a": (d_in, r), "b": (r, d_out)}}``, numpy leaves) as the port's
+    adapters, the same layout and paths, f32."""
+    return {path: {k: torch.tensor(np.asarray(v), dtype=torch.float32) for k, v in ab.items()}
+            for path, ab in adapters.items()}
+
+
 @torch.no_grad()
 def from_flax(root: nn.Module, variables: dict, lstm_cells: dict | None = None) -> nn.Module:
     """Fill ``root`` in place from a flax variables tree and return it:
@@ -112,7 +174,9 @@ def from_flax(root: nn.Module, variables: dict, lstm_cells: dict | None = None) 
     ``Embed`` tables, LayerNorm scale/bias, BatchNorm statistics, free
     parameters (a ``pos_embed``) as they are; every leaf on both sides used
     once. ``lstm_cells`` names, per port LSTM module, the flax cells of its
-    two directions."""
+    two directions (default: ``root.flax_lstm_cells``, as the CRNN has)."""
+    if lstm_cells is None:
+        lstm_cells = getattr(root, "flax_lstm_cells", None)
     leaves = _flatten({k: variables[k] for k in ("params", "batch_stats") if k in variables})
     used: set[tuple] = set()
     missing = []
@@ -149,10 +213,10 @@ def from_flax(root: nn.Module, variables: dict, lstm_cells: dict | None = None) 
 
 
 def crnn_from_flax(model: nn.Module, variables: dict) -> nn.Module:
-    """Fill a ``kuzu_torch.models.crnn.CRNN`` from the JAX CRNN's variables
-    (numpy leaves) and return it. Its BiLSTM's cells are flax's
-    ``OptimizedLSTMCell_0`` (forward) and ``OptimizedLSTMCell_1`` (reverse):
-    the cells are built in ``CRNN.__call__``'s scope, so they carry the
-    parent's automatic names, not ``lstm_fwd`` / ``lstm_bwd``."""
-    return from_flax(model, variables,
-                     lstm_cells={"lstm": ("OptimizedLSTMCell_0", "OptimizedLSTMCell_1")})
+    """Fill a ``kuzu_torch.models.crnn.CRNN`` (with or without its box
+    head) from the JAX CRNN's variables (numpy leaves) and return it. Its
+    BiLSTM's cells are flax's ``OptimizedLSTMCell_0`` (forward) and
+    ``OptimizedLSTMCell_1`` (reverse): the cells are built in
+    ``CRNN.__call__``'s scope, so they carry the parent's automatic names,
+    not ``lstm_fwd`` / ``lstm_bwd`` (``CRNN.flax_lstm_cells``)."""
+    return from_flax(model, variables)

@@ -7,8 +7,11 @@ beside ``kuzu_meta.json`` (epoch, fitness); ``last`` is written every epoch
 and copied to ``best`` when its fitness is the highest so far.
 ``load_inference_params`` restores a model's weights for prediction;
 ``partial_load`` grafts the name- and shape-matching tensors of one state
-dict onto another (``pretrained=``, the LM -> decoder graft). The LoRA
-branch of ``load_inference_params`` is not ported yet.
+dict onto another (``pretrained=``, the LM -> decoder graft). A LoRA run's
+checkpoint holds the frozen base and the adapters (``base.*``, ``lora.*``);
+``load_inference_params`` fuses them by the run's ``lora_rank`` /
+``lora_alpha``, so predictors, validators and the cascade see a plain model,
+while ``restore`` into the train state (``resume``) keeps both.
 """
 
 from __future__ import annotations
@@ -76,19 +79,23 @@ class CheckpointManager:
 
 
 def load_inference_params(
-    mgr: CheckpointManager, name: str | None = None
+    mgr: CheckpointManager, name: str | None = None, train_cfg: Any = None
 ) -> dict[str, torch.Tensor]:
     """The model's state dict for inference, EMA-preferred: ``best`` when it
     exists, else ``last`` (or ``name``); the EMA's parameters over the live
     ones, with the live buffers (BatchNorm statistics) beside them, as the
-    trainer's ``TrainState.ema_state_dict`` builds it."""
+    trainer's ``TrainState.ema_state_dict`` builds it. A LoRA run's adapters
+    are fused into the base with ``train_cfg``'s ``lora_alpha`` (the run's
+    ``args.yaml``; default 2 rank)."""
+    from kuzu_torch.core.lora import maybe_merge
+
     if name is None:
         name = "best" if mgr.exists("best") else "last"
     sd = mgr.restore(name)
     out = dict(sd["model"])
     if sd.get("ema") is not None:
         out.update(sd["ema"])
-    return out
+    return maybe_merge(out, train_cfg)
 
 
 def partial_load(target: dict[str, torch.Tensor], source: dict[str, torch.Tensor],

@@ -1,7 +1,7 @@
 """Character-level tokenizer, one char = one token (a copy of
 ``kuzu/data/tokenizer.py``'s ``CharTokenizer``: NFKC normalisation, the five
-special tokens, BOS/EOS encoding with fixed-length padding, JSON save/load).
-Numpy only; the bigram variant is not copied, nothing in the port uses it.
+special tokens, BOS/EOS encoding with fixed-length padding, JSON save/load),
+and its bigram variant ``BigramTokenizer``. Numpy only.
 """
 
 from __future__ import annotations
@@ -77,6 +77,11 @@ class CharTokenizer:
         add_special: bool = True,
     ) -> np.ndarray:
         ids = [self.vocab.get(c, self.unk_id) for c in self.normalize(text)]
+        return self._finish(ids, max_length, add_special)
+
+    def _finish(self, ids: list[int], max_length: int | None, add_special: bool) -> np.ndarray:
+        """BOS / EOS around ``ids``, cut to ``max_length`` (EOS kept last)
+        and padded."""
         if add_special:
             ids = [self.bos_id] + ids + [self.eos_id]
         if max_length is not None:
@@ -111,6 +116,56 @@ class CharTokenizer:
     def load(cls, path: str | Path) -> "CharTokenizer":
         data = json.loads(Path(path).read_text())
         return cls(data["vocab"], nfkc=data.get("nfkc", True))
+
+
+class BigramTokenizer(CharTokenizer):
+    """Bigram variant (reference ``train_tokenizer_bigram.py``): the vocab
+    holds every character, then the character bigrams seen ``min_freq``
+    times or more (most frequent first, up to ``max_vocab``); encoding is
+    greedy longest-match (the bigram at the position if it is in the vocab,
+    else the character, else ``<unk>``). ``save`` / ``load`` as
+    ``CharTokenizer``'s."""
+
+    @classmethod
+    def train(
+        cls,
+        texts: Iterable[str],
+        min_freq: int = 2,
+        max_vocab: int | None = None,
+        nfkc: bool = True,
+    ) -> "BigramTokenizer":
+        chars: dict[str, int] = {}
+        bigrams: dict[str, int] = {}
+        for t in texts:
+            if nfkc:
+                t = unicodedata.normalize("NFKC", t)
+            for ch in t:
+                chars[ch] = chars.get(ch, 0) + 1
+            for i in range(len(t) - 1):
+                bg = t[i: i + 2]
+                bigrams[bg] = bigrams.get(bg, 0) + 1
+        vocab = {tok: i for i, tok in enumerate(SPECIALS)}
+        for c in sorted(chars, key=lambda c: (-chars[c], c)):
+            vocab[c] = len(vocab)
+        for bg in sorted(bigrams, key=lambda b: (-bigrams[b], b)):
+            if bigrams[bg] >= min_freq and (max_vocab is None or len(vocab) < max_vocab):
+                vocab[bg] = len(vocab)
+        return cls(vocab, nfkc=nfkc)
+
+    def encode(self, text: str, max_length: int | None = None,
+               add_special: bool = True) -> np.ndarray:
+        t = self.normalize(text)
+        ids: list[int] = []
+        i = 0
+        while i < len(t):
+            bg = t[i: i + 2]
+            if len(bg) == 2 and bg in self.vocab:
+                ids.append(self.vocab[bg])
+                i += 2
+            else:
+                ids.append(self.vocab.get(t[i], self.unk_id))
+                i += 1
+        return self._finish(ids, max_length, add_special)
 
 
 def decode_unicode_ids(s: str) -> str:

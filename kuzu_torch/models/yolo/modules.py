@@ -66,8 +66,9 @@ def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.BatchNorm(momentum=0.97, epsilon=1e-3)`` on an NCHW tensor:
     batch statistics in f32 when ``bn.training`` (updating the running ones
     in place, except under :func:`frozen_batch_stats`), running statistics
-    otherwise; the result in x's dtype."""
-    xf = x.float()
+    otherwise; the result in x's dtype. Statistics and normalisation run in
+    x's dtype promoted to at least f32, as flax's."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     if bn.training:
         if not getattr(_bn_state, "frozen", False):
             with torch.no_grad():

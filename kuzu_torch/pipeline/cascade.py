@@ -283,9 +283,10 @@ class KuzushijiPipeline:
 
     ``column_model`` / ``char_model`` are port run dirs or
     ``DetectPredictor``s, ``recognizer`` a run dir or a ``CTCPredictor`` /
-    ``RecognizePredictor``, ``lm`` a run dir or an ``LMPredictor``; a run
-    dir of a recognizer or an LM raises at first use until the port's
-    trainers write them. Everything runs on ``device`` (the card when
+    ``RecognizePredictor``, ``lm`` a run dir or an ``LMPredictor``; a
+    recognizer run dir is a ``CTCTrainer`` or a ``RecognizeTrainer`` run
+    (its ``args.yaml`` task says which), loaded at first use (a LoRA run's
+    adapters fused). Everything runs on ``device`` (the card when
     None). Each stage runs inside a ``torch.profiler.record_function``
     range named ``cascade/<stage>`` (``STAGES``, then ``LM_STAGE`` where the
     LM annotates), which costs nothing without a profiler."""

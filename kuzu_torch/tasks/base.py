@@ -8,8 +8,18 @@ epoch, last/best checkpoints, early stop, resume, the time limit and
 ``final.json``. Subclasses supply the model, the data, the loss and the
 validation.
 
-One device only: the data-parallel mesh, tensor parallelism and LoRA raise
+``lora_rank`` trains low-rank adapters over a frozen base, as the JAX
+trainer does for every task (``kuzu_torch/core/lora.py``): ``lora_alpha``
+(default 2 rank), ``lora_targets`` (a regex over the flax parameter paths),
+adapters drawn from ``seed + 7``.
+
+One device only: the data-parallel mesh and tensor parallelism raise
 ``NotImplementedError`` naming the later slice that ports them.
+
+``CropTrainer`` is the engine of the two recognizer tasks (recognize, CTC)
+over decoded line crops: their loaders and their photometric jitter.
+:func:`trainer_for` serves a task's decoded datasets until its image-file
+datasets are ported.
 """
 
 from __future__ import annotations
@@ -23,11 +33,15 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from kuzu_torch.core import lora
 from kuzu_torch.core.callbacks import LOGGER, CallbackRegistry, CSVLogger, EarlyStopping
 from kuzu_torch.core.checkpoint import CheckpointManager
 from kuzu_torch.core.config import Config
 from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
+from kuzu_torch.data.loader import DataLoader
+from kuzu_torch.data.tokenizer import CharTokenizer
 from kuzu_torch.models.yolo.detector import resolve_device
+from kuzu_torch.ops.images import from_uint8, photometric_aug
 
 
 def resolve_val_batches(cfg: Config, loader: Any, key: str = "val_batches") -> int:
@@ -55,10 +69,6 @@ def _check_one_device(cfg: Config) -> None:
         raise NotImplementedError(
             "tensor parallelism (mesh.model > 1, tp_rules) is not ported yet: a later "
             "slice (the recognizer and LM families, ROADMAP section 1 item 14)")
-    if int(cfg.get("lora_rank", 0) or 0):
-        raise NotImplementedError(
-            "LoRA (lora_rank) is not ported yet: a later slice (core/lora.py, "
-            "ROADMAP section 1 item 15)")
 
 
 class BaseTrainer:
@@ -125,6 +135,32 @@ class BaseTrainer:
         """Metrics incl. ``fitness`` (higher better). Default: none."""
         return {}
 
+    def init_adapters(self, model: torch.nn.Module, rank: int) -> dict:
+        """LoRA's adapters of ``model`` (``lora_targets``), drawn on the CPU
+        from ``seed + 7`` (JAX draws from its own key ``seed + 7``: tests
+        replace this hook to hand JAX's draws over)."""
+        gen = torch.Generator().manual_seed(int(self.cfg.get("seed", 0)) + 7)
+        return lora.init_lora(gen, model, rank, targets=self.cfg.get("lora_targets"))
+
+    def wrap_lora(self, model: torch.nn.Module) -> torch.nn.Module:
+        """With ``lora_rank``, the model's frozen base and its adapters (a
+        ``LoRAModel``); else the model."""
+        cfg = self.cfg
+        rank = int(cfg.get("lora_rank", 0) or 0)
+        if not rank:
+            return model
+        if cfg.get("remat"):
+            raise NotImplementedError(
+                "lora_rank with remat: the checkpointed blocks recompute in the backward, "
+                "outside the merged weights")
+        alpha = lora.resolve_alpha(cfg, rank)
+        slots = lora.lora_slots(model, cfg.get("lora_targets"))
+        wrapped = lora.combine(model, self.init_adapters(model, rank), alpha, slots)
+        n_tr, n_tot = lora.trainable_count(wrapped)
+        LOGGER.info(f"lora: rank {rank} alpha {alpha:g} — {n_tr / 1e6:.3f}M trainable / "
+                    f"{n_tot / 1e6:.2f}M total ({len(slots)} kernels)")
+        return wrapped
+
     def preprocess_batch(self, batch: dict) -> dict:
         return batch
 
@@ -172,11 +208,13 @@ class BaseTrainer:
         t0 = time.perf_counter()
         train_loader, self.val_loader = self.build_datasets()
         steps_per_epoch = max(len(train_loader), 1)
-        model = self.build_model()
+        model = self.wrap_lora(self.build_model())
         tx = build_optimizer(cfg, model, steps_per_epoch)
         self.state = TrainState(model, tx, use_ema=bool(cfg.get("ema", True)))
+        loss_fn = (lora.lora_loss(self.loss_fn) if isinstance(model, lora.LoRAModel)
+                   else self.loss_fn)
         self._step = make_train_step(
-            self.loss_fn, tx,
+            loss_fn, tx,
             ema_decay=float(cfg.get("ema_decay", 0.9999)),
             ema_tau=float(cfg.get("ema_tau", 2000)),
             accumulate=max(int(cfg.get("accumulate", 1)), 1),
@@ -246,3 +284,55 @@ class BaseTrainer:
         (self.save_dir / "final.json").write_text(
             json.dumps({k: float(v) for k, v in final_metrics.items()}))
         return final_metrics
+
+
+class CropTrainer(BaseTrainer):
+    """The engine of the recognizer tasks over decoded line crops.
+
+    The reference's datasets (``OneLineDataset``, ``ColumnInfoDataset``)
+    read image files with PIL, which the card's machine lacks, so
+    ``build_datasets`` raises; callers hand decoded datasets (``image``
+    uint8 (H, W, 3), ``tokens`` (max_label_length,) ids, for the CTC task
+    optionally ``boxes`` (max_boxes, 4) xyxy px and ``num_boxes``) and their
+    tokenizer to :meth:`make_loaders`, or build the class with
+    :func:`trainer_for`."""
+
+    def build_datasets(self):
+        raise NotImplementedError(
+            f"the {self.cfg.get('task')} datasets (kuzu/data/ocr_datasets.py: OneLineDataset, "
+            "ColumnInfoDataset) read image files with PIL, which the GPU machine lacks; "
+            f"subclass {type(self).__name__} (or use trainer_for) and return "
+            "self.make_loaders(train_ds, val_ds, tokenizer) from build_datasets")
+
+    def make_loaders(self, train_ds, val_ds, tokenizer: CharTokenizer):
+        """(train, val) loaders over decoded datasets, batched as the JAX
+        trainer batches its datasets; the tokenizer is this run's, written to
+        its ``tokenizer.json``."""
+        cfg = self.cfg
+        self.tokenizer = tokenizer
+        tokenizer.save(self.save_dir / "tokenizer.json")
+        self.train_ds, self.val_ds = train_ds, (val_ds if len(val_ds) else train_ds)
+        batch = int(cfg.get("batch", 16))
+        workers = int(cfg.get("workers", 4))
+        return (
+            DataLoader(self.train_ds, batch, shuffle=True, seed=int(cfg.get("seed", 0)),
+                       num_workers=workers),
+            DataLoader(self.val_ds, batch, shuffle=False, pad_last=True, num_workers=workers),
+        )
+
+    def aug_images(self, images: torch.Tensor, rng: torch.Generator) -> torch.Tensor:
+        """Photometric jitter of uint8 crops (draws from ``rng``), normalised
+        to the models' convention (x - 0.5) / 0.5."""
+        return (photometric_aug(from_uint8(images), rng) - 0.5) / 0.5
+
+
+def trainer_for(datasets: tuple, cls: type) -> type:
+    """A subclass of the trainer ``cls`` whose ``build_datasets`` returns
+    ``self.make_loaders(*datasets)``: how tests and scripts train on data
+    they decode themselves until the image-file datasets are ported."""
+
+    class _Trainer(cls):
+        def build_datasets(self):
+            return self.make_loaders(*datasets)
+
+    return _Trainer

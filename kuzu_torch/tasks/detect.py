@@ -1,6 +1,6 @@
 """Detection task: YOLOv12 training, mAP validation and prediction
-(counterpart of ``kuzu/tasks/detect.py``'s ``DetectTrainer`` and
-``DetectPredictor``).
+(counterpart of ``kuzu/tasks/detect.py``'s ``DetectTrainer``,
+``DetectValidator`` and ``DetectPredictor``).
 
 Training runs the graph's training forward, the TAL assigner and the v8 loss
 in f32; validation folds the EMA parameters with the live BatchNorm
@@ -26,14 +26,15 @@ import yaml
 
 from kuzu_torch.core.callbacks import LOGGER
 from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params, partial_load
-from kuzu_torch.core.config import Config, load_config
+from kuzu_torch.core.config import Config, load_config, rebase_on_run_config
 from kuzu_torch.core.metrics import DetMetrics
-from kuzu_torch.core.train import TrainState
+from kuzu_torch.core.train import TrainState, build_optimizer
 from kuzu_torch.data.loader import DataLoader
 from kuzu_torch.models.yolo.detector import YoloDetector, resolve_device
 from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
 from kuzu_torch.ops.detect_loss import detection_loss
 from kuzu_torch.ops.nms import non_max_suppression
+from kuzu_torch.tasks import base
 from kuzu_torch.tasks.base import BaseTrainer, resolve_val_batches
 
 DATA_SPEC = "data_spec.yaml"  # a run's nc and names, written by make_loaders
@@ -148,15 +149,43 @@ class DetectTrainer(BaseTrainer):
 
 
 def trainer_for(datasets: tuple[Any, Any, int], cls: type = DetectTrainer) -> type:
-    """A ``DetectTrainer`` subclass whose ``build_datasets`` serves
-    ``(train_ds, val_ds, nc)``: how tests and scripts train on datasets they
-    build themselves until the folder dataset is ported."""
+    """``cls`` serving ``(train_ds, val_ds, nc)`` (``base.trainer_for``)
+    until the folder dataset is ported."""
+    return base.trainer_for(datasets, cls)
 
-    class _Trainer(cls):
-        def build_datasets(self):
-            return self.make_loaders(*datasets)
 
-    return _Trainer
+class DetectValidator:
+    """The standalone validation of a detector run dir (``kuzu/tasks/
+    detect.py::DetectValidator``): ``cfg.model`` names the run; its
+    ``args.yaml`` becomes the config (the caller's explicit overrides on
+    top, ``rebase_on_run_config``), the trainer is built as the run's, its
+    validation loader served by ``build_datasets``, and the run's EMA
+    weights (LoRA adapters fused) are validated as the live weights.
+
+    ``trainer_cls`` is the trainer class (default ``DetectTrainer``); until
+    the folder dataset is ported, a :func:`trainer_for` class fills it with
+    decoded datasets."""
+
+    trainer_cls: type | None = None
+
+    def __init__(self, cfg: Config, device: torch.device | str | None = None):
+        self.cfg, self.device = cfg, device
+
+    def run(self) -> dict:
+        cfg = self.cfg
+        ckpt = cfg.get("model")
+        run_dir = Path(str(ckpt)) if ckpt else None
+        if run_dir and (run_dir / "args.yaml").exists():
+            cfg = rebase_on_run_config(cfg, run_dir)
+        trainer = (self.trainer_cls or DetectTrainer)(cfg, device=self.device)
+        trainer.train_loader, trainer.val_loader = trainer.build_datasets()
+        model = trainer.build_model()
+        if run_dir and (run_dir / "weights").exists():
+            model.load_state_dict(load_inference_params(CheckpointManager(run_dir / "weights"),
+                                                        train_cfg=cfg))
+        # the loaded weights as the live ones, no EMA (JAX: ema_params=None)
+        state = TrainState(model, build_optimizer(self.cfg, model), use_ema=False)
+        return trainer.validate(state)
 
 
 def _load_data_spec(run_dir: Path, train_cfg: Config) -> dict:
@@ -218,7 +247,7 @@ class DetectPredictor:
             device=self.device,
             reg_max=int(train_cfg.get("reg_max")) if train_cfg.get("reg_max") else None)
         self.detector.load_state_dict(
-            load_inference_params(CheckpointManager(run_dir / "weights")))
+            load_inference_params(CheckpointManager(run_dir / "weights"), train_cfg=train_cfg))
         self.ready = True
 
     @torch.no_grad()

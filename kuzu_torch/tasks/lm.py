@@ -199,7 +199,8 @@ class LMPredictor:
         model = CharMLM(vocab_size=len(self.tokenizer), max_len=self.max_len,
                         dim=int(train_cfg.get("dim", 256)), depth=int(train_cfg.get("depth", 6)),
                         num_heads=int(train_cfg.get("heads", 8)))
-        model.load_state_dict(load_inference_params(CheckpointManager(run_dir / "weights")))
+        model.load_state_dict(load_inference_params(CheckpointManager(run_dir / "weights"),
+                                                    train_cfg=train_cfg))
         self.model = model.to(self.device).eval()
         self.ready = True
 

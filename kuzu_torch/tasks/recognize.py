@@ -11,14 +11,12 @@ run's into the decoder (``graft_lm_decoder``). Validation: teacher-forced
 accuracy and the corpus CER of greedy or beam generation with the EMA
 weights, fitness ``1 - cer``.
 
-The reference's datasets (``OneLineDataset``, ``ColumnInfoDataset``) read
-image files with PIL, which the card's machine lacks, so
-``build_datasets`` raises; callers hand decoded datasets (``image`` uint8
-(H, W, 3), ``tokens`` (max_label_length,) ids) and their tokenizer to
-:meth:`RecognizeTrainer.make_loaders`, or build the class with
-:func:`trainer_for`. ``RecognizePredictor`` loads a run dir (or wraps a
-TrOCR in memory) and decodes crops; transcribing image files
-(``__call__``) waits for a port of ``load_letterboxed`` (PIL).
+The datasets are decoded crops handed to ``make_loaders`` or
+:func:`trainer_for` (``tasks/base.py::CropTrainer``: the reference's read
+image files with PIL, which the card's machine lacks).
+``RecognizePredictor`` loads a run dir (or wraps a TrOCR in memory) and
+decodes crops; transcribing image files (``__call__``) waits for a port of
+``load_letterboxed`` (PIL).
 """
 
 from __future__ import annotations
@@ -34,16 +32,13 @@ from kuzu_torch.core.callbacks import LOGGER
 from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params, partial_load
 from kuzu_torch.core.config import Config, load_config
 from kuzu_torch.core.metrics import character_error_rate
-from kuzu_torch.data.loader import DataLoader
 from kuzu_torch.data.tokenizer import CharTokenizer
 from kuzu_torch.models.layers import flax_init_
 from kuzu_torch.models.trocr import TrOCR, beam_generate, generate, graft_lm_decoder
 from kuzu_torch.models.yolo.detector import resolve_device
-from kuzu_torch.ops.ctc import ctc_loss
-from kuzu_torch.ops.images import from_uint8, photometric_aug
-from kuzu_torch.tasks.base import BaseTrainer, resolve_val_batches
-
-FIRST_CHAR_ID = 5  # ids below are the tokenizer's specials: CTC labels are the rest
+from kuzu_torch.ops.ctc import ctc_loss, label_repeats, pack_labels
+from kuzu_torch.tasks import base
+from kuzu_torch.tasks.base import CropTrainer, resolve_val_batches
 
 
 def _image_size(cfg) -> tuple[int, int]:
@@ -73,42 +68,15 @@ def ctc_targets(tokens: torch.Tensor, t: int):
     characters (ids >= 5) left-packed, 0-padded, cut to ``t`` columns; their
     lengths (uncut); and the adjacent repeats a path needs extra frames
     for."""
-    text = tokens >= FIRST_CHAR_ID
-    labels = torch.where(text, tokens, torch.zeros_like(tokens))
-    order = torch.argsort((~text).to(torch.int8), dim=1, stable=True)
-    labels = torch.take_along_dim(labels, order, dim=1)[:, :t]
-    reps = ((labels[:, 1:] == labels[:, :-1]) & (labels[:, 1:] != 0)).sum(1)
-    return labels, text.sum(1), reps
+    labels, lens = pack_labels(tokens)
+    labels = labels[:, :t]
+    return labels, lens, label_repeats(labels)
 
 
-class RecognizeTrainer(BaseTrainer):
+class RecognizeTrainer(CropTrainer):
     # from-scratch TrOCR under the YOLO SGD auto-rule stalls; the reference
     # fine-tunes with AdamW
     auto_optimizer = "adamw"
-
-    def build_datasets(self):
-        raise NotImplementedError(
-            "the recognize datasets (kuzu/data/ocr_datasets.py: OneLineDataset, "
-            "ColumnInfoDataset) read image files with PIL, which the GPU machine lacks; "
-            "subclass RecognizeTrainer (or use trainer_for) and return "
-            "self.make_loaders(train_ds, val_ds, tokenizer) from build_datasets")
-
-    def make_loaders(self, train_ds, val_ds, tokenizer: CharTokenizer):
-        """(train, val) loaders over decoded datasets (``image`` uint8
-        (H, W, 3), ``tokens`` (max_label_length,) ids of ``tokenizer``),
-        batched as the JAX trainer batches its datasets; the tokenizer is
-        this run's, written to its ``tokenizer.json``."""
-        cfg = self.cfg
-        self.tokenizer = tokenizer
-        tokenizer.save(self.save_dir / "tokenizer.json")
-        self.train_ds, self.val_ds = train_ds, (val_ds if len(val_ds) else train_ds)
-        batch = int(cfg.get("batch", 16))
-        workers = int(cfg.get("workers", 4))
-        return (
-            DataLoader(self.train_ds, batch, shuffle=True, seed=int(cfg.get("seed", 0)),
-                       num_workers=workers),
-            DataLoader(self.val_ds, batch, shuffle=False, pad_last=True, num_workers=workers),
-        )
 
     def build_model(self) -> TrOCR:
         cfg = self.cfg
@@ -145,12 +113,6 @@ class RecognizeTrainer(BaseTrainer):
         model.decoder.load_state_dict(sd)
         LOGGER.info(f"decoder_init: grafted {n}/{total} decoder tensors from {lm_run}")
         return n, total
-
-    def aug_images(self, images: torch.Tensor, rng: torch.Generator) -> torch.Tensor:
-        """Photometric jitter of uint8 crops, normalised to the model's
-        convention ((x - 0.5) / 0.5; float input passes TrOCR's own
-        normalisation untouched)."""
-        return (photometric_aug(from_uint8(images), rng) - 0.5) / 0.5
 
     def ss_draws(self, shape, rng: torch.Generator) -> torch.Tensor:
         """Scheduled sampling's uniform draws, one per input position."""
@@ -244,15 +206,8 @@ class RecognizeTrainer(BaseTrainer):
 
 
 def trainer_for(datasets: tuple[Any, Any, CharTokenizer], cls: type = RecognizeTrainer) -> type:
-    """A ``RecognizeTrainer`` subclass whose ``build_datasets`` serves
-    ``(train_ds, val_ds, tokenizer)``: how tests and scripts train on
-    decoded crops until the image-file datasets are ported."""
-
-    class _Trainer(cls):
-        def build_datasets(self):
-            return self.make_loaders(*datasets)
-
-    return _Trainer
+    """``cls`` serving ``(train_ds, val_ds, tokenizer)`` (``base.trainer_for``)."""
+    return base.trainer_for(datasets, cls)
 
 
 class RecognizePredictor:
@@ -289,7 +244,8 @@ class RecognizePredictor:
         self.tokenizer = CharTokenizer.load(run_dir / "tokenizer.json")
         self.image_size = _image_size(train_cfg)
         model = build_trocr(train_cfg, len(self.tokenizer))
-        model.load_state_dict(load_inference_params(CheckpointManager(run_dir / "weights")))
+        model.load_state_dict(load_inference_params(CheckpointManager(run_dir / "weights"),
+                                                    train_cfg=train_cfg))
         self.model = model.to(self.device).eval()
         self.ready = True
 

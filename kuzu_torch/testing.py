@@ -124,17 +124,19 @@ def synthetic_texts(n: int, chars: str, max_chars: int, seed: int = 0,
 
 
 class SyntheticLineDataset:
-    """Seeded decoded column crops with their texts, to the recognize
-    trainer's dataset protocol: ``image`` uint8 (H, W, 3), light paper with
-    one dark block per character, top to bottom (the gray level and width
-    from the character's id), and ``tokens`` (max_length,) int32, the text
-    encoded by ``tokenizer`` with BOS, EOS and padding."""
+    """Seeded decoded column crops with their texts, to the recognize and
+    CTC trainers' dataset protocol: ``image`` uint8 (H, W, 3), light paper
+    with one dark block per character, top to bottom (the gray level and
+    width from the character's id), and ``tokens`` (max_length,) int32, the
+    text encoded by ``tokenizer`` with BOS, EOS and padding; with
+    ``max_boxes`` also ``boxes`` (max_boxes, 4) f32, the first blocks' xyxy
+    px, zero-padded, and ``num_boxes`` int32 (the CRNN's box head)."""
 
     def __init__(self, texts: list[str], tokenizer, image_size=(1024, 64),
-                 max_length: int = 128, seed: int = 0):
+                 max_length: int = 128, seed: int = 0, max_boxes: int = 0):
         self.texts, self.tokenizer = texts, tokenizer
         self.h, self.w = int(image_size[0]), int(image_size[1])
-        self.max_length, self.seed = max_length, seed
+        self.max_length, self.seed, self.max_boxes = max_length, seed, max_boxes
 
     def __len__(self) -> int:
         return len(self.texts)
@@ -145,11 +147,20 @@ class SyntheticLineDataset:
         tokens = self.tokenizer.encode(self.texts[i], max_length=self.max_length)
         ids = tokens[1:][(tokens[1:] >= 5)]  # the characters that fit
         cell = max(self.h // max(len(ids), 1), 1)
+        boxes = []
         for j, t in enumerate(ids):
             w = self.w // 4 + int(t) % (self.w // 2)
             x0 = (self.w - w) // 2
-            img[j * cell + cell // 8: (j + 1) * cell - cell // 8, x0:x0 + w] = 10 + int(t) * 37 % 80
-        return {"image": img, "tokens": tokens}
+            y0, y1 = j * cell + cell // 8, (j + 1) * cell - cell // 8
+            img[y0:y1, x0:x0 + w] = 10 + int(t) * 37 % 80
+            boxes.append((x0, y0, x0 + w, y1))
+        out = {"image": img, "tokens": tokens}
+        if self.max_boxes:
+            n = min(len(boxes), self.max_boxes)
+            out["boxes"] = np.zeros((self.max_boxes, 4), np.float32)
+            out["boxes"][:n] = np.asarray(boxes[:n], np.float32).reshape(-1, 4)
+            out["num_boxes"] = np.int32(n)
+        return out
 
 
 def column_pages(n: int, size: int, seed: int = 0) -> np.ndarray:

@@ -603,13 +603,14 @@ def test_slice_stages_and_refusals(slice_pair):
         flat.process_pages(list(pages))
 
 
-@pytest.mark.parametrize("task,what", [("recognize", "holds no weights"), ("ctc", "item 8")],
+@pytest.mark.parametrize("task,what", [("recognize", "holds no weights"),
+                                       ("ctc", "holds no weights")],
                          ids=["recognize-item 14", "ctc-item 8"])
 def test_recognizer_run_dirs_refuse(tmp_path, task, what):
     """A recognizer run dir routes by its args.yaml task, as in JAX, and is
-    refused at its first use: a recognize run dir without the weights a
-    RecognizeTrainer writes, any CTC run dir until the CTC trainer is
-    ported."""
+    refused at its first use when it holds no weights: a recognize run dir
+    without the weights a RecognizeTrainer writes, a CTC run dir without
+    those a CTCTrainer writes."""
     from kuzu_torch.core.config import load_config
     from kuzu_torch.models.yolo.detector import YoloDetector
     from kuzu_torch.pipeline.cascade import KuzushijiPipeline
@@ -620,8 +621,7 @@ def test_recognizer_run_dirs_refuse(tmp_path, task, what):
         YoloDetector("yolov12n", nc=1, imgsz=64, device="cpu").init(0), conf=0.001)
     pipe = KuzushijiPipeline(column_model=det, recognizer=tmp_path, tile_grid=2, device="cpu")
     assert pipe.rec_task == task
-    with pytest.raises(FileNotFoundError if task == "recognize" else NotImplementedError,
-                       match=what):
+    with pytest.raises(FileNotFoundError, match=what):
         pipe.process_pages(column_pages(1, 96, seed=0))
 
 

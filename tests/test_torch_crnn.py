@@ -162,6 +162,6 @@ def test_ctc_predictor_from_model_and_run_dir(crnn_pair, tmp_path):
     ts, tn = ctc_greedy_decode(crnn_pair["port"][0])
     assert torch.equal(seqs, ts) and torch.equal(lens, tn) and boxes.shape == (4, 3, 4)
     assert pred.image_size == crnn_pair["size"]
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(FileNotFoundError, match="holds no weights"):  # a run dir without them
         CTCPredictor(Config(model=str(tmp_path)), device="cpu")._fwd(
             torch.from_numpy(crnn_pair["images"]))

@@ -251,12 +251,14 @@ def test_unported_options_raise(tmp_path):
     from kuzu_torch.core.train import build_optimizer
     from kuzu_torch.tasks.detect import DetectTrainer
 
-    for over in ({"mesh": {"data": 2}}, {"mesh": {"model": 2}}, {"lora_rank": 4}):
+    for over in ({"mesh": {"data": 2}}, {"mesh": {"model": 2}}):
         cfg = load_config(overrides={"project": str(tmp_path), **over})
         with pytest.raises(NotImplementedError, match="later slice"):
             DetectTrainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_optimizer(load_config(overrides={"optimizer": "radam"}), torch.nn.Linear(2, 2))
+    # LoRA and RAdam are ported: the trainer takes lora_rank, the optimizer radam
+    DetectTrainer(load_config(overrides={"project": str(tmp_path), "lora_rank": 4}),
+                  device="cpu")
+    build_optimizer(load_config(overrides={"optimizer": "radam"}), torch.nn.Linear(2, 2))
     cfg = load_config(overrides={"project": str(tmp_path)})
     with pytest.raises(NotImplementedError, match="folder dataset"):
         DetectTrainer(cfg, device="cpu").build_datasets()

@@ -21,21 +21,38 @@ def numpy_tree(tree):
     return np.asarray(tree)
 
 
-def flax_variables(graph) -> dict:
-    """The inverse of ``kuzu_torch.bridge.from_flax``: a port module's
-    weights as a flax ``{params, batch_stats}`` tree of numpy arrays, so a
-    JAX model can run the port's seeded weights without a JAX init."""
-    from kuzu_torch.bridge import _targets
+def flax_variables(model, sd: dict | None = None,
+                   collections: tuple = ("params", "batch_stats")) -> dict:
+    """The inverse of ``kuzu_torch.bridge.from_flax`` for every leaf, the
+    LSTM's gates among them: ``model``'s weights (or the state dict ``sd``
+    of the same names, gradients say) as a flax tree of numpy arrays over
+    ``collections``, each flax leaf read out of its port tensor through
+    ``bridge.param_slots``, so a JAX model can run the port's seeded
+    weights without a JAX init."""
+    from kuzu_torch.bridge import _targets, param_slots
 
+    own = model.state_dict(keep_vars=True)
+    sd = own if sd is None else sd
+    names = {id(t): n for n, t in own.items()}
     tree: dict = {}
-    for path, tensor, is_kernel in _targets(graph):
-        arr = tensor.detach().float().cpu().numpy()
-        if is_kernel:
-            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+
+    def put(path, arr):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = arr
+
+    for path, slot in param_slots(model).items() if "params" in collections else ():
+        t = sd[slot.param].detach().float()
+        if slot.rows is not None:
+            t = t[slot.rows[0]:slot.rows[1]]
+        arr = t.cpu().numpy()
+        if len(slot.shape) == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        put(("params", *path), arr.T if slot.transpose else arr)
+    for path, tensor, _ in _targets(model):
+        if path[0] == "batch_stats" and "batch_stats" in collections:
+            put(path, sd[names[id(tensor)]].detach().float().cpu().numpy())
     return tree
 
 
