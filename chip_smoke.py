@@ -131,8 +131,26 @@ Phases, each raising on failure:
    BatchNorm statistics moved, ``last`` restores; ms/step, images/s, peak
    memory and a profiled step's breakdown; then three steps of the same
    model with and without ``remat``: ms/step, peak memory, launch counts;
-13. the ``kernels`` JSON line, then the card's name and power limit;
-14. last line: ``{"ok": true, "device": {...}}``.
+13. (after 8, on 8b's seeded weights) serving from image files: (a) the
+   image layer (``kuzu_torch/data/image_io.py``: cv2's INTER_LINEAR and
+   INTER_AREA, PIL's BILINEAR, cv2's RGB2YCrCb, in torch integers) on the
+   card against the CPU, byte for byte, at the path's shapes (a 3868 x 2422
+   and a 3508 x 2480 page to the 1280 letterbox, column windows to [1024,
+   64] and to 640), with a planted fault (the vertical fraction clamped)
+   that must differ, and the letterbox's device time; (b) the yolov12s@1280
+   column predictor over 8 PNG pages of 3868 x 2422 (one Paeth-filtered)
+   through ``DetectPredictor.__call__`` from a directory, a glob and the
+   decoded arrays (equal ``Results``, K1 once a group), frames/s, the PNG
+   decode per page; (c) ``process_page(path)`` with ``tile_grid=0``
+   (characters inside each column crop, the CRNN on [1024, 64] crops) and
+   ``process_pages`` over 4 pages of two shapes (the host path): launches,
+   times, a profiled call's stages, card against CPU by phase 8a's criteria
+   (the detectors' f32 forwards, 8 columns a page); (d) ``pack_yc`` /
+   ``unpack_yc`` card against CPU on 8b's 16 pages and the ``yc``
+   cascade's columns and texts beside the RGB cascade's; (e) the ship-once
+   route against the host path on 4 of those pages (reported, not held);
+14. the ``kernels`` JSON line, then the card's name and power limit;
+15. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -1737,19 +1755,24 @@ def k6_launch_times(per_name: dict) -> dict:
 
 
 def kernel_launch_counts(fn) -> dict:
-    """Device kernels launched by one call of fn: {name: count}; a session
-    whose trace came back empty (late in a long process the profiler drops
-    whole sessions at times) is taken again, up to four times."""
+    """Device kernels launched by one call of fn: {name: count}. A session
+    whose trace holds fewer device records than the host made kernel
+    launches (the profiler drops records at times, late in a long process
+    whole sessions) is taken again, up to eight times."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(4):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(8):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        counts = {e.key: e.count for e in prof.key_averages()}
-        if counts:
+        events = prof.key_averages()
+        counts = {e.key: e.count for e in events if e.device_type == DeviceType.CUDA}
+        host = sum(e.count for e in events
+                   if e.device_type == DeviceType.CPU and "LaunchKernel" in e.key)
+        if counts and sum(counts.values()) >= host:
             break
     return counts
 
@@ -3543,6 +3566,550 @@ def ctc_training_phase(dev, root, rec_dir, launches: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------ phase 13: image files
+
+PAGE_HW = (3868, 2422)  # the real page's size (data/real_page/sample_gt.json)
+A4_HW = (3508, 2480)  # an A4 scan at 300 dpi
+N_FILES = 8  # pages of 13b
+CPU_COL_MAX_DET = 8  # columns of 13c's process_page held card vs CPU (a p2x@640 forward each in f64 on the CPU)
+COL_MODEL, CHAR_MODEL, CHAR_IMGSZ = "yolov12s", "yolov12-p2x", 640  # 8b's detectors
+
+
+def _bytes_off(a, b) -> int:
+    """Differing bytes of two uint8 images (tensors on any device or arrays)."""
+    a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    b = b.cpu().numpy() if hasattr(b, "cpu") else np.asarray(b)
+    require(a.shape == b.shape, f"shapes {a.shape} vs {b.shape}")
+    return int((a != b).sum())
+
+
+def _page_windows(hw) -> list[tuple[int, int, int, int]]:
+    """Column-like windows (xa, ya, xb, yb) of a page: 150 px wide, most of its
+    height, one every 500 px from the right."""
+    h, w = hw
+    return [(x - 150, h // 30, x, h - h // 30) for x in range(w - 40, 200, -500)]
+
+
+def image_layer_card_vs_cpu(dev) -> dict:
+    """Phase 13a: the image layer on the card against the CPU, byte for byte,
+    at the serving path's shapes: a 3868 x 2422 and a 3508 x 2480 page
+    letterboxed to 1280 (``letterbox_np``, cv2's INTER_LINEAR); column
+    windows cropped to [1024, 64] (the cascade's crop letterbox, truncated
+    sizes), letterboxed to 640 (the per-column character detector) and
+    resized by PIL's BILINEAR (``load_letterboxed``); cv2's RGB2YCrCb and
+    the 4 x 4 INTER_AREA pooling of ``pack_yc``. A planted fault (cv2's
+    vertical fraction clamped at the borders, as the horizontal one is) must
+    differ."""
+    from kuzu_torch.data import image_io
+    from kuzu_torch.data.yolo_dataset import letterbox_np
+    from kuzu_torch.pipeline.cascade import KuzushijiPipeline
+    from kuzu_torch.testing import mixed_pages
+
+    pages = mixed_pages([PAGE_HW, A4_HW], seed=30)
+    off: dict[str, int] = {}
+    for pg in pages:
+        tag = "x".join(map(str, pg.shape[:2]))
+        on_card = torch.from_numpy(pg).to(dev)
+        off[f"letterbox 1280 {tag}"] = _bytes_off(letterbox_np(on_card, PAGE)[0],
+                                                  letterbox_np(pg, PAGE)[0])
+        for xa, ya, xb, yb in _page_windows(pg.shape[:2])[:3]:
+            crop, crop_card = pg[ya:yb, xa:xb], on_card[ya:yb, xa:xb]
+            key = f"{tag} window x{xa}"
+            off[f"crop [1024, 64] {key}"] = _bytes_off(
+                KuzushijiPipeline._letterbox_crop(crop_card, CROP),
+                KuzushijiPipeline._letterbox_crop(torch.from_numpy(crop), CROP))
+            off[f"letterbox {CHAR_IMGSZ} {key}"] = _bytes_off(
+                letterbox_np(crop_card, CHAR_IMGSZ)[0], letterbox_np(crop, CHAR_IMGSZ)[0])
+            nh, nw = 1024, max(int(round(crop.shape[1] * 1024 / crop.shape[0])), 1)
+            off[f"PIL bilinear {key}"] = _bytes_off(
+                image_io.resize_pil_bilinear_u8(crop_card, (nh, nw)),
+                image_io.resize_pil_bilinear_u8(crop, (nh, nw)))
+        h4, w4 = pg.shape[0] // 4 * 4, pg.shape[1] // 4 * 4
+        ycc_cpu = image_io.rgb_to_ycrcb_u8(pg[:h4, :w4])
+        ycc_card = image_io.rgb_to_ycrcb_u8(on_card[:h4, :w4])
+        off[f"RGB2YCrCb {tag}"] = _bytes_off(ycc_card, ycc_cpu)
+        off[f"INTER_AREA 4 {tag}"] = _bytes_off(image_io.resize_area_u8(ycc_card[..., 1:], 4),
+                                                image_io.resize_area_u8(ycc_cpu[..., 1:], 4))
+    worst = max(off.values())
+    print(f"image layer card vs CPU: {len(off)} cases, differing bytes at most {worst} "
+          f"(must be 0)")
+    for key, n in off.items():
+        if n:
+            print(f"  {key}: {n} bytes differ")
+    require(worst == 0, "image layer card vs CPU byte for byte")
+    on_card = torch.from_numpy(pages[0]).to(dev)
+    w = pages[0].shape[1]
+    crop = np.ascontiguousarray(pages[0][100:300, w // 2:w // 2 + 40])  # an upscale
+    ref_lb, ref_up = letterbox_np(pages[0], PAGE)[0], image_io.resize_linear_u8(crop, (1024, 205))
+    table = image_io._cv2_linear_table
+    image_io._cv2_linear_table = lambda s, d, clamp: table(s, d, True)
+    try:
+        fault = _bytes_off(letterbox_np(on_card, PAGE)[0], ref_lb)
+        fault_up = _bytes_off(
+            image_io.resize_linear_u8(torch.from_numpy(crop).to(dev), (1024, 205)), ref_up)
+    finally:
+        image_io._cv2_linear_table = table
+    print(f"  planted fault (vertical fraction clamped): letterbox 1280 {fault} bytes differ, "
+          f"a 200 x 40 crop up to 1024 x 205 {fault_up} (must differ)")
+    require(fault_up > 0, "the planted resize fault is caught")
+    lb_dev, _ = device_times(lambda: letterbox_np(on_card, PAGE), reps=10)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        letterbox_np(pages[0], PAGE)
+    lb_cpu = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"  letterbox of a {PAGE_HW[0]} x {PAGE_HW[1]} page to {PAGE}: card {lb_dev:.4f} ms "
+          f"device ({time_ms(lambda: letterbox_np(on_card, PAGE), reps=10):.4f} ms), host CPU "
+          f"{lb_cpu:.1f} ms")
+    return dict(cases=len(off), max_bytes_off=worst, fault_bytes_off=[fault, fault_up],
+                letterbox_device_ms=lb_dev, letterbox_cpu_ms=lb_cpu)
+
+
+def detector_from_files(dev, root, col, launches: dict) -> dict:
+    """Phase 13b: the yolov12s@1280 column predictor of 8b (seeded,
+    calibrated) over ``N_FILES`` PNG pages of 3868 x 2422 (one Paeth-filtered)
+    through ``DetectPredictor.__call__``: from the directory, from a glob and
+    from the decoded arrays, equal ``Results``; K1 once a group of 8; frames/s
+    with and without the decode, the decode per page, the letterbox's device
+    time."""
+    from kuzu_torch.data.image_io import imread_rgb
+    from kuzu_torch.data.yolo_dataset import letterbox_np
+    from kuzu_torch.tasks.detect import DetectPredictor
+    from kuzu_torch.testing import mixed_pages, page_files
+
+    t0 = time.perf_counter()
+    paths = page_files(root, mixed_pages([PAGE_HW] * N_FILES, seed=40), paeth=(3,))
+    write_s = time.perf_counter() - t0
+    decode_ms = []
+    for p in paths:
+        t0 = time.perf_counter()
+        imread_rgb(p)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    decoded = [imread_rgb(p) for p in paths]
+    pred = DetectPredictor.from_detector(col, conf=CONF, iou=0.7, max_det=COL_MAX_DET)
+    pred.cfg["batch"] = N_FILES
+    pred(decoded)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    by_dir = pred(str(root))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"detector from files: {N_FILES} PNG pages of {PAGE_HW[0]} x {PAGE_HW[1]} (written in "
+          f"{write_s:.1f} s), launches {counts} (want nms 1: one group of {N_FILES})")
+    require(counts == want(nms=1), "DetectPredictor launch counts")
+    for name, n in counts.items():
+        launches[name] += n
+    by_glob = pred(str(root / "*.png"))
+    by_arrays = pred(decoded)
+    for other, what in ((by_glob, "glob"), (by_arrays, "arrays")):
+        for a, b in zip(by_dir, other, strict=True):
+            require(a.boxes.orig_shape == b.boxes.orig_shape == PAGE_HW
+                    and np.array_equal(a.boxes.xyxy, b.boxes.xyxy)
+                    and np.array_equal(a.boxes.conf, b.boxes.conf)
+                    and np.array_equal(a.boxes.cls, b.boxes.cls), f"directory == {what}")
+    require(by_dir[0].path == str(paths[0]) and by_arrays[0].path == "", "paths")
+    nbox = [len(r) for r in by_dir]
+    for r in by_dir:
+        b = r.boxes.xyxy
+        require(len(b) > 0 and bool(np.isfinite(b).all()) and (b[:, [0, 2]] <= PAGE_HW[1]).all()
+                and (b[:, [1, 3]] <= PAGE_HW[0]).all(), "boxes inside the page")
+    times = {}
+    for what, src in (("directory", str(root)), ("arrays", decoded)):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred(src)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[what] = statistics.median(ts)
+    on_card = torch.from_numpy(decoded[0]).to(dev)
+    lb_dev, _ = device_times(lambda: letterbox_np(on_card, PAGE), reps=10)
+    out = dict(boxes_per_page=nbox, frames_per_s_from_files=N_FILES / times["directory"],
+               frames_per_s_from_arrays=N_FILES / times["arrays"],
+               decode_ms_per_page=decode_ms, decode_ms_paeth_page=decode_ms[3],
+               letterbox_device_ms=lb_dev, launches=counts)
+    sub = [t for i, t in enumerate(decode_ms) if i != 3]
+    print(f"  directory == glob == arrays for every page (boxes {nbox}); "
+          f"{out['frames_per_s_from_files']:.2f} frames/s from the files, "
+          f"{out['frames_per_s_from_arrays']:.2f} from decoded arrays (median of 3); PNG decode "
+          f"on the host {statistics.median(sub):.1f} ms a Sub page, {decode_ms[3]:.1f} ms the "
+          f"Paeth page; letterbox to {PAGE} {lb_dev:.4f} ms device")
+    return out
+
+
+def _chars_as_dets(results: list[dict]) -> dict:
+    """Result characters of positive area as padded detections for
+    ``detections_match`` (a character clipped to its column crop's edge has
+    none, and no IoU can match it)."""
+    chars = []
+    for r in results:
+        b = np.asarray(r["characters"]["boxes"], np.float32).reshape(-1, 4)
+        chars.append(b[(b[:, 2] > b[:, 0]) & (b[:, 3] > b[:, 1])])
+    n = max(max(len(b) for b in chars), 1)
+    boxes = np.zeros((len(results), n, 4), np.float32)
+    valid = np.zeros((len(results), n), bool)
+    for i, b in enumerate(chars):
+        boxes[i, :len(b)], valid[i, :len(b)] = b, True
+    return {"boxes": boxes, "valid": valid, "classes": np.zeros(valid.shape, np.int32)}
+
+
+def _agreement(ref: list[dict], out: list[dict]) -> dict:
+    """Two cascade runs' results: columns per page, columns matched both
+    ways (``detections_match``), the texts of matched columns (IoU >= 0.5)
+    that are the same, and characters matched both ways."""
+    from kuzu_torch.testing import detections_match, iou_matrix
+
+    rd, od = _as_dets(ref), _as_dets(out)
+    same = total = 0
+    for r, o in zip(ref, out):
+        if not r["columns"] or not o["columns"]:
+            continue
+        iou = iou_matrix(np.asarray([x["box"] for x in r["columns"]], np.float32),
+                         np.asarray([x["box"] for x in o["columns"]], np.float32))
+        for i, j in enumerate(iou.argmax(1)):
+            if iou[i, j] >= 0.5:
+                total += 1
+                same += r["columns"][i]["text"] == o["columns"][j]["text"]
+    rc, oc = _chars_as_dets(ref), _chars_as_dets(out)
+    return dict(columns=[[len(r["columns"]) for r in ref], [len(r["columns"]) for r in out]],
+                matched=[detections_match(rd, od), detections_match(od, rd)],
+                texts=[same, total], texts_same=same / max(total, 1),
+                characters_matched=[detections_match(rc, oc), detections_match(oc, rc)])
+
+
+def _agreement_line(a: dict) -> str:
+    return (f"columns per page {a['columns'][0]} vs {a['columns'][1]}, matched "
+            f"{a['matched'][0]:.4f} / {a['matched'][1]:.4f}, texts of matched columns "
+            f"{a['texts'][0]} of {a['texts'][1]} the same, characters matched "
+            f"{a['characters_matched'][0]:.4f} / {a['characters_matched'][1]:.4f}")
+
+
+def _compare_results(card: list[dict], cpu: list[dict], what: str) -> dict:
+    """Phase 8a's criteria on two runs' results: the same column counts,
+    columns matched both ways (>= 0.9) and the texts of matched columns
+    (>= 0.95)."""
+    a = _agreement(cpu, card)
+    print(f"  {what} card vs CPU: {_agreement_line(a)} (CPU first; counts equal, matched >= "
+          f"0.9 both ways, texts >= 0.95)")
+    ncpu, ncard = a["columns"]
+    require(ncpu == ncard and min(ncpu) > 0 and min(a["matched"]) >= 0.9,
+            f"{what}: columns card vs CPU")
+    require(a["texts"][1] > 0 and a["texts_same"] >= 0.95, f"{what}: texts card vs CPU")
+    return a
+
+
+def _reference_pipeline(d, col, char, crnn, tok, dtype, col_max_det: int):
+    """13c's pipeline for card against CPU: 8b's weights on ``d``, the
+    detectors' unfolded graphs (eval mode) and the CRNN in ``dtype`` (f64 or
+    f32); an f64 detector's decoded output goes to the NMS in f32, as the
+    main path's does. The main path runs the bf16 executor with its kernels:
+    a calibrated seeded detector amplifies bf16 rounding, so two bf16
+    executors part by design."""
+    import copy
+
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.pipeline.cascade import KuzushijiPipeline
+    from kuzu_torch.tasks.ctc import CTCPredictor
+    from kuzu_torch.tasks.detect import DetectPredictor
+
+    def detector(name, src, **kw):
+        det = YoloDetector(name, nc=1, device=d, **kw).load_state_dict(src.graph.state_dict())
+        det.graph.eval()  # a new module trains: its BatchNorms would take each batch's statistics
+        if dtype == torch.float64:
+            det.graph.double()
+            det.graph.dtype = torch.float64
+            det.decode = lambda feats, f=det.decode: f(feats).float()
+        det.infer = lambda images, g=det.graph: g(images)
+        return det
+
+    rec = copy.deepcopy(crnn).to(d)
+    if dtype == torch.float64:
+        rec.double()
+        rec.dtype = rec.encoder.dtype = torch.float64
+    return KuzushijiPipeline(
+        column_model=DetectPredictor.from_detector(detector(COL_MODEL, col, imgsz=PAGE, reg_max=32),
+                                                   conf=CONF, iou=0.7, max_det=col_max_det),
+        char_model=DetectPredictor.from_detector(detector(CHAR_MODEL, char, imgsz=CHAR_IMGSZ),
+                                                 conf=CONF, iou=0.7, max_det=2000),
+        recognizer=CTCPredictor.from_model(rec, tok, CROP, device=d),
+        tile_grid=0, tile_overlap=0.15, max_det=2000, device=d)
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b).abs().max() / b.abs().max())
+
+
+def _map_error(p32, p64, image) -> dict:
+    """Each detector's raw maps in f32 against f64 on one device: max |d| /
+    max |f64| over the maps, the column detector on the page's 1280
+    letterbox (and at the output of each of its graph's nodes, where the
+    two part), the character detector on its first 640 tile."""
+    from kuzu_torch.data.yolo_dataset import letterbox_np
+    from kuzu_torch.pipeline.tiling import tile_image
+
+    page = torch.from_numpy(image).to(p32.device)
+    inputs = dict(columns=letterbox_np(page, PAGE)[0][None],
+                  characters=tile_image(page, grid=2, overlap=0.15, tile_size=CHAR_IMGSZ)[0][:1])
+    nodes: dict[str, dict] = {}
+    hooks = [m.register_forward_hook(
+                 lambda m, i, o, n=n, tag=tag: nodes.setdefault(n, {}).__setitem__(tag, o))
+             for tag, g in (("f32", p32.column_det.detector.graph),
+                            ("f64", p64.column_det.detector.graph))
+             for n, m in g.named_children()]
+    out = {}
+    try:
+        for key, a, b in (("columns", p32.column_det, p64.column_det),
+                          ("characters", p32.char_det, p64.char_det)):
+            with torch.no_grad():
+                m32, m64 = a.detector.infer(inputs[key]), b.detector.infer(inputs[key])
+            out[key] = max(_rel_err(x, y) for x, y in zip(m32, m64))
+    finally:
+        for h in hooks:
+            h.remove()
+    out["column_nodes"] = {n.split("_")[0]: _rel_err(o["f32"], o["f64"]) for n, o in nodes.items()
+                           if isinstance(o.get("f32"), torch.Tensor)}
+    return out
+
+
+def flat_cascade(dev, root, col, char, crnn, tok, launches: dict) -> dict:
+    """Phase 13c: the reference-shaped cascade from files at full width:
+    ``process_page(path)`` with ``tile_grid=0`` (yolov12s@1280 columns,
+    yolov12-p2x@640 characters inside each column crop, the CRNN on [1024,
+    64] crops; 8b's seeded weights) on a 3868 x 2422 page, then
+    ``process_pages`` over 4 pages of two shapes (3868 x 2422, 3508 x 2480)
+    with ``tile_grid=2``, which takes the host path; launches, times, the
+    stages of a profiled call, pages/s.
+
+    Card against CPU by phase 8a's criteria (equal column counts, columns
+    matched >= 0.9 both ways, texts of matched columns >= 0.95, end to end)
+    on the same weights, with the detectors' unfolded graphs (eval mode)
+    and the CRNN in f32, as phase 8 compares, and in f64 on both devices:
+    ``process_page`` with ``CPU_COL_MAX_DET`` columns, and the host path on
+    2 pages of the two shapes with ``col_refine`` on (the default) and
+    ``COL_MAX_DET`` columns. Each device's f32 run is also reported against
+    the CPU's f64 run, with each device's f32 map error (per node for the
+    column detector): near-equal candidates in NMS and the snapping of
+    columns to their characters turn rounding into moved columns, so these
+    say how far f32 is from the exact answer on each side."""
+    from kuzu_torch.data.image_io import imread_rgb
+    from kuzu_torch.pipeline.cascade import KuzushijiPipeline
+    from kuzu_torch.tasks.ctc import CTCPredictor
+    from kuzu_torch.tasks.detect import DetectPredictor
+    from kuzu_torch.testing import mixed_pages, page_files
+
+    def build(d, c, ch, rec, col_max_det):
+        return KuzushijiPipeline(
+            column_model=DetectPredictor.from_detector(c, conf=CONF, iou=0.7,
+                                                       max_det=col_max_det),
+            char_model=DetectPredictor.from_detector(ch, conf=CONF, iou=0.7, max_det=2000),
+            recognizer=CTCPredictor.from_model(rec, tok, CROP, device=d),
+            tile_grid=0, tile_overlap=0.15, max_det=2000, device=d)
+
+    page = page_files(root / "flat", mixed_pages([PAGE_HW], seed=50))[0]
+    shapes = [PAGE_HW, A4_HW, PAGE_HW, A4_HW]
+    mixed = page_files(root / "mixed", mixed_pages(shapes, seed=60))
+    pipe = build(dev, col, char, crnn, COL_MAX_DET)
+    pipe.process_page(page)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    res = pipe.process_page(page)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"flat cascade (tile_grid=0) on a {PAGE_HW[0]} x {PAGE_HW[1]} page from a file: "
+          f"launches {counts} (want nms 2: columns and the characters of every column crop; "
+          f"fused_ablock 16: one p2x@640 forward over the crops)")
+    require(counts == want(nms=2, fused_ablock=16), "flat cascade launch counts")
+    for name, n in counts.items():
+        launches[name] += n
+    ncol = len(res["columns"])
+    require(ncol > 0 and all(isinstance(c["text"], str) and "chars" in c for c in res["columns"]),
+            "every column has a text and its characters")
+    page_ms = statistics.median(
+        [(lambda t0: (pipe.process_page(page), time.perf_counter() - t0)[1])(time.perf_counter())
+         for _ in range(3)]) * 1e3
+    print(f"  {ncol} columns, {len(res['characters']['boxes'])} characters; process_page "
+          f"{page_ms:.1f} ms (median of 3, decode included)")
+    flat_breakdown = device_breakdown(lambda: pipe.process_page(page), ranges="cascade/")
+    require(set(flat_breakdown["stages"]) == {"decode", "columns", "crops", "characters",
+                                              "recognizer"}, "every tile_grid=0 stage profiled")
+
+    pipe.tile_grid = 2
+    pipe.process_pages(mixed)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    res4 = pipe.process_pages(mixed)
+    torch.cuda.synchronize()
+    counts4 = launch_counts()
+    print(f"host path (mixed shapes, tile_grid=2), 4 pages of {shapes[:2]}: launches {counts4} "
+          f"(want nms 3: columns, tiles, cross-tile; fused_ablock 16: one p2x forward over 16 "
+          f"tiles)")
+    require(counts4 == want(nms=3, fused_ablock=16), "host path launch counts")
+    for name, n in counts4.items():
+        launches[name] += n
+    for r, hw in zip(res4, shapes):
+        b = np.asarray([c["box"] for c in r["columns"]], np.float64).reshape(-1, 4)
+        require(len(b) > 0 and (b >= 0).all() and (b[:, [1, 3]] <= hw[0]).all()
+                and (b[:, [0, 2]] <= hw[1]).all(), "host path columns inside their page")
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pipe.process_pages(mixed)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    ms4 = statistics.median(ts) * 1e3
+    print(f"  columns per page {[len(r['columns']) for r in res4]}; process_pages {ms4:.1f} ms "
+          f"per 4 pages (median of 3: {', '.join(f'{t * 1e3:.1f}' for t in ts)}), "
+          f"{4e3 / ms4:.2f} pages/s")
+    breakdown = device_breakdown(lambda: pipe.process_pages(mixed), ranges="cascade/")
+    require(list(breakdown["stages"]) == ["decode", "columns", "tiles", "cross-tile NMS",
+                                          "geometry", "crops", "recognizer"],
+            "every host-path stage profiled")
+
+    # card against CPU on the same weights, in f64 and in f32 forwards
+    t0 = time.perf_counter()
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    flat_cmp = {}
+    for name, dt in dtypes.items():
+        flat = {d: _reference_pipeline(d, col, char, crnn, tok, dt, CPU_COL_MAX_DET)
+                for d in (dev, "cpu")}
+        one = {d: [p.process_page(page)] for d, p in flat.items()}
+        flat_cmp[name] = _compare_results(one[dev], one["cpu"],
+                                          f"process_page (tile_grid=0), {name} forwards")
+    del flat
+    host = {(d, name): _reference_pipeline(d, col, char, crnn, tok, dt, COL_MAX_DET)
+            for d in (dev, "cpu") for name, dt in dtypes.items()}
+    two = {}
+    for key, p in host.items():
+        p.tile_grid = 2
+        two[key] = p.process_pages(mixed[:2])
+    host_cmp = {name: _compare_results(
+        two[dev, name], two["cpu", name],
+        f"process_pages host path (col_refine on), 2 shapes, {name} forwards") for name in dtypes}
+    host_cmp["f32 against the CPU's f64 run"] = {
+        side: _agreement(two["cpu", "f64"], two[d, "f32"]) for side, d in (("card", dev),
+                                                                         ("CPU", "cpu"))}
+    for side, a in host_cmp["f32 against the CPU's f64 run"].items():
+        print(f"    {side} f32 against the CPU's f64 run (reported): {_agreement_line(a)}")
+    image = imread_rgb(mixed[0])
+    map_err = {side: _map_error(host[d, "f32"], host[d, "f64"], image)
+               for side, d in (("card", dev), ("CPU", "cpu"))}
+    print(f"    detector maps f32 against f64 on each device, max |d| / max |f64|: columns "
+          f"card {map_err['card']['columns']:.3e}, CPU {map_err['CPU']['columns']:.3e}; "
+          f"characters card {map_err['card']['characters']:.3e}, CPU "
+          f"{map_err['CPU']['characters']:.3e} (reported)")
+    for side, e in map_err.items():
+        print(f"      column detector's nodes on the {side}: " + ", ".join(
+            f"{n} {v:.1e}" for n, v in e["column_nodes"].items()))
+    print(f"  card vs CPU took {time.perf_counter() - t0:.1f} s (CPU runs included)")
+    del host
+    torch.cuda.empty_cache()
+    return dict(flat_columns=ncol, flat_page_ms=page_ms, flat_launches=counts,
+                flat_breakdown=flat_breakdown,
+                host_launches=counts4, host_ms_per_4_pages=ms4, host_pages_per_s=4e3 / ms4,
+                host_columns=[len(r["columns"]) for r in res4], breakdown=breakdown,
+                card_vs_cpu=dict(flat=flat_cmp, host=host_cmp, f32_map_error=map_err))
+
+
+def yc_transport(dev, pipe, pages) -> dict:
+    """Phase 13d: the chroma-subsampled transport on 8b's 16 pages:
+    ``pack_yc`` card against CPU (bytes), ``unpack_yc`` on the card against
+    the CPU (one level at most, 99.9% exact: the bilinear chroma upsample in
+    f32 on each device), and the yc cascade's columns and texts beside the RGB
+    cascade's on the same pipeline."""
+    from kuzu_torch.pipeline.device_pages import pack_yc, unpack_yc
+
+    y, c = pack_yc(pages)
+    yg, cg = pack_yc(pages.to(dev))
+    packed_off = _bytes_off(yg, y) + _bytes_off(cg, c)
+    cpu_rgb = unpack_yc(y, c)
+    card_rgb = unpack_yc(y.to(dev), c.to(dev)).cpu()
+    diff = (card_rgb.short() - cpu_rgb.short()).abs()
+    exact = float((diff == 0).float().mean())
+    print(f"yc transport, 16 pages of {PAGE}: pack_yc card vs CPU {packed_off} bytes differ "
+          f"(must be 0); unpack_yc card vs CPU max level difference {int(diff.max())} (<= 1), "
+          f"exact share {exact:.6f} (>= 0.999); bytes shipped {y.numel() + c.numel()} of "
+          f"{pages.numel()} ({(y.numel() + c.numel()) / pages.numel():.3f})")
+    require(packed_off == 0 and int(diff.max()) <= 1 and exact >= 0.999, "yc card vs CPU")
+    rgb = pipe.process_pages(pages)
+    pipe.transport = "yc"
+    try:
+        yc = pipe.process_pages(pages)
+    finally:
+        pipe.transport = "rgb"
+    same = sum(a["text"] == b["text"] for r, s in zip(rgb, yc)
+               for a, b in zip(r["columns"], s["columns"]))
+    n_rgb = [len(r["columns"]) for r in rgb]
+    n_yc = [len(r["columns"]) for r in yc]
+    print(f"  columns per page RGB {n_rgb} / yc {n_yc}; texts equal in {same} of "
+          f"{sum(min(a, b) for a, b in zip(n_rgb, n_yc))} column pairs in order")
+    require(min(n_yc) > 0, "the yc cascade finds columns")
+    return dict(packed_bytes_off=packed_off, unpack_max_level=int(diff.max()),
+                unpack_exact_share=exact, columns_rgb=n_rgb, columns_yc=n_yc, texts_same=same)
+
+
+def ship_once_vs_host(pipe, pages) -> dict:
+    """Phase 13e: the ship-once route against the host path
+    (``ship_once=False``) on 4 of 8b's equal-shape pages: the largest box
+    difference of matched columns and the text agreement, reported and not
+    held (the JAX package's own test of this pair,
+    tests/test_cascade_e2e.py::test_ship_once_matches_host_path, finds its
+    two paths 27.5 px apart)."""
+    from kuzu_torch.testing import iou_matrix
+
+    sub = pages[:4]
+    once = pipe.process_pages(sub)
+    pipe.ship_once = False
+    try:
+        host = pipe.process_pages(sub)
+    finally:
+        pipe.ship_once = True
+    worst = 0.0
+    same = total = unmatched = 0
+    for a, b in zip(once, host):
+        ba = np.asarray([c["box"] for c in a["columns"]], np.float32).reshape(-1, 4)
+        bb = np.asarray([c["box"] for c in b["columns"]], np.float32).reshape(-1, 4)
+        if not len(ba) or not len(bb):
+            unmatched += len(ba) + len(bb)
+            continue
+        iou = iou_matrix(ba, bb)
+        for i, j in enumerate(iou.argmax(1)):
+            if iou[i, j] >= 0.5:
+                total += 1
+                worst = max(worst, float(np.abs(ba[i] - bb[j]).max()))
+                same += a["columns"][i]["text"] == b["columns"][j]["text"]
+            else:
+                unmatched += 1
+    print(f"ship-once vs host path, 4 pages of {PAGE}: columns {[len(r['columns']) for r in once]}"
+          f" vs {[len(r['columns']) for r in host]}, {total} matched (IoU >= 0.5), {unmatched} "
+          f"not; largest box difference {worst:.2f} px; texts equal {same} of {total} (reported, "
+          f"not held)")
+    return dict(columns_ship_once=[len(r["columns"]) for r in once],
+                columns_host=[len(r["columns"]) for r in host], matched=total,
+                unmatched=unmatched, max_box_diff_px=worst, texts_same=same)
+
+
+def image_files_phase(dev, launches: dict) -> dict:
+    """Phase 13: serving from image files (13a-e) on 8b's seeded, calibrated
+    detectors and CRNN, inside a temporary directory."""
+    import tempfile
+    from pathlib import Path
+
+    out = dict(card_vs_cpu=image_layer_card_vs_cpu(dev))
+    pages = production_pages()
+    tok = synthetic_tokenizer()
+    col, char = production_detectors(dev, pages)
+    crnn = seeded_crnn(dev, pages, CROP, len(tok), seed=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        out["detector_from_files"] = detector_from_files(dev, root / "pages", col, launches)
+        out["flat_and_host"] = flat_cascade(dev, root, col, char, crnn, tok, launches)
+    pipe = cascade_pipeline(dev, col, char, crnn, tok, CROP, COL_MAX_DET)
+    out["yc"] = yc_transport(dev, pipe, pages)
+    out["ship_once_vs_host"] = ship_once_vs_host(pipe, pages)
+    del pipe, col, char, crnn
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 KERNELS = {
@@ -3598,6 +4165,7 @@ def main() -> int:
     cascade["k1_cross_tile"] = k1_cross_tile(dev)
     cascade["full_width"] = cascade_full_width(dev, launches)
     torch.cuda.empty_cache()
+    image_files = image_files_phase(dev, launches)
     recognizer_training = recognizer_training_phase(dev, launches)
     torch.cuda.empty_cache()
     train_slice_check(dev, launches)
@@ -3618,6 +4186,7 @@ def main() -> int:
                       "card": card}))
     print(json.dumps({"e2e_yolov12x_640_b8": e2e, "card": card}))
     print(json.dumps({"cascade_16_pages_1280": cascade, "card": card}))
+    print(json.dumps({"image_files": image_files, "card": card}))
     print(json.dumps({"train_yolov12p2x_640_b8": train, "card": card}))
     print(json.dumps({"recognizer_training": recognizer_training, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,135 @@
+"""Model facade, the public entry point (counterpart of
+``kuzu/api/model.py``): ``Model(...).train() / .val() / .predict()``.
+
+A task name maps to its trainer, validator and predictor classes; the port's
+task modules (``detect``, ``ctc``, ``recognize``, ``lm``) register
+themselves on import through :func:`register_task`. Every component runs on
+``device`` (the card when None).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Callable
+
+import torch
+
+from kuzu_torch.core.config import Config, load_config
+
+_TASK_REGISTRY: dict[str, dict[str, Callable]] = {}
+
+UNPORTED = ("ROADMAP.md section 1 item 16: the tracker, tuner, exporter and benchmark "
+            "tools are not ported")
+
+
+def register_task(name: str, **components: Callable) -> None:
+    _TASK_REGISTRY.setdefault(name, {}).update(components)
+
+
+def task_map() -> dict[str, dict[str, Callable]]:
+    # import side-effect registration
+    import kuzu_torch.tasks.ctc  # noqa: F401
+    import kuzu_torch.tasks.detect  # noqa: F401
+    import kuzu_torch.tasks.lm  # noqa: F401
+    import kuzu_torch.tasks.recognize  # noqa: F401
+
+    return _TASK_REGISTRY
+
+
+class Model:
+    """Facade over a task's trainer / validator / predictor.
+
+    ``model`` may be a model-yaml path (build from scratch), a run directory
+    (restore), or an architecture name like ``yolov12n`` / ``trocr``; the
+    task is ``task``, else the run's ``args.yaml`` task, else guessed from
+    the name. ``device`` is passed to every component (the card when None)."""
+
+    def __init__(self, model: str | Path, task: str | None = None,
+                 device: torch.device | str | None = None, **kwargs: Any):
+        if str(model).startswith("hub://"):
+            raise NotImplementedError(f"{model}: the local model hub ({UNPORTED}) is not "
+                                      "ported")
+        self.model_spec = str(model)
+        self.task = task or self._guess_task(self.model_spec)
+        self.device = device
+        self.overrides: dict[str, Any] = dict(kwargs)
+        self._trainer = None
+        self._predictor = None
+        self._predictor_key: tuple | None = None
+
+    # ordered (task, markers): first marker hit wins
+    _TASK_MARKERS: tuple[tuple[str, tuple[str, ...]], ...] = (
+        ("recognize", ("trocr", "ocr", "unet", "csa")),
+        ("classify", ("simplevit", "simple_vit", "classify", "cvae", "stackgan")),
+        ("lm", ("mlm", "roberta", "lm")),
+        ("ctc", ("crnn", "ctc")),
+    )
+
+    @classmethod
+    def _guess_task(cls, spec: str) -> str:
+        # a run dir records its task in args.yaml: trust it over heuristics
+        args = Path(spec) / "args.yaml"
+        if args.exists():
+            import yaml
+
+            recorded = (yaml.safe_load(args.read_text()) or {}).get("task")
+            if recorded:
+                return str(recorded)
+        s = spec.lower()
+        for task, markers in cls._TASK_MARKERS:
+            if any(m in s for m in markers):
+                return task
+        return "detect"
+
+    def _component(self, kind: str) -> Callable:
+        tmap = task_map()
+        if self.task not in tmap or kind not in tmap[self.task]:
+            raise NotImplementedError(
+                f"task '{self.task}' has no registered '{kind}'"
+            )
+        return tmap[self.task][kind]
+
+    def _cfg(self, mode: str, **kwargs: Any) -> Config:
+        ov = {**self.overrides, **kwargs, "mode": mode, "task": self.task}
+        ov.setdefault("model", self.model_spec)
+        return load_config(overrides=ov)
+
+    def train(self, **kwargs: Any) -> dict:
+        trainer_cls = self._component("trainer")
+        self._trainer = trainer_cls(self._cfg("train", **kwargs), device=self.device)
+        return self._trainer.train()
+
+    def val(self, **kwargs: Any) -> dict:
+        validator_cls = self._component("validator")
+        return validator_cls(self._cfg("val", **kwargs), device=self.device).run()
+
+    def predict(self, source: Any, **kwargs: Any):
+        predictor_cls = self._component("predictor")
+        key = tuple(sorted((k, repr(v)) for k, v in kwargs.items()))
+        if self._predictor is None or key != self._predictor_key:
+            self._predictor = predictor_cls(self._cfg("predict", **kwargs), device=self.device)
+            self._predictor_key = key
+        return self._predictor(source)
+
+    def __call__(self, source: Any, **kwargs: Any):
+        return self.predict(source, **kwargs)
+
+    def track(self, source: Any, tracker: str = "bytetrack", persist: bool = False,
+              **kwargs: Any):
+        raise NotImplementedError(f"Model.track: {UNPORTED}")
+
+    def tune(self, iterations: int = 10, **kwargs: Any) -> dict:
+        raise NotImplementedError(f"Model.tune: {UNPORTED}")
+
+    def export(self, **kwargs: Any):
+        raise NotImplementedError(f"Model.export: {UNPORTED}")
+
+    def benchmark(self, **kwargs: Any) -> dict:
+        raise NotImplementedError(f"Model.benchmark: {UNPORTED}")
+
+
+class YOLO(Model):
+    """Detection-flavoured alias kept for reference-API familiarity."""
+
+    def __init__(self, model: str | Path = "yolov12n", **kwargs: Any):
+        super().__init__(model, task="detect", **kwargs)

@@ -1,0 +1,510 @@
+"""Image decoding and resizing without cv2 or PIL: the port's counterparts of
+the cv2 / PIL calls on the JAX package's serving path, each giving the bytes
+that library gives.
+
+The GPU machine has neither cv2 nor PIL, and its torch has no image
+decoder, so the port reads and resizes images itself:
+
+- :func:`resize_linear_u8` is ``cv2.resize(..., INTER_LINEAR)`` on uint8,
+  :func:`resize_pil_bilinear_u8` PIL's ``Image.resize(..., BILINEAR)``,
+  :func:`rgb_to_ycrcb_u8` ``cv2.cvtColor(..., COLOR_RGB2YCrCb)`` and
+  :func:`resize_area_u8` ``cv2.resize(..., INTER_AREA)`` at an integer
+  factor. Each repeats its library's fixed-point arithmetic in torch
+  integers (int32 gathers and sums over the taps; CUDA has no integer
+  matmul), so it gives the same bytes on the CPU and on the card. The tap
+  tables are built on the host in numpy's IEEE float32 / float64, as the
+  libraries build theirs.
+- :func:`imread_rgb` is ``cv2.cvtColor(cv2.imread(p), COLOR_BGR2RGB)``
+  (``backend="cv2"``) or ``np.asarray(Image.open(p).convert("RGB"))``
+  (``backend="pil"``). PNG (every filter, 1-16 bits, gray, gray + alpha,
+  RGB, RGBA, palette; alpha dropped as ``IMREAD_COLOR`` drops it; 16 bits
+  taken as their high byte, but 16-bit gray clipped to 255 under PIL),
+  uncompressed BMP, binary PPM / PGM and ``.npy`` are read here with zlib
+  and numpy. Other formats (JPEG, TIFF, WebP,
+  interlaced PNG) need a codec: the backend's library decodes them where it
+  imports, else an ``ImportError`` names the format and the package. Two
+  JPEG decoders may differ by a level, so the backend is the caller's
+  choice and never switched quietly.
+- :func:`write_png` writes an RGB or gray uint8 image as PNG (filter Sub on
+  every row, or Paeth), for tests and the GPU smoke run.
+
+cv2 and PIL are imported only inside the decoding of the formats above.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# ------------------------------------------------------------------ resizes
+
+
+def _as_tensor(img) -> tuple[torch.Tensor, bool]:
+    """(uint8 tensor with a batch axis, whether ``img`` was a numpy array)."""
+    is_np = isinstance(img, np.ndarray)
+    t = torch.from_numpy(np.ascontiguousarray(img)) if is_np else img
+    if t.dtype != torch.uint8 or t.dim() not in (3, 4):
+        raise ValueError(f"expected uint8 (H, W, C) or (B, H, W, C), got {tuple(t.shape)} "
+                         f"{t.dtype}")
+    return t, is_np
+
+
+def _like(out: torch.Tensor, batched: bool, is_np: bool):
+    out = out if batched else out[0]
+    return out.numpy() if is_np else out
+
+
+def _taps_along(x: torch.Tensor, axis: int, idx: np.ndarray, coef: np.ndarray) -> torch.Tensor:
+    """sum_k x[..., idx[:, k], ...] * coef[:, k] along ``axis`` of int32 ``x``,
+    one tap at a time (no (..., n, K, ...) gather)."""
+    dev = x.device
+    acc = None
+    for k in range(idx.shape[1]):
+        i = torch.from_numpy(np.ascontiguousarray(idx[:, k], np.int64)).to(dev)
+        c = torch.from_numpy(np.ascontiguousarray(coef[:, k], np.int32)).to(dev)
+        shape = [1] * x.dim()
+        shape[axis] = -1
+        term = x.index_select(axis, i) * c.view(shape)
+        acc = term if acc is None else acc.add_(term)
+    return acc
+
+
+def _cv2_linear_table(ssize: int, dsize: int, clamp: bool):
+    """cv2's INTER_LINEAR source index and fraction per destination index:
+    ``f = float32((d + 0.5) * scale - 0.5)`` with ``scale = 1 / (dsize /
+    ssize)`` in double, ``s = floor(f)``, ``f -= s``; horizontally (``clamp``)
+    a source index past either border takes that border with fraction 0."""
+    scale = 1.0 / (dsize / ssize)
+    f = ((np.arange(dsize, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    if clamp:
+        lo, hi = s < 0, s >= ssize - 1
+        f[lo | hi] = 0
+        s[lo] = 0
+        s[hi] = ssize - 1
+    # saturate_cast<short>(cbuf[k] * 2048): round half to even in float32
+    a0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int32)
+    a1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    idx = np.stack([np.clip(s, 0, ssize - 1), np.clip(s + 1, 0, ssize - 1)], 1)
+    return idx, np.stack([a0, a1], 1)
+
+
+def resize_linear_u8(img, size: tuple[int, int]):
+    """``cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)`` on uint8
+    (H, W, C) or (B, H, W, C), a tensor (on any device) or an ndarray; returns
+    the same kind. Fixed point as cv2's: 11-bit taps; the horizontal pass
+    ``H = I[s] a0 + I[s+1] a1`` in int32 with the source index clamped at
+    the borders (fraction 0 there); the vertical pass with its fraction not
+    clamped (only the two row indices are), ``(((b0 (H0 >> 4)) >> 16) +
+    ((b1 (H1 >> 4)) >> 16) + 2) >> 2``. An unchanged size returns a copy."""
+    t, is_np = _as_tensor(img)
+    batched = t.dim() == 4
+    x = t if batched else t[None]
+    nh, nw = int(size[0]), int(size[1])
+    h, w = x.shape[1], x.shape[2]
+    if (nh, nw) == (h, w):
+        return _like(x.clone(), batched, is_np)
+    xi, xa = _cv2_linear_table(w, nw, clamp=True)
+    yi, yb = _cv2_linear_table(h, nh, clamp=False)
+    horiz = _taps_along(x.to(torch.int32), 2, xi, xa) >> 4  # (B, h, nw, C)
+    dev = x.device
+    r0 = horiz.index_select(1, torch.from_numpy(yi[:, 0]).to(dev))
+    r1 = horiz.index_select(1, torch.from_numpy(yi[:, 1]).to(dev))
+    b0 = torch.from_numpy(yb[:, 0]).to(dev).view(1, -1, 1, 1)
+    b1 = torch.from_numpy(yb[:, 1]).to(dev).view(1, -1, 1, 1)
+    out = (((b0 * r0) >> 16) + ((b1 * r1) >> 16) + 2) >> 2
+    return _like(out.clamp_(0, 255).to(torch.uint8), batched, is_np)
+
+
+PIL_PRECISION_BITS = 22  # PIL's 8-bit resample: 32 - 8 - 2
+
+
+def _pil_bilinear_table(in_size: int, out_size: int):
+    """PIL's ``precompute_coeffs`` for the bilinear (triangle) filter in
+    double, normalised, then ``normalize_coeffs_8bpc``'s 22-bit fixed point:
+    ``trunc(+-0.5 + w 2^22)``. Returns (source index (out, K) clamped,
+    int32 taps (out, K), 0 past each output's support)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    ss = 1.0 / filterscale
+    k = np.zeros((out_size, ksize), np.float64)
+    ww = np.zeros(out_size, np.float64)
+    for x in range(ksize):  # in PIL's order: ww sums the taps left to right
+        arg = np.abs((x + xmin - center + 0.5) * ss)
+        wx = np.where((x < xmax) & (arg < 1.0), 1.0 - arg, 0.0)
+        k[:, x] = wx
+        ww = ww + wx
+    k = np.where(ww[:, None] != 0.0, k / np.where(ww == 0.0, 1.0, ww)[:, None], k)
+    one = float(1 << PIL_PRECISION_BITS)
+    fixed = np.where(k < 0, -0.5 + k * one, 0.5 + k * one).astype(np.int64).astype(np.int32)
+    idx = np.minimum(xmin[:, None] + np.arange(ksize)[None, :], in_size - 1)
+    return idx, fixed
+
+
+def _pil_pass(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
+    idx, coef = _pil_bilinear_table(x.shape[axis], out_size)
+    acc = _taps_along(x.to(torch.int32), axis, idx, coef)
+    acc += 1 << (PIL_PRECISION_BITS - 1)
+    return (acc >> PIL_PRECISION_BITS).clamp_(0, 255).to(torch.uint8)
+
+
+def resize_pil_bilinear_u8(img, size: tuple[int, int]):
+    """PIL's ``Image.resize((nw, nh), Image.BILINEAR)`` on uint8 RGB (H, W, 3)
+    or (B, H, W, 3), a tensor or an ndarray: the antialiased triangle
+    filter (support scaled by max(in / out, 1)), 22-bit fixed-point taps,
+    the horizontal pass first, each pass rounded (+2^21, >> 22) and clipped
+    to uint8. An unchanged size returns a copy."""
+    t, is_np = _as_tensor(img)
+    batched = t.dim() == 4
+    x = t if batched else t[None]
+    nh, nw = int(size[0]), int(size[1])
+    if (nh, nw) == tuple(x.shape[1:3]):
+        return _like(x.clone(), batched, is_np)
+    if nw != x.shape[2]:
+        x = _pil_pass(x, 2, nw)
+    if nh != x.shape[1]:
+        x = _pil_pass(x, 1, nh)
+    return _like(x, batched, is_np)
+
+
+# cv2's RGB2YCrCb_i for 8 bits: 14-bit coefficients of Y = 0.299 R + 0.587 G
+# + 0.114 B, Cr = 0.713 (R - Y) + 128, Cb = 0.564 (B - Y) + 128
+YCC_SHIFT = 14
+YCC_COEFFS = (4899, 9617, 1868, 11682, 9241)
+
+
+def rgb_to_ycrcb_u8(img):
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2YCrCb)`` on uint8 (..., 3), a tensor
+    or an ndarray: ``Y = (R c0 + G c1 + B c2 + 2^13) >> 14``, ``Cr = ((R - Y)
+    c3 + 128 2^14 + 2^13) >> 14``, ``Cb`` likewise from B, saturated."""
+    is_np = isinstance(img, np.ndarray)
+    t = torch.from_numpy(np.ascontiguousarray(img)) if is_np else img
+    x = t.to(torch.int32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    c0, c1, c2, c3, c4 = YCC_COEFFS
+    half = 1 << (YCC_SHIFT - 1)
+    delta = 128 << YCC_SHIFT
+    y = (r * c0 + g * c1 + b * c2 + half) >> YCC_SHIFT
+    cr = ((r - y) * c3 + delta + half) >> YCC_SHIFT
+    cb = ((b - y) * c4 + delta + half) >> YCC_SHIFT
+    out = torch.stack([y, cr, cb], -1).clamp_(0, 255).to(torch.uint8)
+    return out.numpy() if is_np else out
+
+
+def resize_area_u8(img, factor: int):
+    """``cv2.resize(img, (W / f, H / f), interpolation=cv2.INTER_AREA)`` on
+    uint8 (H, W, C) or (B, H, W, C) with H and W multiples of the integer
+    ``f``: each f x f block's sum in int32, times float32(1 / f^2), rounded
+    half to even (cv2's fast area path); at f = 2 on other than 2 channels,
+    cv2's vector path, ``(sum + 2) >> 2``."""
+    t, is_np = _as_tensor(img)
+    batched = t.dim() == 4
+    x = t if batched else t[None]
+    b, h, w, c = x.shape
+    f = int(factor)
+    if h % f or w % f:
+        raise ValueError(f"({h}, {w}) is not a multiple of the factor {f}")
+    s = x.to(torch.int32).reshape(b, h // f, f, w // f, f, c).sum((2, 4), dtype=torch.int32)
+    if f == 2 and c != 2:
+        out = (s + 2) >> 2
+    else:
+        out = torch.round(s.to(torch.float32) * torch.tensor(1.0 / (f * f), dtype=torch.float32))
+    return _like(out.clamp_(0, 255).to(torch.uint8), batched, is_np)
+
+
+# -------------------------------------------------------------------- PNG
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+PNG_FILTERS = {"none": 0, "sub": 1, "up": 2, "avg": 3, "paeth": 4}
+WAVEFRONT_ROWS = 1024  # rows of one skewed block in the Avg / Paeth unfilter
+
+
+def _paeth_or_avg(a, b, c, filt):
+    """PNG's Avg (3) or Paeth (4) predictor of int16 neighbours left ``a``,
+    up ``b`` and up-left ``c``, chosen per row by ``filt``."""
+    avg = (a + b) >> 1
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    return np.where(filt == 3, avg, paeth)
+
+
+def _unfilter_wavefront(raw: np.ndarray, filt: np.ndarray, prev: np.ndarray,
+                        bpp: int) -> np.ndarray:
+    """Avg / Paeth rows (n, row bytes) after the decoded row ``prev``.
+
+    A pixel depends on its left, upper and upper-left neighbours, so every
+    anti-diagonal of pixels decodes at once from the two before it. The
+    block is held skewed, ``q[i + j, i] = out[i - 1, j - 1]`` with row 0 the
+    previous row and column 0 zero, so each diagonal's neighbours are
+    slices: left ``q[e - 1, i]``, up ``q[e - 1, i - 1]``, up-left
+    ``q[e - 2, i - 1]``."""
+    n = raw.shape[0]
+    p = raw.shape[1] // bpp
+    q = np.zeros((n + p + 1, n + 1, bpp), np.int16)
+    q[1:p + 1, 0] = prev.reshape(p, bpp)
+    rs = np.zeros((n + p + 1, n + 1, bpp), np.int16)
+    i = np.arange(n)[:, None]
+    j = np.arange(p)[None, :]
+    rs[i + j + 2, i + 1] = raw.reshape(n, p, bpp)
+    f = np.concatenate([[0], filt]).astype(np.int16)[:, None]
+    for e in range(2, n + p + 1):
+        lo, hi = max(1, e - p), min(n, e - 1)
+        a = q[e - 1, lo:hi + 1]
+        b = q[e - 1, lo - 1:hi]
+        c = q[e - 2, lo - 1:hi]
+        q[e, lo:hi + 1] = (rs[e, lo:hi + 1] + _paeth_or_avg(a, b, c, f[lo:hi + 1])) & 255
+    return q[i + j + 2, i + 1].reshape(n, p * bpp).astype(np.uint8)
+
+
+def png_unfilter(data: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo PNG's per-row filters: ``data`` (rows, 1 + row bytes) with each
+    row's filter byte first, ``bpp`` bytes a pixel (1 below 8 bits).
+    None, Sub (a running sum mod 256) and Up rows are vectorised along the
+    row; runs of Avg / Paeth rows decode by anti-diagonals
+    (:func:`_unfilter_wavefront`), in blocks of ``WAVEFRONT_ROWS``."""
+    h, n = data.shape[0], data.shape[1] - 1
+    filt, raw = data[:, 0], data[:, 1:]
+    if int(filt.max(initial=0)) > 4:
+        raise ValueError(f"PNG filter type {int(filt.max())} is not 0-4")
+    out = np.empty((h, n), np.uint8)
+    prev = np.zeros(n, np.uint8)
+    r = 0
+    while r < h:
+        ft = int(filt[r])
+        if ft >= 3:
+            e = r + 1
+            while e < h and filt[e] >= 3 and e - r < WAVEFRONT_ROWS:
+                e += 1
+            out[r:e] = _unfilter_wavefront(raw[r:e], filt[r:e], prev, bpp)
+            r = e
+        else:
+            if ft == 0:
+                out[r] = raw[r]
+            elif ft == 1:
+                out[r] = np.cumsum(raw[r].reshape(-1, bpp), 0, dtype=np.uint8).reshape(-1)
+            else:
+                out[r] = raw[r] + prev
+            r += 1
+        prev = out[r - 1]
+    return out
+
+
+def _png_chunks(buf: bytes):
+    pos = len(PNG_SIGNATURE)
+    while pos + 8 <= len(buf):
+        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        yield kind, buf[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IEND":
+            return
+
+
+class _NeedsCodec(Exception):
+    """A file this module does not decode itself (its format's name)."""
+
+
+def _read_png(buf: bytes, backend: str) -> np.ndarray:
+    header, palette, idat = None, None, []
+    for kind, body in _png_chunks(buf):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = header
+    if interlace:
+        raise _NeedsCodec("interlaced PNG")
+    ch = _PNG_CHANNELS[ctype]
+    bits = depth * ch
+    bpp = max(bits // 8, 1)
+    row = (w * bits + 7) // 8
+    data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[:h * (row + 1)]
+    px = png_unfilter(data.reshape(h, row + 1), bpp)
+    if depth == 16 and ctype == 0 and backend == "pil":  # PIL's "I;16" -> "RGB" clips
+        samples = np.minimum(px.reshape(h, w, 1, 2).view(">u2")[..., 0], 255).astype(np.uint8)
+    elif depth == 16:
+        samples = px.reshape(h, w, ch, 2)[..., 0]  # the high byte, as cv2's 8-bit read
+    elif depth == 8:
+        samples = px.reshape(h, w, ch)
+    else:  # 1, 2 or 4 bits, one sample a pixel (gray or palette)
+        bitsplit = np.unpackbits(px, axis=1).reshape(h, -1, depth)[:, :w]
+        samples = (bitsplit * (1 << np.arange(depth - 1, -1, -1))).sum(-1).astype(np.uint8)
+        if ctype == 0:
+            samples = samples * np.uint8(255 // ((1 << depth) - 1))
+        samples = samples[..., None]
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("palette PNG without PLTE")
+        return palette[samples[..., 0]]
+    if ctype in (0, 4):
+        return np.repeat(samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
+
+
+def write_png(path: str | Path, img: np.ndarray, filter: str = "sub") -> Path:
+    """Write uint8 (H, W, 3) RGB or (H, W) gray as an 8-bit PNG, every row
+    with the same filter (``"sub"`` or ``"paeth"``; zlib level 6)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"write_png takes uint8 (H, W, 3) or (H, W), got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else 3
+    x = img.reshape(h, w * bpp).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    if filter == "sub":
+        filtered = x - a
+    elif filter == "paeth":
+        b = np.zeros_like(x)
+        b[1:] = x[:-1]
+        c = np.zeros_like(x)
+        c[1:, bpp:] = x[:-1, :-bpp]
+        filtered = x - _paeth_or_avg(a, b, c, np.int16(4))
+    else:
+        raise ValueError(f"filter {filter!r}: 'sub' or 'paeth'")
+    rows = np.empty((h, w * bpp + 1), np.uint8)
+    rows[:, 0] = PNG_FILTERS[filter]
+    rows[:, 1:] = (filtered & 255).astype(np.uint8)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if bpp == 3 else 0, 0, 0, 0)
+    path = Path(path)
+    path.write_bytes(PNG_SIGNATURE + chunk(b"IHDR", ihdr)
+                     + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+    return path
+
+
+# ---------------------------------------------------------- BMP, PNM, npy
+
+
+def _read_bmp(buf: bytes) -> np.ndarray:
+    offset = struct.unpack("<I", buf[10:14])[0]
+    hsize = struct.unpack("<I", buf[14:18])[0]
+    if hsize < 40:
+        raise _NeedsCodec("BMP with a core header")
+    w, h, _, bits, comp = struct.unpack("<iiHHI", buf[18:34])
+    if comp != 0 or bits not in (8, 24, 32):
+        raise _NeedsCodec(f"BMP ({bits} bits, compression {comp})")
+    top_down, h = h < 0, abs(h)
+    stride = (w * bits // 8 + 3) & ~3
+    rows = np.frombuffer(buf, np.uint8, stride * h, offset).reshape(h, stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bits == 8:
+        ncolors = struct.unpack("<I", buf[46:50])[0] or 256
+        table = np.frombuffer(buf, np.uint8, 4 * ncolors, 14 + hsize).reshape(-1, 4)
+        bgr = table[rows[:, :w], :3]
+    else:
+        bgr = rows[:, :w * bits // 8].reshape(h, w, bits // 8)[..., :3]
+    return np.ascontiguousarray(bgr[..., ::-1])
+
+
+def _read_pnm(buf: bytes) -> np.ndarray:
+    fields, pos = [], 2
+    while len(fields) < 3:  # width, height, maxval, skipping comments
+        while buf[pos:pos + 1].isspace():
+            pos += 1
+        if buf[pos:pos + 1] == b"#":
+            pos = buf.index(b"\n", pos)
+            continue
+        end = pos
+        while not buf[end:end + 1].isspace():
+            end += 1
+        fields.append(int(buf[pos:end]))
+        pos = end
+    w, h, maxval = fields
+    if maxval != 255:
+        raise _NeedsCodec(f"PNM with maxval {maxval}")
+    ch = 3 if buf[:2] == b"P6" else 1
+    px = np.frombuffer(buf, np.uint8, w * h * ch, pos + 1).reshape(h, w, ch)
+    return np.repeat(px, 3, axis=2) if ch == 1 else px.copy()
+
+
+def _read_npy(path: Path) -> np.ndarray:
+    arr = np.load(path, allow_pickle=False)
+    if arr.dtype != np.uint8 or arr.ndim not in (2, 3) or (arr.ndim == 3
+                                                          and arr.shape[2] != 3):
+        raise ValueError(f"{path}: an image .npy is uint8 (H, W, 3) RGB or (H, W), got "
+                         f"{arr.shape} {arr.dtype}")
+    return np.repeat(arr[..., None], 3, axis=2) if arr.ndim == 2 else arr
+
+
+def _codec_name(buf: bytes, path: Path) -> str:
+    if buf[:3] == b"\xff\xd8\xff":
+        return "JPEG"
+    if buf[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    if buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
+        return "WebP"
+    return path.suffix.lstrip(".").upper() or "unknown"
+
+
+def _decode_with(backend: str, path: Path, fmt: str) -> np.ndarray:
+    """Decode through cv2 or PIL, or raise ImportError naming ``fmt``."""
+    if backend == "pil":
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(f"{path}: decoding {fmt} needs PIL (Pillow), which is not "
+                              "installed") from e
+        try:
+            with Image.open(path) as im:
+                return np.array(im.convert("RGB"))
+        except OSError as e:
+            raise FileNotFoundError(f"cannot read image: {path}") from e
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{path}: decoding {fmt} needs cv2 (opencv-python), which is not "
+                          "installed") from e
+    img = cv2.imread(str(path))
+    if img is None:
+        raise FileNotFoundError(f"cannot read image: {path}")
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def imread_rgb(path: str | Path, backend: str = "cv2") -> np.ndarray:
+    """An image file as uint8 (H, W, 3) RGB, as ``cv2.imread`` + BGR2RGB
+    gives it (``backend="cv2"``) or PIL's ``convert("RGB")``
+    (``backend="pil"``). PNG, uncompressed BMP, binary PPM / PGM (maxval
+    255) and ``.npy`` (uint8 (H, W, 3) RGB or (H, W) gray) decode here;
+    other formats go to the backend's library, and raise ImportError naming
+    the format where it is not installed. A missing file raises
+    FileNotFoundError."""
+    if backend not in ("cv2", "pil"):
+        raise ValueError(f"backend {backend!r}: 'cv2' or 'pil'")
+    path = Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"cannot read image: {path}")
+    buf = path.read_bytes()
+    try:
+        if buf[:8] == PNG_SIGNATURE:
+            return _read_png(buf, backend)
+        if buf[:2] == b"BM":
+            return _read_bmp(buf)
+        if buf[:2] in (b"P5", b"P6"):
+            return _read_pnm(buf)
+        if buf[:6] == b"\x93NUMPY":
+            return _read_npy(path)
+        fmt = _codec_name(buf, path)
+    except _NeedsCodec as e:
+        fmt = str(e)
+    return _decode_with(backend, path, fmt)

@@ -1,28 +1,34 @@
-"""Page -> text cascade, the ship-once tiled path (counterpart of
-``kuzu/pipeline/cascade.py``'s ``KuzushijiPipeline``).
+"""Page -> text cascade (counterpart of ``kuzu/pipeline/cascade.py``'s
+``KuzushijiPipeline``).
 
-One call of :meth:`KuzushijiPipeline.process_pages` takes a batch of
-equal-shape decoded pages (uint8 RGB) to the device once, then:
+Pages are image files (decoded on the host by ``data.image_io.imread_rgb``,
+cv2's decode to the byte) or decoded uint8 RGB arrays. With ``tile_grid >
+1``, :meth:`KuzushijiPipeline.process_pages` is the production path:
 
-1. column detection on the full pages, letterboxed on the device
-   (``device_pages.device_letterbox``), then same-region dedup;
-2. character detection over every page's overlap tiles in one forward
-   (``device_pages.device_tiles``), merged per page by one batched
-   cross-tile NMS (``tiling.merge_tile_detections_pages``, K1);
+1. column detection on the full pages, then same-region dedup;
+2. character detection over every page's overlap tiles in one forward,
+   merged per page by one batched cross-tile NMS
+   (``tiling.merge_tile_detections_pages``, K1);
 3. on the host, in numpy as the reference: each column snapped to its
    character support, orphan character segments made columns, dedup again;
-4. every column's crop letterboxed on the device from the resident pages
-   (``device_pages.device_crops``) and read in one batch: by the CTC CRNN
+4. every column's crop letterboxed and read in one batch: by the CTC CRNN
    with greedy CTC decoding, or by the TrOCR (greedy, ``beam``, or
    ``beam_lm``: beam n-best reranked by the char-LM's pseudo-log-likelihood);
 5. with a char-LM and ``lm_mode="annotate"``, each column's text scored by
    that pseudo-log-likelihood (``lm_score``).
 
+Equal-shape pages go to the device once (``ship_once``, optionally as luma
+and pooled chroma, ``transport="yc"``) and their letterbox, tiles and crops
+derive there (``device_pages``). Pages of mixed shapes, or
+``ship_once=False``, take the reference's host path: each page letterboxed
+(``letterbox_np``) and tiled (``tiling.tile_image``) on its own, with cv2's
+resize to the byte, on the pipeline's device. ``tile_grid <= 1`` is the
+reference-shaped flow (``scripts/inference.py:94-118``): columns, each
+column's crop read, and its characters detected inside the crop.
+
 The column geometry below is a copy of the reference's numpy (f64 where it
-is f64), so boxes agree to the bit where the detections do. The host path
-(cv2 tiling for mixed page shapes, ``ship_once=False``), ``process_page``'s
-reference-shaped flow (``tile_grid <= 1``), the ``yc`` transport and ``dp``
-are not ported and raise.
+is f64), so boxes agree to the bit where the detections do. ``dp`` (the
+data-parallel mesh) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -36,10 +42,18 @@ import yaml
 from torch.profiler import record_function
 
 from kuzu_torch.core.config import load_config
+from kuzu_torch.data.image_io import imread_rgb, resize_linear_u8
 from kuzu_torch.data.loader import next_bucket
+from kuzu_torch.data.yolo_dataset import letterbox_np
 from kuzu_torch.models.yolo.detector import resolve_device
-from kuzu_torch.pipeline.device_pages import device_crops, device_letterbox, device_tiles
-from kuzu_torch.pipeline.tiling import merge_tile_detections_pages
+from kuzu_torch.pipeline.device_pages import (
+    device_crops,
+    device_letterbox,
+    device_tiles,
+    pack_yc,
+    unpack_yc,
+)
+from kuzu_torch.pipeline.tiling import merge_tile_detections_pages, tile_image
 from kuzu_torch.tasks.ctc import CTCPredictor
 from kuzu_torch.tasks.detect import DetectPredictor
 from kuzu_torch.tasks.lm import LMPredictor
@@ -252,6 +266,7 @@ def _bucket_floor(predictor, base: int = 8) -> int:
 
 STAGES = ("columns", "tiles", "cross-tile NMS", "geometry", "crops", "recognizer")
 LM_STAGE = "lm"  # after "recognizer", where the LM annotates the texts
+DECODE_STAGE = "decode"  # first, where entries are image files
 
 
 def _stage(name: str) -> record_function:
@@ -259,19 +274,17 @@ def _stage(name: str) -> record_function:
     return record_function(f"cascade/{name}")
 
 
-def _pages_tensor(pages) -> torch.Tensor:
-    """A (B, H, W, 3) uint8 tensor from a list of equal-shape (H, W, 3) uint8
-    arrays or from such a tensor."""
+def _is_path(entry) -> bool:
+    return isinstance(entry, (str, Path))
+
+
+def _stack(images: list, pages) -> torch.Tensor:
+    """A (B, H, W, 3) uint8 tensor of equal-shape decoded pages (the caller's
+    batch tensor itself where it gave one)."""
     if isinstance(pages, torch.Tensor):
         stack = pages
     else:
-        shapes = {tuple(np.shape(p)) for p in pages}
-        if len(shapes) > 1:
-            raise NotImplementedError(
-                f"pages of mixed shapes {sorted(shapes)}: the reference's host path "
-                "(cv2 tiling and crops) is not ported (ROADMAP section 1 item 9); "
-                "pass equal-shape pages")
-        stack = torch.from_numpy(np.stack([np.asarray(p) for p in pages]))
+        stack = torch.stack([torch.as_tensor(im) for im in images])
     if stack.dtype != torch.uint8 or stack.dim() != 4 or stack.shape[-1] != 3:
         raise ValueError(f"pages are (B, H, W, 3) uint8 RGB, got {tuple(stack.shape)} "
                          f"{stack.dtype}")
@@ -279,17 +292,30 @@ def _pages_tensor(pages) -> torch.Tensor:
 
 
 class KuzushijiPipeline:
-    """Column detector + tiled character detector + recognizer (+ char-LM).
+    """Column detector + character detector + recognizer (+ char-LM).
 
     ``column_model`` / ``char_model`` are port run dirs or
     ``DetectPredictor``s, ``recognizer`` a run dir or a ``CTCPredictor`` /
     ``RecognizePredictor``, ``lm`` a run dir or an ``LMPredictor``; a
     recognizer run dir is a ``CTCTrainer`` or a ``RecognizeTrainer`` run
     (its ``args.yaml`` task says which), loaded at first use (a LoRA run's
-    adapters fused). Everything runs on ``device`` (the card when
-    None). Each stage runs inside a ``torch.profiler.record_function``
-    range named ``cascade/<stage>`` (``STAGES``, then ``LM_STAGE`` where the
-    LM annotates), which costs nothing without a profiler."""
+    adapters fused). Pages are image paths or decoded uint8 RGB arrays.
+    Every stage runs on ``device`` (the card when None): letterboxes, tiles,
+    crops and the networks; the column geometry is the host's numpy. Each
+    stage runs inside a ``torch.profiler.record_function`` range named
+    ``cascade/<stage>`` (``DECODE_STAGE`` where pages are files, then
+    ``STAGES`` on the tiled path, or columns, crops, characters and
+    recognizer on the per-column one; ``LM_STAGE`` where the LM annotates),
+    which costs nothing without a profiler.
+
+    ``tile_grid > 1`` is the production path. Equal-shape pages with
+    ``ship_once`` go to the device once and derive their letterbox, tiles
+    and crops there (``transport="yc"``: full-resolution luma and 4x4-pooled
+    chroma, RGB rebuilt on the device); pages of mixed shapes, or
+    ``ship_once=False``, take the reference's host path (each page
+    letterboxed and tiled by ``letterbox_np`` and cropped on its own), as
+    the reference routes them. ``tile_grid <= 1`` is the reference-shaped
+    flow: columns, then the characters detected inside each column crop."""
 
     def __init__(
         self,
@@ -311,22 +337,14 @@ class KuzushijiPipeline:
         col_refine: bool = True,  # snap column boxes to char-detection support
         col_recover: bool = True,  # columns for char segments no column claims
         lm_mode: str = "annotate",  # 'annotate': an lm_score per column; 'off'
-        ship_once: bool = True,
-        transport: str = "rgb",
+        ship_once: bool = True,  # equal-shape pages to the device once (tiled path)
+        transport: str = "rgb",  # 'yc': luma + 4x-subsampled chroma (ship-once path)
         col_imgsz: int | None = None,  # column letterbox side (None: the model's)
         device: torch.device | str | None = None,
     ):
         if dp:
             raise NotImplementedError("data-parallel serving (dp > 0) is not ported "
                                       "(ROADMAP section 1 item 12)")
-        if not ship_once:
-            raise NotImplementedError(
-                "the host path (ship_once=False: cv2 tiling and crops) is not ported "
-                "(ROADMAP section 1 item 9)")
-        if transport != "rgb":
-            raise NotImplementedError(
-                f"transport={transport!r}: the chroma-subsampled transport needs cv2 "
-                "(pack_yc) and is not ported (ROADMAP section 1 item 7)")
         self.device = resolve_device(device)
         self.tile_grid = tile_grid
         self.tile_overlap = tile_overlap
@@ -336,6 +354,8 @@ class KuzushijiPipeline:
         self.max_det = max_det
         self.lm_weight = lm_weight
         self.lm_mode = lm_mode
+        self.ship_once = ship_once
+        self.transport = transport
         self.col_imgsz = int(col_imgsz) if col_imgsz else None
         self.col_dedup = col_dedup
         self.col_refine = col_refine
@@ -368,15 +388,80 @@ class KuzushijiPipeline:
         return DetectPredictor(load_config(overrides={"model": str(model), **overrides}),
                                device=self.device)
 
+    # ------------------------------------------------------------- pages
+    def _read(self, entries: list) -> list:
+        """Each entry decoded: an image file through ``imread_rgb`` (cv2's
+        decode, to the byte), an array or tensor as it is."""
+        if not any(_is_path(e) for e in entries):
+            return entries
+        with _stage(DECODE_STAGE):
+            return [imread_rgb(e) if _is_path(e) else e for e in entries]
+
+    def _on_device(self, image) -> torch.Tensor:
+        return torch.as_tensor(image).to(self.device)
+
+    @staticmethod
+    def _names(entries: list, names: list | None) -> list:
+        """Each result's ``"image"``: the ``names`` entry, else the path,
+        else the page's index."""
+        if names is not None:
+            return list(names)
+        return [str(e) if _is_path(e) else i for i, e in enumerate(entries)]
+
+    # ------------------------------------------------------------ stages
+    def detect_columns(self, image) -> dict[str, np.ndarray]:
+        """Columns are page-scale objects: always detected on the full page
+        (an image path or a decoded page), then same-region dedup."""
+        assert self.column_det is not None, "no column model configured"
+        with _stage("columns"):
+            r = self.column_det([image])[0]
+            return self._dedup(r)
+
     def _dedup(self, det) -> dict:
         """Same-region column suppression (``dedup_columns``) on one
-        detection; returns a plain dict of boxes/scores/classes. No-op when
-        ``col_dedup`` is off."""
+        detection (a dict or ``Results``, both index by key); returns a plain
+        dict of boxes/scores/classes. No-op when ``col_dedup`` is off."""
         out = {k: np.asarray(det[k]) for k in ("boxes", "scores", "classes")}
         if not self.col_dedup or len(out["boxes"]) == 0:
             return out
         keep = dedup_columns(out["boxes"], out["scores"])
         return {k: v[keep] for k, v in out.items()}
+
+    def detect_chars(self, image) -> dict[str, np.ndarray]:
+        """Characters of a whole page: over its overlap tiles with
+        ``tile_grid > 1``, else on the page letterboxed."""
+        assert self.char_det is not None, "no char model configured"
+        if self.tile_grid > 1:
+            return self._detect_tiled(self.char_det, image)
+        with _stage("characters"):
+            r = self.char_det([image])[0]
+            return {k: r[k] for k in ("boxes", "scores", "classes")}
+
+    def _detect_tiled(self, predictor: DetectPredictor, image) -> dict[str, np.ndarray]:
+        """One page's tiles through one forward, merged by the cross-tile NMS."""
+        return self._tiled_pages(predictor, [self._on_device(self._read([image])[0])])[0]
+
+    def _tiled_pages(self, predictor: DetectPredictor, pages: list) -> list[dict]:
+        """Every page's overlap tiles (``tile_image`` on the device) through
+        one forward (the count padded to a bucket), merged per page by one
+        batched cross-tile NMS."""
+        if not predictor.ready:
+            predictor._setup()
+        with _stage("tiles"):
+            tiles_all, metas_all, spans = [], [], []
+            for page in pages:
+                tiles, metas = tile_image(page, grid=self.tile_grid, overlap=self.tile_overlap,
+                                          tile_size=predictor.imgsz)
+                spans.append((len(tiles_all), len(tiles_all) + len(tiles)))
+                tiles_all.extend(tiles)
+                metas_all.extend(metas)
+            stack = torch.stack(tiles_all)
+            pad = next_bucket(len(stack), min_bucket=_bucket_floor(predictor)) - len(stack)
+            if pad:
+                stack = torch.cat([stack, stack.new_zeros((pad, *stack.shape[1:]))])
+            out = {k: v.cpu().numpy() for k, v in predictor._fwd(stack).items()}
+        with _stage("cross-tile NMS"):
+            return self._merge(out, spans, metas_all, [tuple(p.shape[:2]) for p in pages])
 
     def _column_bounds(
         self, shape: tuple[int, ...], boxes: np.ndarray
@@ -392,6 +477,90 @@ class KuzushijiPipeline:
             out.append((xa, ya, xb, yb))
         return out
 
+    @staticmethod
+    def _crop(image: torch.Tensor, bound: tuple[int, int, int, int]) -> torch.Tensor:
+        """One column window of a page; a detection clipped to a sliver at the
+        page's edge gives a blank 8 x 8 crop, so indices stay aligned."""
+        xa, ya, xb, yb = bound
+        if xb <= xa or yb <= ya:
+            return torch.full((8, 8, 3), 255, dtype=torch.uint8, device=image.device)
+        return image[ya:yb, xa:xb]
+
+    def crop_columns(self, image, boxes: np.ndarray) -> list[torch.Tensor]:
+        """The margin-expanded window of every column box (views of the page,
+        an array or a tensor, as tensors on its device)."""
+        image = torch.as_tensor(image)
+        return [self._crop(image, bd) for bd in self._column_bounds(image.shape, boxes)]
+
+    def detect_chars_in_columns(self, image, boxes: np.ndarray) -> list[dict[str, np.ndarray]]:
+        """Per-column character detection, reference-shaped: each column's
+        crop letterboxed (``letterbox_np``, on the page's device), all columns
+        through one forward (the count padded to a bucket), the boxes mapped
+        back to the page, clipped to the crop and ordered top to bottom."""
+        assert self.char_det is not None, "no char model configured"
+        if not self.char_det.ready:
+            self.char_det._setup()
+        if len(boxes) == 0:
+            return []
+        size = self.char_det.imgsz
+        bounds = self._column_bounds(image.shape, boxes)
+        with _stage("crops"):
+            tiles, metas = [], []
+            for bd in bounds:
+                canvas, gain, (px, py) = letterbox_np(self._crop(image, bd), size)
+                tiles.append(canvas)  # uint8; the detector normalizes on the device
+                metas.append((bd[0], bd[1], gain, px, py))
+            n = len(tiles)
+            nb = next_bucket(n, min_bucket=_bucket_floor(self.char_det))
+            tiles.extend([torch.zeros_like(tiles[0])] * (nb - n))
+            stack = torch.stack(tiles)
+        with _stage("characters"):
+            out = {k: v.cpu().numpy() for k, v in self.char_det._fwd(stack).items()}
+            per_col = []
+            for i, ((xa, ya, gain, px, py), (_, _, xb, yb)) in enumerate(zip(metas, bounds)):
+                v = out["valid"][i]
+                b = (out["boxes"][i][v] - [px, py, px, py]) / gain
+                b += [xa, ya, xa, ya]
+                # clip into the column's crop region (stays within the page)
+                b[:, [0, 2]] = b[:, [0, 2]].clip(xa, max(xb, xa))
+                b[:, [1, 3]] = b[:, [1, 3]].clip(ya, max(yb, ya))
+                s = out["scores"][i][v]
+                c = out["classes"][i][v]
+                order = np.argsort(b[:, 1] + b[:, 3])  # top -> bottom
+                per_col.append({"boxes": b[order], "scores": s[order], "classes": c[order]})
+        return per_col
+
+    def recognize_crops(self, crops: list) -> list[str]:
+        """Read column crops (arrays or tensors): each letterboxed by
+        :meth:`_letterbox_crop` on its device, the count padded to a bucket,
+        one recognizer batch."""
+        assert self.recognizer is not None, "no recognizer configured"
+        if not self.recognizer.ready:
+            self.recognizer._setup()
+        if not crops:
+            return []
+        size = self.recognizer.image_size
+        with _stage("crops"):
+            batch = [self._letterbox_crop(torch.as_tensor(c), size) for c in crops]
+            n = len(batch)
+            nb = next_bucket(n, min_bucket=_bucket_floor(self.recognizer))
+            batch.extend([torch.zeros_like(batch[0])] * (nb - n))
+            images = torch.stack(batch).to(self.recognizer.device)
+        with _stage("recognizer"):
+            return self._decode_crop_batch(images, n)
+
+    @staticmethod
+    def _letterbox_crop(crop: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+        """The recognizer's crop letterbox: resized (cv2's INTER_LINEAR) by
+        min(out_h / h, out_w / w) to (int(h gain), int(w gain)) (truncated,
+        where ``letterbox_np`` rounds), at the top left of a white canvas."""
+        out_h, out_w = size
+        h, w = crop.shape[:2]
+        gain = min(out_h / max(h, 1), out_w / max(w, 1))
+        nw, nh = max(int(w * gain), 1), max(int(h * gain), 1)
+        canvas = torch.full((out_h, out_w, 3), 255, dtype=torch.uint8, device=crop.device)
+        canvas[:nh, :nw] = resize_linear_u8(crop, (nh, nw))
+        return canvas  # uint8; the recognizer normalizes on the device
     def recognize_boxes_device(self, pages_dev, page_idx, boxes) -> list[str]:
         """Crop-letterbox every column on the device from the resident page
         batch and decode. ``boxes`` are margin-expanded page-pixel windows;
@@ -528,12 +697,13 @@ class KuzushijiPipeline:
         out = {k: v.cpu().numpy() for k, v in predictor._fwd(tiles).items()}
         return out, metas
 
-    def _refine_columns(self, col_dets: list[dict], char_pages: list[dict], hw) -> None:
+    def _refine_columns(self, col_dets: list[dict], char_pages: list[dict], shapes) -> None:
         """Snap each page's columns to its char support (refined duplicates
         collapse onto the same segment, so dedup again), then recover the
-        char segments no column claims as columns; in place."""
-        ph, pw = hw
+        char segments no column claims as columns; in place. ``shapes``:
+        each page's (H, W)."""
         for pi, det in enumerate(col_dets):
+            ph, pw = shapes[pi]
             boxes = np.asarray(det["boxes"])
             cb = np.asarray(char_pages[pi]["boxes"])
             if len(boxes):
@@ -576,9 +746,9 @@ class KuzushijiPipeline:
                     )
             col_dets[pi] = det
 
-    def _page_results(self, names: list, col_dets: list[dict], char_pages, hw):
+    def _page_results(self, names: list, col_dets: list[dict], char_pages, shapes):
         """Per page: columns in reading order with their characters, and the
-        margin-expanded crop window of every column."""
+        margin-expanded crop window of every column as (page, bounds)."""
         results: list[dict] = []
         all_crops: list[tuple[int, tuple]] = []
         crop_spans: list[tuple[int, int]] = []
@@ -618,7 +788,7 @@ class KuzushijiPipeline:
                             "scores": cb_scores[top].tolist(),
                         }
             if self.recognizer is not None:
-                bounds = self._column_bounds(hw, boxes)
+                bounds = self._column_bounds(shapes[pi], boxes)
                 crop_spans.append((len(all_crops), len(all_crops) + len(bounds)))
                 all_crops.extend((pi, bd) for bd in bounds)
             else:
@@ -626,37 +796,181 @@ class KuzushijiPipeline:
             results.append(result)
         return results, all_crops, crop_spans
 
+    def _read_columns(self, names: list, col_dets: list[dict], char_pages, shapes,
+                      read) -> list[dict]:
+        """The tiled path's tail: columns refined on their characters, the
+        results in reading order, and every column's crop window (page,
+        bounds) read by ``read`` in one batch."""
+        with _stage("geometry"):
+            if char_pages is not None and self.col_refine:
+                self._refine_columns(col_dets, char_pages, shapes)
+            results, all_crops, crop_spans = self._page_results(names, col_dets, char_pages,
+                                                                shapes)
+        if self.recognizer is not None and all_crops:
+            self._attach_texts(results, crop_spans, read(all_crops), self._lm_on)
+        return results
+
+    @property
+    def _lm_on(self) -> bool:
+        return self.lm is not None and self.lm_mode != "off"
+
+    def _attach_texts(self, results: list[dict], crop_spans, texts: list[str],
+                      rescore: bool) -> None:
+        """Each column's text, each page's lines, and with ``rescore`` each
+        column's LM score (all texts in one LM batch)."""
+        scores = None
+        if rescore:
+            with _stage(LM_STAGE):
+                scores = self.rescore_texts(texts)
+        for result, (lo, hi) in zip(results, crop_spans):
+            page_texts = texts[lo:hi]
+            for col, t in zip(result["columns"], page_texts):
+                col["text"] = t
+            result["text"] = "\n".join(page_texts)
+            if scores is not None:
+                for col, sc in zip(result["columns"], scores[lo:hi]):
+                    col["lm_score"] = sc
+
     # --------------------------------------------------------------- e2e
-    def process_page(self, image, name: Any = 0) -> dict[str, Any]:
-        """One page (H, W, 3) uint8 through the tiled batched path."""
-        return self.process_pages([image], names=[name])[0]
+    def process_page(self, image, name: Any = None) -> dict[str, Any]:
+        """One page (an image path or a decoded (H, W, 3) uint8 page). With
+        ``tile_grid > 1`` the batched production path for a single page;
+        otherwise the reference-shaped flow of :meth:`process_pages` (columns
+        on the full page, each column's crop read by the recognizer and its
+        characters detected inside it), every text annotated by the LM where
+        there is one (whatever ``lm_mode`` says, as the reference's page
+        flow), and the page's characters: its columns' together, or, where
+        it has no column, the page's own. The result's ``"image"`` is
+        ``name``, else the path, else 0."""
+        names = None if name is None else [name]
+        if self.tile_grid > 1:
+            return self.process_pages([image], names=names)[0]
+        page = self._on_device(self._read([image])[0])
+        result = self._flat_pages([page], self._names([image], names),
+                                  rescore=self.lm is not None)[0]
+        if self.recognizer is not None:
+            result.setdefault("text", "")
+        if self.char_det is not None:
+            if result["columns"]:
+                chars = [c["chars"] for c in result["columns"]]
+                result["characters"] = {"boxes": [b for c in chars for b in c["boxes"]],
+                                        "scores": [v for c in chars for v in c["scores"]]}
+            else:
+                chars = self.detect_chars(page)
+                result["characters"] = {"boxes": chars["boxes"].tolist(),
+                                        "scores": chars["scores"].tolist()}
+        return result
 
     def process_pages(self, pages, names: list | None = None) -> list[dict]:
-        """Batched cascade over decoded pages: a list of equal-shape (H, W, 3)
-        uint8 RGB arrays or a (B, H, W, 3) uint8 tensor. Each result's
-        ``"image"`` is the page's entry of ``names`` (its index when None)."""
+        """Batched cascade over pages: a list of image paths or decoded
+        (H, W, 3) uint8 RGB arrays (any mix, any shapes), or a (B, H, W, 3)
+        uint8 tensor. Each result's ``"image"`` is the page's entry of
+        ``names``, else its path, else its index.
+
+        With ``tile_grid > 1`` the production path (see the class);
+        otherwise columns for all pages in batches, each page's column crops
+        and their characters, then one recognizer batch over every page's
+        crops and one LM batch over their texts (``lm_mode``)."""
         if len(pages) == 0:
             return []
-        if self.tile_grid <= 1:
-            raise NotImplementedError(
-                "tile_grid <= 1 (process_page's reference-shaped flow: per-column "
-                "char detection on cv2 crops) is not ported (ROADMAP section 1 item "
-                "9); the production cascade runs tile_grid=2")
-        stack = _pages_tensor(pages)
-        names = list(range(len(stack))) if names is None else list(names)
-        return self._process_pages_tiled(stack, names)
+        entries = list(pages)  # paths, pages, or the pages of a (B, H, W, 3) batch
+        names = self._names(entries, names)
+        images = self._read(entries)
+        if self.tile_grid > 1:
+            return self._process_pages_tiled(images, pages, names)
+        return self._flat_pages([self._on_device(im) for im in images], names, self._lm_on)
 
-    def _process_pages_tiled(self, stack: torch.Tensor, names: list) -> list[dict]:
+    def _flat_pages(self, on_dev: list[torch.Tensor], names: list, rescore: bool) -> list[dict]:
+        """The reference-shaped flow over pages on the device: one column
+        batch, each page's columns cropped and their characters detected
+        inside them, one recognizer batch over every crop (LM scores with
+        ``rescore``)."""
+        assert self.column_det is not None, "no column model configured"
+        with _stage("columns"):
+            detections = [self._dedup(d) for d in self.column_det(on_dev)]
+        results: list[dict] = []
+        all_crops: list = []
+        crop_spans: list[tuple[int, int]] = []
+        for name, page, det in zip(names, on_dev, detections):
+            order = sort_columns_right_to_left(det["boxes"])
+            boxes = det["boxes"][order]
+            scores = det["scores"][order]
+            result = {
+                "image": name,
+                "columns": [
+                    {"box": b.tolist(), "score": float(s)}
+                    for b, s in zip(boxes, scores)
+                ],
+            }
+            if self.recognizer is not None:
+                crops = self.crop_columns(page, boxes)
+                crop_spans.append((len(all_crops), len(all_crops) + len(crops)))
+                all_crops.extend(crops)
+            else:
+                crop_spans.append((0, 0))
+            if self.char_det is not None and len(boxes):
+                per_col = self.detect_chars_in_columns(page, boxes)
+                for col, ch in zip(result["columns"], per_col):
+                    col["chars"] = {
+                        "boxes": ch["boxes"].tolist(),
+                        "scores": ch["scores"].tolist(),
+                    }
+            results.append(result)
+        if self.recognizer is not None and all_crops:
+            # one batch for every page's crops
+            self._attach_texts(results, crop_spans, self.recognize_crops(all_crops), rescore)
+        return results
+
+    def _process_pages_tiled(self, images: list, pages, names: list) -> list[dict]:
         """Batched production cascade: one full-page forward for columns, ONE
         forward over all pages' tiles for characters (merged per page with
-        cross-tile NMS), one recognizer batch for all column crops."""
+        cross-tile NMS), one recognizer batch for all column crops. The
+        ship-once route for equal-shape pages; else the host path."""
         assert self.column_det is not None, "no column model configured"
+        if self.ship_once and len({tuple(im.shape) for im in images}) == 1:
+            return self._ship_once(_stack(images, pages), names)
+        on_dev = [self._on_device(im) for im in images]
+        with _stage("columns"):
+            col_dets = [self._dedup(d) for d in self.column_det(on_dev)]
+        # characters: all pages' tiles through one forward
+        char_pages = (None if self.char_det is None
+                      else self._tiled_pages(self.char_det, on_dev))
+        return self._read_columns(
+            names, col_dets, char_pages, [tuple(im.shape[:2]) for im in images],
+            lambda crops: self.recognize_crops([self._crop(on_dev[pi], bd) for pi, bd in crops]))
+
+    def _merge(self, out: dict, spans, metas_all: list, shapes) -> list[dict]:
+        """Every page's tiles merged by one batched cross-tile NMS."""
+        return merge_tile_detections_pages(
+            [
+                [
+                    {k: out[k][i] for k in ("boxes", "scores", "classes", "valid")}
+                    for i in range(lo, hi)
+                ]
+                for lo, hi in spans
+            ],
+            [metas_all[lo:hi] for lo, hi in spans],
+            page_shapes=list(shapes),
+            max_det=self.max_det,
+            device=self.device,
+        )
+
+    def _ship_once(self, stack: torch.Tensor, names: list) -> list[dict]:
+        """Equal-shape pages to the device once (padded to a bucket); the
+        column letterbox, the tiles and the crops derive there. With
+        ``transport="yc"`` (pages whose sides are multiples of 4) the host
+        packs luma and 4x4-pooled chroma and the device rebuilds RGB."""
         b = len(stack)
         nb = next_bucket(b, min_bucket=1)
-        pages_dev = stack.to(self.device)
+        h0, w0 = stack.shape[1:3]
+        if self.transport == "yc" and h0 % 4 == 0 and w0 % 4 == 0:
+            y, c = pack_yc(stack)
+            pages_dev = unpack_yc(y.to(self.device), c.to(self.device))
+        else:
+            pages_dev = stack.to(self.device)
         if nb > b:
             pages_dev = torch.cat([pages_dev, pages_dev.new_zeros((nb - b, *stack.shape[1:]))])
-        hw = tuple(stack.shape[1:3])
+        hw = (h0, w0)
         with _stage("columns"):
             col_dets = [
                 self._dedup(d)
@@ -673,45 +987,17 @@ class KuzushijiPipeline:
             with _stage("tiles"):
                 out, metas = self._detect_tiles_device(pages_dev)
             t = len(metas)
-            spans = [(i * t, (i + 1) * t) for i in range(b)]
             with _stage("cross-tile NMS"):
-                char_pages = merge_tile_detections_pages(
-                    [
-                        [
-                            {
-                                k: out[k][i]
-                                for k in ("boxes", "scores", "classes", "valid")
-                            }
-                            for i in range(lo, hi)
-                        ]
-                        for lo, hi in spans
-                    ],
-                    [metas] * b,
-                    page_shapes=[hw] * b,
-                    max_det=self.max_det,
-                    device=self.device,
-                )
+                char_pages = self._merge(out, [(i * t, (i + 1) * t) for i in range(b)],
+                                         metas * b, [hw] * b)
 
-        with _stage("geometry"):
-            if char_pages is not None and self.col_refine:
-                self._refine_columns(col_dets, char_pages, hw)
-            results, all_crops, crop_spans = self._page_results(names, col_dets, char_pages, hw)
-        if self.recognizer is not None and all_crops:
-            texts = self.recognize_boxes_device(
-                pages_dev,
-                [pi for pi, _ in all_crops],
-                [bd for _, bd in all_crops],
-            )
-            scores = None
-            if self.lm is not None and self.lm_mode != "off":
-                with _stage(LM_STAGE):
-                    scores = self.rescore_texts(texts)
-            for result, (lo, hi) in zip(results, crop_spans):
-                page_texts = texts[lo:hi]
-                for col, t in zip(result["columns"], page_texts):
-                    col["text"] = t
-                result["text"] = "\n".join(page_texts)
-                if scores is not None:
-                    for col, sc in zip(result["columns"], scores[lo:hi]):
-                        col["lm_score"] = sc
-        return results
+        return self._read_columns(
+            names, col_dets, char_pages, [hw] * b,
+            lambda crops: self.recognize_boxes_device(
+                pages_dev, [pi for pi, _ in crops], [bd for _, bd in crops]))
+
+    def save_result(self, result: dict, out_path: str | Path) -> None:
+        """One result as YAML (unicode kept, keys in order)."""
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        with open(out_path, "w") as f:
+            yaml.safe_dump(result, f, allow_unicode=True, sort_keys=False)

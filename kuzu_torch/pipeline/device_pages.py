@@ -8,8 +8,11 @@ arithmetic. Pixels agree to the resize kernel's rounding: ``_resize_u8`` is
 ``F.interpolate`` bilinear (half-pixel centres, edges replicated, no
 antialias), where JAX sums weight matrices, so after rounding a pixel may
 differ by one level; ``device_crops`` repeats JAX's two-gather lerp in its
-arithmetic order. ``pack_yc`` / ``unpack_yc`` (the chroma-subsampled
-transport) are not ported: ``pack_yc`` needs cv2.
+arithmetic order. The chroma-subsampled transport: ``pack_yc`` on the host
+side is cv2's colour conversion and area pooling to the byte
+(``data.image_io``); ``unpack_yc`` on the device is JAX's bilinear chroma
+upsample (``F.interpolate``, pixels within a level) and cv2's full-range
+inverse.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from kuzu_torch.data.image_io import resize_area_u8, rgb_to_ycrcb_u8
 from kuzu_torch.pipeline.tiling import grid_bounds
 
 
@@ -45,6 +49,34 @@ def device_letterbox(pages: torch.Tensor, size, fill: int = 114):
     canvas = torch.full((b, th, tw, 3), fill, dtype=torch.uint8, device=pages.device)
     canvas[:, py:py + nh, px:px + nw] = r
     return canvas, gain, (px, py)
+
+
+def pack_yc(pages, stride: int = 4):
+    """Host side of the chroma-subsampled transport: RGB uint8 (B, H, W, 3)
+    (an ndarray or a tensor) -> (Y (B, H, W, 1), CrCb (B, H / s, W / s, 2))
+    uint8 of the input's kind: cv2's RGB2YCrCb, the chroma mean-pooled over
+    s x s blocks (cv2's INTER_AREA), each to the byte. Full-resolution luma
+    and 4x-subsampled chroma carry a page in (1 + 2 / s^2) / 3 of the
+    bytes."""
+    b, h, w, _ = pages.shape
+    if h % stride or w % stride:
+        raise ValueError(f"page ({h}, {w}) is not a multiple of the stride {stride}")
+    ycc = rgb_to_ycrcb_u8(pages)
+    return ycc[..., :1], resize_area_u8(ycc[..., 1:], stride)
+
+
+def unpack_yc(y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Device side: (Y, CrCb) uint8 -> RGB uint8 (B, H, W, 3): the chroma
+    upsampled bilinearly (no antialias, as JAX's ``jax.image.resize``), then
+    cv2's full-range YCrCb inverse in f32, rounded half to even."""
+    b, h, w, _ = y.shape
+    cf = F.interpolate(c.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
+                       align_corners=False, antialias=False).permute(0, 2, 3, 1)
+    yf = y.float()[..., 0]
+    cr = cf[..., 0] - 128.0
+    cb = cf[..., 1] - 128.0
+    rgb = torch.stack([yf + 1.403 * cr, yf - 0.714 * cr - 0.344 * cb, yf + 1.773 * cb], -1)
+    return rgb.round_().clamp_(0, 255).to(torch.uint8)
 
 
 def tile_bounds_px(h: int, w: int, grid: int, overlap: float):

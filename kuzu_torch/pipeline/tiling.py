@@ -6,9 +6,10 @@ edges extend by overlap / 2; each tile's padded detections map back to the
 page frame and one batched NMS (K1, ``kuzu_torch.ops.nms.nms_padded_batch``)
 merges them per page. The frame arithmetic is the reference's numpy (f64,
 cast to f32 at the end), so page-frame boxes are bit-equal to JAX's.
-``tile_image`` and ``rewrite_boxes_for_tile`` letterbox with cv2 on the host
-and are not ported: the cascade derives its tiles on the device
-(``device_pages.device_tiles``).
+``tile_image`` letterboxes each tile with ``letterbox_np`` (cv2's resize to
+the byte) on the page's device; the ship-once cascade derives its tiles on
+the device with ``device_pages.device_tiles`` instead (``F.interpolate``,
+JAX's ``jax.image.resize``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kuzu_torch.data.yolo_dataset import letterbox_np
 from kuzu_torch.models.yolo.detector import resolve_device
 from kuzu_torch.ops.nms import nms_padded_batch
 
@@ -33,6 +35,50 @@ def grid_bounds(grid: int, overlap: float = 0.15) -> list[tuple[float, float, fl
             y2 = (row + 1) * tile + (half if row < grid - 1 else 0.0)
             out.append((max(x1, 0.0), max(y1, 0.0), min(x2, 1.0), min(y2, 1.0)))
     return out
+
+
+def tile_image(
+    image, grid: int = 2, overlap: float = 0.15, tile_size: int = 640
+) -> tuple[np.ndarray | torch.Tensor, list[dict]]:
+    """Split an (H, W, 3) uint8 page (an ndarray, or a tensor on any device)
+    into letterboxed tiles. Returns (tiles (G*G, S, S, 3) uint8 of the page's
+    kind, metas): each meta holds the tile's page-frame origin and its
+    letterbox gain and pad."""
+    h, w = image.shape[:2]
+    tiles, metas = [], []
+    for x1, y1, x2, y2 in grid_bounds(grid, overlap):
+        px1, py1 = int(x1 * w), int(y1 * h)
+        px2, py2 = int(x2 * w), int(y2 * h)
+        canvas, gain, (pad_x, pad_y) = letterbox_np(image[py1:py2, px1:px2], tile_size)
+        tiles.append(canvas)  # uint8; the detector normalizes on the device
+        metas.append({"origin": (px1, py1), "gain": gain, "pad": (pad_x, pad_y)})
+    if isinstance(image, np.ndarray):
+        return np.stack(tiles), metas
+    return torch.stack(tiles), metas
+
+
+def rewrite_boxes_for_tile(
+    boxes: np.ndarray,  # (N, 4) xyxy page pixels
+    tile_bound_px: tuple[int, int, int, int],
+    require_contained: bool = True,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Map page boxes into one tile's frame; keep fully-contained boxes
+    (the reference's dataset conversion), or with ``require_contained`` off
+    every box that overlaps the tile. Returns (tile_boxes, keep_mask)."""
+    x1, y1, x2, y2 = tile_bound_px
+    if require_contained:
+        keep = (
+            (boxes[:, 0] >= x1)
+            & (boxes[:, 1] >= y1)
+            & (boxes[:, 2] <= x2)
+            & (boxes[:, 3] <= y2)
+        )
+    else:
+        keep = (boxes[:, 2] > x1) & (boxes[:, 0] < x2) & (boxes[:, 3] > y1) & (boxes[:, 1] < y2)
+    out = boxes.copy()
+    out[:, [0, 2]] -= x1
+    out[:, [1, 3]] -= y1
+    return out, keep
 
 
 def _nms_bucket(n: int) -> int:

@@ -12,9 +12,9 @@ warmup 1 epoch.
 The datasets are decoded crops handed to ``make_loaders`` or
 :func:`trainer_for` (``tasks/base.py::CropTrainer``: the reference's read
 image files with PIL, which the card's machine lacks). ``CTCPredictor``
-loads a run dir (or wraps a CRNN in memory) and decodes crops;
-transcribing image files (``__call__``) waits for a port of
-``load_letterboxed`` (PIL).
+loads a run dir (or wraps a CRNN in memory) and decodes crops; called, it
+transcribes image files (``data/ocr_datasets.py::load_letterboxed``, PIL's
+decode and resize reproduced without PIL).
 """
 
 from __future__ import annotations
@@ -27,9 +27,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from kuzu_torch.api.model import register_task
 from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params
 from kuzu_torch.core.config import Config, load_config
 from kuzu_torch.core.metrics import character_error_rate
+from kuzu_torch.data.ocr_datasets import letterboxed_batch
 from kuzu_torch.data.tokenizer import CharTokenizer
 from kuzu_torch.models.crnn import CRNN, DIMS, ctc_frames
 from kuzu_torch.models.yolo.detector import resolve_device
@@ -194,9 +196,15 @@ class CTCPredictor:
         self.ready = True
 
     def __call__(self, source) -> list[str]:
-        raise NotImplementedError(
-            "transcribing image files needs load_letterboxed, which reads with PIL (not "
-            "ported); pass decoded crops to _fwd or run the cascade on decoded pages")
+        """The texts of an image file or a list of them (or decoded uint8
+        (H, W, 3) crops), each read by ``load_letterboxed`` at
+        ``image_size``, the batch padded to ``next_bucket``, greedy CTC."""
+        if not self.ready:
+            self._setup()
+        images, n = letterboxed_batch(source, self.image_size)
+        (seqs, lens), _ = self._fwd(images.to(self.device))
+        seqs, lens = seqs[:n].cpu().numpy(), lens[:n].cpu().numpy()
+        return [self.tokenizer.decode(s[:m]) for s, m in zip(seqs, lens)]
 
     @torch.no_grad()
     def _fwd(self, images: torch.Tensor):
@@ -206,3 +214,6 @@ class CTCPredictor:
             self._setup()
         logits, boxes = self.model(images.to(self.device))
         return ctc_greedy_decode(logits, blank=0), boxes
+
+
+register_task("ctc", trainer=CTCTrainer, predictor=CTCPredictor)

@@ -17,6 +17,7 @@ their ``nc`` and ``names`` in the run dir's ``data_spec.yaml`` for
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import Any
 
@@ -24,12 +25,16 @@ import numpy as np
 import torch
 import yaml
 
+from kuzu_torch.api.model import register_task
+from kuzu_torch.api.results import Boxes, Results
 from kuzu_torch.core.callbacks import LOGGER
 from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params, partial_load
 from kuzu_torch.core.config import Config, load_config, rebase_on_run_config
 from kuzu_torch.core.metrics import DetMetrics
 from kuzu_torch.core.train import TrainState, build_optimizer
-from kuzu_torch.data.loader import DataLoader
+from kuzu_torch.data.loader import DataLoader, next_bucket
+from kuzu_torch.data.sources import Frame, batched_frames, resolve_source
+from kuzu_torch.data.yolo_dataset import letterbox_np
 from kuzu_torch.models.yolo.detector import YoloDetector, resolve_device
 from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
 from kuzu_torch.ops.detect_loss import detection_loss
@@ -213,9 +218,12 @@ class DetectPredictor:
     and ``weights/`` as ``DetectTrainer`` writes them, EMA preferred, the
     run's ``reg_max`` and ``imgsz``) at the first :meth:`_setup`;
     :meth:`from_detector` wraps a built ``YoloDetector``. ``conf``, ``iou``
-    and ``max_det`` come from ``cfg``. Prediction over image paths, videos
-    and streams (``__call__``) waits for a port of the source loaders, which
-    decode with cv2."""
+    and ``max_det`` come from ``cfg``. Calling it predicts over any source
+    that ``data.sources.resolve_source`` takes (image paths, directories,
+    globs, arrays and tensors; videos and streams raise), in groups of
+    ``cfg.batch``, and returns a ``Results`` per frame."""
+
+    min_bucket = 1  # the bucket floor; the port has no data-parallel mesh (dp)
 
     def __init__(self, cfg: Config, device: torch.device | str | None = None):
         self.cfg = cfg
@@ -250,6 +258,64 @@ class DetectPredictor:
             load_inference_params(CheckpointManager(run_dir / "weights"), train_cfg=train_cfg))
         self.ready = True
 
+    def __call__(self, source, max_frames: int | None = None) -> list[Results]:
+        """Predict over any source of ``resolve_source``, ``cfg.batch`` frames
+        a forward, each frame's boxes in its own pixels."""
+        if not self.ready:
+            self._setup()
+        frames = resolve_source(
+            source,
+            vid_stride=int(self.cfg.get("vid_stride", 1) or 1),
+            max_frames=max_frames,
+        )
+        batch = int(self.cfg.get("batch", 8) or 8)
+        results = []
+        for group in batched_frames(frames, batch):
+            results.extend(self._predict_frames(group))
+        return results
+
+    def _predict_frames(self, frames: list[Frame]) -> list[Results]:
+        """One bucketed batch over decoded RGB frames: each letterboxed on the
+        predictor's device (cv2's resize to the byte), the count padded to
+        ``next_bucket``, one forward, boxes unscaled to the frame and
+        clipped on the host as the reference does."""
+        images, meta = [], []
+        for f in frames:
+            h, w = f.image.shape[:2]
+            img = torch.as_tensor(f.image).to(self.device)
+            canvas, gain, (px, py) = letterbox_np(img, self.imgsz)
+            images.append(canvas)  # uint8; the model normalizes on the device
+            meta.append((h, w, gain, px, py))
+        npad = next_bucket(len(images), min_bucket=self.min_bucket)
+        images.extend([torch.zeros_like(images[0])] * (npad - len(images)))
+        t0 = time.perf_counter()
+        out = {k: v.cpu().numpy() for k, v in self._fwd(torch.stack(images)).items()}
+        infer_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        results = []
+        for i, (h, w, gain, px, py) in enumerate(meta):
+            valid = out["valid"][i]
+            boxes = out["boxes"][i][valid]
+            boxes = (boxes - [px, py, px, py]) / gain
+            boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, w)
+            boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, h)
+            r = Results(
+                orig_img=frames[i].image,
+                path=frames[i].path,
+                names=self.names,
+                boxes=Boxes(
+                    boxes, out["scores"][i][valid], out["classes"][i][valid], (h, w)
+                ),
+                speed={"inference_ms": infer_ms},
+            )
+            self._attach_extras(r, out, i, valid, (h, w), gain, (px, py))
+            results.append(r)
+        return results
+
+    def _attach_extras(self, result, out, i, valid, orig_shape, gain, pad) -> None:
+        """Hook for composite heads (segment masks, pose keypoints): receives
+        the letterbox geometry so extras rescale into the original frame like
+        the boxes do. The yolov12 detect head has none."""
+
     @torch.no_grad()
     def _fwd(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
         """(B, imgsz, imgsz, 3) uint8 -> padded NMS output (``boxes``,
@@ -260,3 +326,11 @@ class DetectPredictor:
         pred = det.decode(det.infer(images))
         return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
                                    max_det=self.max_det)
+
+
+register_task(
+    "detect",
+    trainer=DetectTrainer,
+    validator=DetectValidator,
+    predictor=DetectPredictor,
+)

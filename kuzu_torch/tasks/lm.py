@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from kuzu_torch.api.model import register_task
 from kuzu_torch.core.callbacks import LOGGER
 from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params
 from kuzu_torch.core.config import Config, load_config
@@ -223,3 +224,6 @@ class LMPredictor:
             restored = np.where(ids == tok.mask_id, pred, ids)
             out.append(tok.decode(restored))
         return out
+
+
+register_task("lm", trainer=LMTrainer, predictor=LMPredictor)

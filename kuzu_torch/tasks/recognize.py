@@ -15,8 +15,9 @@ The datasets are decoded crops handed to ``make_loaders`` or
 :func:`trainer_for` (``tasks/base.py::CropTrainer``: the reference's read
 image files with PIL, which the card's machine lacks).
 ``RecognizePredictor`` loads a run dir (or wraps a TrOCR in memory) and
-decodes crops; transcribing image files (``__call__``) waits for a port of
-``load_letterboxed`` (PIL).
+decodes crops; called, it transcribes image files
+(``data/ocr_datasets.py::load_letterboxed``, PIL's decode and resize
+reproduced without PIL).
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from kuzu_torch.api.model import register_task
 from kuzu_torch.core.callbacks import LOGGER
 from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params, partial_load
 from kuzu_torch.core.config import Config, load_config
 from kuzu_torch.core.metrics import character_error_rate
+from kuzu_torch.data.ocr_datasets import letterboxed_batch
 from kuzu_torch.data.tokenizer import CharTokenizer
 from kuzu_torch.models.layers import flax_init_
 from kuzu_torch.models.trocr import TrOCR, beam_generate, generate, graft_lm_decoder
@@ -250,9 +253,17 @@ class RecognizePredictor:
         self.ready = True
 
     def __call__(self, source) -> list[str]:
-        raise NotImplementedError(
-            "transcribing image files needs load_letterboxed, which reads with PIL (not "
-            "ported); pass decoded crops to _fwd or run the cascade on decoded pages")
+        """The texts of an image file or a list of them (or decoded uint8
+        (H, W, 3) crops), each read by ``load_letterboxed`` at
+        ``image_size``, the batch padded to ``next_bucket``, generated with
+        ``cfg``'s ``decode``, ``num_beams`` and ``length_penalty``."""
+        if not self.ready:
+            self._setup()
+        images, n = letterboxed_batch(source, self.image_size)
+        out = self._fwd(images.to(self.device), decode=str(self.cfg.get("decode", "greedy")),
+                        num_beams=int(self.cfg.get("num_beams", 4)),
+                        length_penalty=float(self.cfg.get("length_penalty", 1.0)))
+        return self.tokenizer.batch_decode(out[:n].cpu().numpy())
 
     @torch.no_grad()
     def _fwd(self, images: torch.Tensor, decode: str = "greedy", num_beams: int = 4,
@@ -271,3 +282,6 @@ class RecognizePredictor:
         return generate(self.model, images, max_len=max_len, bos_id=tok.bos_id,
                         eos_id=tok.eos_id, decode=decode, num_beams=num_beams,
                         length_penalty=length_penalty)
+
+
+register_task("recognize", trainer=RecognizeTrainer, predictor=RecognizePredictor)

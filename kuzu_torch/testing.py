@@ -197,6 +197,29 @@ def column_pages(n: int, size: int, seed: int = 0) -> np.ndarray:
     return pages
 
 
+def mixed_pages(shapes: list[tuple[int, int]], seed: int = 0) -> list[np.ndarray]:
+    """Seeded synthetic pages of the given (H, W) shapes, uint8 RGB: page i
+    is the top-left (H, W) of a ``column_pages`` page of side max(H, W)
+    drawn from ``seed + i``."""
+    return [np.ascontiguousarray(column_pages(1, max(h, w), seed=seed + i)[0][:h, :w])
+            for i, (h, w) in enumerate(shapes)]
+
+
+def page_files(root, pages, paeth: tuple[int, ...] = ()) -> list:
+    """Write ``pages`` (uint8 (H, W, 3) RGB) as ``page{i:02d}.png`` under
+    ``root`` with ``image_io.write_png``: filter Sub, Paeth for the indices
+    in ``paeth``. Returns the paths in order."""
+    from pathlib import Path
+
+    from kuzu_torch.data.image_io import write_png
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    return [write_png(root / f"page{i:02d}.png", np.asarray(p),
+                      filter="paeth" if i in paeth else "sub")
+            for i, p in enumerate(pages)]
+
+
 @torch.no_grad()
 def calibrate_batch_norm(module: torch.nn.Module, images) -> None:
     """Set every BatchNorm's running statistics in ``module`` (a

@@ -588,19 +588,35 @@ def test_slice_stages_and_refusals(slice_pair):
     assert again[1]["columns"] == slice_pair.got[1]["columns"]
     single = port.process_page(pages[1], name="p1")
     assert single["image"] == "p1" and single["columns"] == slice_pair.got[1]["columns"]
-    with pytest.raises(NotImplementedError, match="mixed shapes"):
-        port.process_pages([pages[0], pages[1][:100]])
+    # pages of mixed shapes take the host path: each page's own letterbox,
+    # tiles and crops (the same columns as the batch's where they share shape)
+    mixed = port.process_pages([pages[0], pages[1][:100]])
+    assert [r["image"] for r in mixed] == [0, 1]
+    boxes = np.asarray([c["box"] for c in mixed[1]["columns"]])
+    assert len(boxes) > 0 and (boxes[:, [1, 3]] <= 100).all() and "text" in mixed[1]
     port.decode = "beam_lm"
     with pytest.raises(ValueError, match="beam_lm"):
         port.process_pages(list(pages))
     port.decode = "greedy"
-    for kw, what in ((dict(transport="yc"), "yc"), (dict(dp=2), "item 12"),
-                     (dict(ship_once=False), "host path")):
-        with pytest.raises(NotImplementedError, match=what):
-            KuzushijiPipeline(device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        KuzushijiPipeline(device="cpu", dp=2)
+    # the yc transport and the host path (ship_once=False) run: on these
+    # seeded heads every anchor scores the same, so the columns are the
+    # ship-once RGB run's
+    for kw in (dict(transport="yc"), dict(ship_once=False)):
+        other = KuzushijiPipeline(column_model=port.column_det, char_model=port.char_det,
+                                  recognizer=port.recognizer, tile_grid=2, max_det=2000,
+                                  device="cpu", **kw)
+        assert (other.transport, other.ship_once) == (kw.get("transport", "rgb"),
+                                                      kw.get("ship_once", True))
+        got = other.process_pages(list(pages))
+        assert [r["columns"][i]["box"] for r in got for i in range(len(r["columns"]))] == \
+            [c["box"] for r in slice_pair.got for c in r["columns"]], kw
+    # tile_grid <= 1: the reference-shaped flow, columns on the full page
     flat = KuzushijiPipeline(column_model=port.column_det, device="cpu")
-    with pytest.raises(NotImplementedError, match="tile_grid"):
-        flat.process_pages(list(pages))
+    flat_res = flat.process_pages(list(pages))
+    assert [len(r["columns"]) > 0 for r in flat_res] == [True, True]
+    assert all("text" not in r and "characters" not in r for r in flat_res)
 
 
 @pytest.mark.parametrize("task,what", [("recognize", "holds no weights"),

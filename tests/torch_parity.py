@@ -127,3 +127,47 @@ def jax_lm_variables(seed: int = 0) -> dict:
         r, jnp.zeros((1, 8), jnp.int32)))(jax.random.key(seed)))
     variables["params"]["lm_head"]["kernel"] = variables["params"]["lm_head"]["kernel"] * 10
     return variables
+
+
+def jax_detect_predictor(tdet, name: str, conf: float = 0.001, max_det: int = 300, iou: float = 0.7,
+                         f32: bool = False, pad_to: int = 8, **cfg):
+    """A JAX ``DetectPredictor`` (its own ``__call__``, ``_predict_frames``,
+    letterbox and unscaling) over the port detector ``tdet``'s weights, with
+    no run dir: its forward is the BN-folded executor in bf16 (the port's)
+    with Pallas in interpret mode, or with ``f32`` the flax apply in f32 (what
+    JAX's predictor runs on the CPU); then decode and NMS. Every batch pads to
+    ``pad_to`` images before the jitted forward (NMS is per image), so one
+    compile serves every call; ``_fwd_jit`` and ``variables`` serve the
+    ship-once cascade. ``name``: the architecture ``tdet`` was built as;
+    ``cfg``: overrides of the predictor's config (batch)."""
+    from kuzu.core.config import load_config
+    from kuzu.models.yolo.detector import YoloDetector as JaxDetector
+    from kuzu.models.yolo.infer import run_graph
+    from kuzu.ops.nms import non_max_suppression
+    from kuzu.tasks.detect import DetectPredictor
+
+    jdet = JaxDetector(name, nc=tdet.nc, dtype=jnp.float32 if f32 else jnp.bfloat16,
+                       imgsz=tdet.imgsz, reg_max=tdet.spec.reg_max)
+
+    def fwd(variables, images):
+        maps = (jdet.module.apply(variables, images, train=False) if f32
+                else run_graph(jdet.spec, variables, images, interpret=True))
+        pred = jdet.decode(maps)
+        return non_max_suppression(pred, conf_thres=conf, iou_thres=iou, max_det=max_det)
+
+    pred = DetectPredictor(load_config(overrides={"conf": conf, "iou": iou,
+                                                  "max_det": max_det, **cfg}))
+    pred.ready, pred.imgsz, pred.min_bucket, pred.names = True, tdet.imgsz, 1, {}
+    pred.variables = flax_variables(tdet.graph)
+    pred._fwd_jit = jax.jit(fwd)
+
+    def padded(images):
+        images = np.asarray(images)
+        n = len(images)
+        if n > pad_to:
+            raise ValueError(f"{n} images: raise pad_to ({pad_to})")
+        full = np.concatenate([images, np.zeros((pad_to - n, *images.shape[1:]), images.dtype)])
+        return pred._fwd_jit(pred.variables, jnp.asarray(full))
+
+    pred._fwd = padded
+    return pred
