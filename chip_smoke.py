@@ -149,8 +149,22 @@ Phases, each raising on failure:
    ``unpack_yc`` card against CPU on 8b's 16 pages and the ``yc``
    cascade's columns and texts beside the RGB cascade's; (e) the ship-once
    route against the host path on 4 of those pages (reported, not held);
-14. the ``kernels`` JSON line, then the card's name and power limit;
-15. last line: ``{"ok": true, "device": {...}}``.
+14. (inside 11's temporary root, after 12) training from image files: (a)
+   the augmentations' cv2 ops of ``image_io`` (warpAffine / warpPerspective
+   of a 1280 mosaic canvas to 640, the HSV round trip with its LUTs,
+   remap, filter2D) on the card against the CPU, byte for byte, with a
+   planted fault and the warp's device time; (b) the production character
+   detector (``Model("yolov12-p2x", task="detect").train``, bf16, 640, b8,
+   mosaic on) from a PNG folder of 64 + 8 tiles of 2224 x 1393: launches
+   a step and a validation, ms/step, images/s, a profiled step, peak
+   memory, the loader's own samples/s and a sample's split, then
+   ``Model(run_dir).val`` equal to the last validation and
+   ``evaluate_detector``; (c) the production CTC run from a
+   ``column_info.csv`` of 160 PNG column crops: ms/step, CER, the loader's
+   rate; (d) the recognize trainer from a one-line folder at the
+   production widths (K3 + K4 a step) and ``evaluate_recognizer``;
+15. the ``kernels`` JSON line, then the card's name and power limit;
+16. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -1294,6 +1308,7 @@ class StepRecorder:
     def val_end(self, trainer, metrics):
         self.val_counts = launch_counts()
         self.val_metrics = metrics
+        zero_counts()  # the next epoch's first step counts its own launches
 
 
 WARM_STEPS, TIMED_STEPS = 3, 8
@@ -3021,8 +3036,8 @@ def k3_after_k5_check(dev) -> None:
 
 def recognizer_training_phase(dev, launches: dict) -> dict:
     """Phase 11: a, b, c (the LM, then the recognizer in bf16 and two f32
-    steps), d; then phase 12 in the same temporary root (12d fine-tunes
-    11c's bf16 recognize run)."""
+    steps), d; then phases 12 and 14 in the same temporary root (12d
+    fine-tunes 11c's bf16 recognize run)."""
     import tempfile
     from pathlib import Path
 
@@ -3037,6 +3052,9 @@ def recognizer_training_phase(dev, launches: dict) -> dict:
         out["run_dirs_cascade"] = run_dirs_cascade(dev, lm, rec, launches)
         torch.cuda.empty_cache()
         out["ctc_training"] = ctc_training_phase(dev, root, rec["save_dir"], launches)
+        torch.cuda.empty_cache()
+        out["image_file_training"] = image_file_training_phase(
+            dev, root, out["ctc_training"]["production_run"], launches)
         for r in (lm, rec, rec32):
             for key in ("trainer", "val_ds", "ema"):
                 r.pop(key, None)
@@ -3563,6 +3581,400 @@ def ctc_training_phase(dev, root, rec_dir, launches: dict) -> dict:
     torch.cuda.empty_cache()
     out["lora"] = lora_recognize(dev, root, rec_dir, launches)
     out["detect_validator"] = detect_validator(dev, root, launches)
+    return out
+
+
+# --------------------------------------------- phase 14: training from image files
+
+TILE_HW = (2224, 1393)  # a 3868 x 2422 page's tile on the 2 x 2 grid at 0.15 overlap
+TILE_SPLITS = {"train": 64, "val": 8}
+TILE_GLYPHS, GLYPH_PX = (150, 300), (30, 120)  # glyph boxes a tile, their side in px
+# the production character-detector run (kuzu/tools/production.py:512-524);
+# epochs and the data are the phase's own. Production passes no ``augment``,
+# and the config's default ``augment: false`` (a predict key the detect
+# trainer also reads, in both packages) trains it on the letterbox route;
+# 14b trains the recipe's mosaic route (``augment=True``, ``close_mosaic=0``)
+# and times the production route's loader beside it
+DET_FILE_RUN = dict(imgsz=640, batch=8, dtype="bfloat16", remat=False, max_boxes=400,
+                    max_det=2000, conf=0.25, workers=2, cache_images="ram", epochs=1,
+                    augment=True, close_mosaic=0)
+COL_CROP_HW = ((600, 1200), (56, 72))  # a column crop's height and width ranges
+COL_CROPS = 160  # 14c's column_info.csv rows (80 / 10 / 10 split)
+LINE_SPLITS = {"train": 32, "val": 16, "test": 16}  # 14d's one-line crops
+
+
+@contextlib.contextmanager
+def _recording(cls):
+    """Every ``cls`` built in the block records its steps (``_record``);
+    yields the recorders, for trainers a facade builds."""
+    recs = []
+    own = cls.__dict__.get("__init__")
+    init = cls.__init__
+
+    def recorded(self, *a, **k):
+        init(self, *a, **k)
+        recs.append(_record(self))
+
+    cls.__init__ = recorded
+    try:
+        yield recs
+    finally:
+        if own is None:
+            del cls.__init__
+        else:
+            cls.__init__ = own
+
+
+def image_ops_card_vs_cpu(dev) -> dict:
+    """Phase 14a: the training augmentations' cv2 ops of ``image_io`` on the
+    card against the CPU, byte for byte, at the folder dataset's shapes: a
+    1280 x 1280 mosaic canvas to 640 by ``warp_affine_u8`` (the mosaic's
+    scale + translate, and a rotation with shear) and ``warp_perspective_u8``;
+    the HSV round trip with its LUTs on a 640 image; ``remap_linear_u8`` over
+    a grid distortion's maps; ``filter2d_u8`` with a 7-tap line kernel. A
+    planted fault (the source coordinates on the 1/32-pixel grid of cv2's
+    older fixed-point warp) must differ. The device time of the 1280 -> 640
+    warp."""
+    from kuzu_torch.data import image_io as io
+    from kuzu_torch.testing import glyph_page
+
+    rng = np.random.default_rng(40)
+    canvas = glyph_page(rng, (1280, 1280), (400, 800), (16, 60))[0]
+    canvas[:, :300] = 114  # the mosaic's fill beside the images
+    img = glyph_page(rng, (640, 640), (100, 300), (8, 40))[0]
+    shift = np.array([[0.62, 0, -85.3], [0, 0.62, -101.7]])  # 2S -> S: scale, translate
+    c = np.eye(3)
+    c[:2, 2] = -640
+    r = np.eye(3)
+    r[:2] = io.rotation_matrix_2d((0.0, 0.0), 17.3, 0.58)
+    sh = np.eye(3)
+    sh[0, 1], sh[1, 0] = 0.09, -0.05
+    t = np.eye(3)
+    t[:2, 2] = 330, 305
+    rot = (t @ sh @ r @ c)[:2]
+    p = np.eye(3)
+    p[2, :2] = 4e-4, -3e-4
+    persp = t @ sh @ r @ p @ c
+    xs, ys = np.linspace(0, 640, 6), np.linspace(0, 640, 6)
+    jx = xs + rng.uniform(-0.3, 0.3, 6) * 128
+    jy = ys + rng.uniform(-0.3, 0.3, 6) * 128
+    jx[0], jx[-1], jy[0], jy[-1] = 0, 640, 0, 640
+    mx = np.tile(np.interp(np.arange(640), xs, jx).astype(np.float32), (640, 1))
+    my = np.tile(np.interp(np.arange(640), ys, jy).astype(np.float32)[:, None], (1, 640))
+    luts = np.stack([((np.arange(256) * 1.01) % 180), np.clip(np.arange(256) * 0.6, 0, 255),
+                     np.clip(np.arange(256) * 1.3, 0, 255)], 1).astype(np.uint8)
+    kernel = np.zeros((7, 7), np.float32)
+    kernel[3, :] = 1 / 7
+    fill = (114,) * 3
+    cases = {
+        "warpAffine 1280 -> 640, scale + translate":
+            (canvas, lambda x: io.warp_affine_u8(x, shift, (640, 640), fill)),
+        "warpAffine 1280 -> 640, rotation + shear":
+            (canvas, lambda x: io.warp_affine_u8(x, rot, (640, 640), fill)),
+        "warpPerspective 1280 -> 640": (canvas, lambda x: io.warp_perspective_u8(
+            x, persp, (640, 640), fill)),
+        "HSV round trip + LUT 640": (img, lambda x: io.hsv_to_rgb_u8(io.lut_u8(
+            io.rgb_to_hsv_u8(x), luts))),
+        "remap grid distortion 640": (img, lambda x: io.remap_linear_u8(x, mx, my)),
+        "filter2D 7-tap 640": (img, lambda x: io.filter2d_u8(x, kernel)),
+    }
+    off = {}
+    for name, (x, fn) in cases.items():
+        off[name] = _bytes_off(fn(torch.from_numpy(x).to(dev)), fn(x))
+    worst = max(off.values())
+    print(f"augmentation ops card vs CPU: {len(off)} cases, differing bytes at most {worst} "
+          f"(must be 0): {off}")
+    require(worst == 0, "augmentation ops card vs CPU byte for byte")
+    canvas_dev = torch.from_numpy(canvas).to(dev)
+    ref = io.warp_affine_u8(canvas, rot, (640, 640), fill)
+    exact = io._bilinear_u8
+    io._bilinear_u8 = lambda x, sx, sy, *a: exact(x, (sx * 32).floor() / 32,
+                                                    (sy * 32).floor() / 32, *a)
+    try:
+        fault = _bytes_off(io.warp_affine_u8(canvas_dev, rot, (640, 640), fill), ref)
+    finally:
+        io._bilinear_u8 = exact
+    print(f"  planted fault (coordinates on the 1/32-pixel grid): {fault} bytes differ "
+          f"(must differ)")
+    require(fault > 0, "the planted warp fault is caught")
+    warp_dev, _ = device_times(lambda: io.warp_affine_u8(canvas_dev, rot, (640, 640), fill),
+                               reps=10)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        io.warp_affine_u8(canvas, rot, (640, 640), fill)
+    warp_cpu = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"  warpAffine 1280 -> 640: card {warp_dev:.4f} ms device, host CPU {warp_cpu:.1f} ms")
+    return dict(bytes_off=off, planted_fault_bytes=fault, warp_device_ms=warp_dev,
+                warp_cpu_ms=warp_cpu)
+
+
+def _loader_rate(ds, batch: int, workers: int) -> float:
+    """Samples/s of one pass of the threaded loader over ``ds`` (no model)."""
+    from kuzu_torch.data.loader import DataLoader
+
+    loader = DataLoader(ds, batch, shuffle=True, seed=0, num_workers=workers)
+    t0 = time.perf_counter()
+    n = sum(len(b["image"]) for b in loader)
+    return n / (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def _default_threads():
+    """The loader without its one-intra-op-thread rule: torch's
+    ``set_num_threads`` a no-op for the block (the workers' initializer and
+    ``loader.one_thread`` both call it), so samples run on torch's
+    default threads."""
+    saved = torch.set_num_threads
+    torch.set_num_threads = lambda n: None
+    try:
+        yield
+    finally:
+        torch.set_num_threads = saved
+
+
+def _sample_split(ds, n: int) -> dict:
+    """Per-sample host ms of ``n`` samples of a cold folder dataset in this
+    thread, split into the decode, the mosaic's resizes, the warp (with the
+    box rewrite), the HSV jitter and the rest (the draws, copies, flips,
+    padding), by timing the module functions the sample calls."""
+    import kuzu_torch.data.yolo_dataset as yd
+    from kuzu_torch.data import image_io as io
+
+    spent = dict.fromkeys(("decode", "mosaic resize", "warp", "HSV"), 0.0)
+    saved = {}
+
+    def timed(mod, attr, key):
+        fn = getattr(mod, attr)
+        saved[(mod, attr)] = fn
+
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+
+        setattr(mod, attr, wrapper)
+
+    timed(io, "imread_rgb", "decode")
+    timed(yd, "resize_linear_u8", "mosaic resize")
+    timed(yd, "random_affine", "warp")
+    timed(yd, "hsv_jitter", "HSV")
+    n = min(n, len(ds))
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            ds[i]
+        total = time.perf_counter() - t0
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+    out = {k: v / n * 1e3 for k, v in spent.items()}
+    out["rest"] = total / n * 1e3 - sum(out.values())
+    out["total"] = total / n * 1e3
+    return out
+
+
+def detector_training_from_files(dev, root, launches: dict) -> dict:
+    """Phase 14b: the production character-detector stage from a PNG folder:
+    ``Model("yolov12-p2x", task="detect").train(data=<yaml>, ...)`` with
+    ``DET_FILE_RUN`` over 64 train and 8 val tiles of 2224 x 1393 with 150-300
+    glyph boxes each (the mosaic route); 16 K3 + 16 K4 launches every step,
+    K2 16 + K1 1 in validation, finite losses, EMA and BatchNorm statistics
+    moved, ms/step and images/s, a profiled step, peak memory; the loader's
+    own rate (cache warm and cold, 2 and 8 workers, and 2 workers on torch's
+    default intra-op threads) and a sample's split;
+    ``Model(run_dir).val(data=...)`` equal to the trainer's last validation;
+    ``evaluate_detector`` over the val split."""
+    from pathlib import Path
+
+    from kuzu_torch.api.model import Model
+    from kuzu_torch.data.yolo_dataset import YoloDetectionDataset
+    from kuzu_torch.tasks.detect import DetectTrainer
+    from kuzu_torch.testing import write_yolo_folder
+    from kuzu_torch.tools.evaluation import evaluate_detector
+
+    t0 = time.perf_counter()
+    data = write_yolo_folder(root / "tiles", TILE_SPLITS, hw=TILE_HW, n_boxes=TILE_GLYPHS,
+                             size=GLYPH_PX, nc=1, seed=41, workers=8)
+    write_s = time.perf_counter() - t0
+    with _recording(DetectTrainer) as recs:
+        model = Model("yolov12-p2x", task="detect", device=dev)
+        t0 = time.perf_counter()
+        final = model.train(data=str(data), project=str(root / "runs"), name="p2x-files",
+                            exist_ok=True, verbose=False, **DET_FILE_RUN)
+        wall = time.perf_counter() - t0
+    rec, trainer = recs[0], model._trainer
+    steps = TILE_SPLITS["train"] // DET_FILE_RUN["batch"]
+    per_step = want(area_attention=16, area_attention_bwd=16)
+    print(f"yolov12-p2x@640 b8 bf16 from a PNG folder ({TILE_SPLITS} tiles of {TILE_HW[1]} x "
+          f"{TILE_HW[0]}, written in {write_s:.1f} s): Model.train in {wall:.1f} s, "
+          f"{len(rec.counts)} steps; launches per step {rec.counts[0]} (want {per_step}); "
+          f"validation {rec.val_counts}; final {final}")
+    require(len(rec.counts) == steps and all(c == per_step for c in rec.counts)
+            and all(sum(p.values()) == 0 for p in rec.plain), "p2x from files: per-step launches")
+    require(rec.val_counts == want(nms=1, fused_ablock=16), "p2x from files: validation launches")
+    for c in rec.counts + [rec.val_counts]:
+        for name, n in c.items():
+            launches[name] += n
+    losses = [float(m["loss"]) for m in rec.metrics]
+    state = trainer.state
+    ema_moved = max(float((state.ema[n] - p).abs().max()) for n, p in rec.p0.items())
+    bn_moved = max(float((t - rec.b0[n]).abs().max())
+                   for n, t in state.model.named_buffers() if "running" in n)
+    require(all(np.isfinite(losses)) and ema_moved > 0 and bn_moved > 0,
+            "p2x from files: finite losses, EMA and BatchNorm statistics moved")
+    r = dict(final=final, losses=losses, wall_s=wall, write_s=write_s, peak_gib=rec.peak / 2**30,
+             **_step_times(rec, WARM_STEPS))
+    r["images_per_s"] = DET_FILE_RUN["batch"] / r["ms_per_step"] * 1e3
+    print(f"  losses {[round(x, 3) for x in losses]}; EMA moved {ema_moved:.3e}, BN statistics "
+          f"{bn_moved:.3e}; ms/step {r['ms_per_step']:.3f} (after {WARM_STEPS} warm-up: "
+          f"{[round(t, 2) for t in r['step_ms']]}), {r['images_per_s']:.2f} images/s, peak "
+          f"{r['peak_gib']:.2f} GiB")
+    r["breakdown"] = train_step_breakdown(trainer, trainer.train_ds)
+    require(trainer.train_ds.augment and trainer.train_ds.hyp["mosaic"] == 1.0,
+            "p2x from files: the mosaic route")
+    warm = {w: _loader_rate(trainer.train_ds, 8, w) for w in (2, 8)}
+    with _default_threads():
+        warm_default = _loader_rate(trainer.train_ds, 8, 2)
+    cold_ds = lambda **k: YoloDetectionDataset(data, imgsz=640, max_boxes=400,
+                                               cache_images="ram", **k)
+    cold = _loader_rate(cold_ds(), 8, 2)
+    split = _sample_split(cold_ds(), 16)
+    letterbox = cold_ds(augment=False)  # production's route (no augment key)
+    lb_cold = _loader_rate(letterbox, 8, 2)
+    lb_warm = _loader_rate(letterbox, 8, 2)
+    r["loader"] = dict(samples_per_s_warm=warm, samples_per_s_cold_2_workers=cold,
+                       samples_per_s_warm_2_workers_default_threads=warm_default,
+                       sample_ms=split, letterbox_route_2_workers=dict(cold=lb_cold, warm=lb_warm),
+                       step_samples_per_s=r["images_per_s"])
+    print(f"  loader alone (no model), mosaic route, samples/s: cache warm {warm} (by "
+          f"workers; {warm_default:.2f} at 2 workers on torch's default intra-op threads), "
+          f"cold {cold:.2f} (2 workers); the letterbox route (production's "
+          f"default) cold {lb_cold:.2f}, warm {lb_warm:.2f} (2 workers); the step consumed "
+          f"{r['images_per_s']:.2f}; a cold mosaic sample in one thread (ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    run_dir = trainer.save_dir
+    zero_counts()
+    val = Model(str(run_dir), device=dev).val(data=str(data), project=str(root / "runs"),
+                                              name="p2x-val")
+    vc = launch_counts()
+    last = rec.val_metrics
+    print(f"  Model(run_dir).val: {val}; the trainer's last validation {last}; launches {vc}")
+    require(val == last, "Model.val equals the trainer's last validation")
+    zero_counts()
+    ev = evaluate_detector(run_dir, data, split="val", device=dev)
+    ec = launch_counts()
+    n_val = TILE_SPLITS["val"]
+    require(ec == want(nms=n_val, fused_ablock=16 * n_val), f"evaluate_detector launches {ec}")
+    for c in (vc, ec):
+        for name, n in c.items():
+            launches[name] += n
+    r["val"] = val
+    r["evaluate_detector"] = {k: v for k, v in ev.items() if k != "per_image"}
+    print(f"  evaluate_detector(val): map50 {ev['map50']:.4f}, map {ev['map']:.4f}, fitness "
+          f"{ev['fitness']:.4f}, worst {[Path(p).name for p in ev['worst_images'][:3]]}; "
+          f"launches {ec}")
+    return r
+
+
+def ctc_from_files(dev, root, ctc_run: dict) -> dict:
+    """Phase 14c: the production CTC stage from a ``column_info.csv`` of 160
+    PNG column crops (600-1200 x 56-72 px, 10-120 characters of the 4,788-class
+    vocabulary): ``Model("crnn", task="ctc").train(data=<csv>, ...)`` with 12b's
+    ``CTC_RUN``, workers 2, the RAM cache, 2 epochs; ms/step beside 12b's, CER,
+    the loader's samples/s."""
+    from kuzu_torch.api.model import Model
+    from kuzu_torch.tasks.ctc import CTCTrainer
+    from kuzu_torch.testing import synthetic_texts, write_column_csv
+
+    tok = synthetic_tokenizer()
+    tok.save(root / "ctc_tokenizer.json")
+    lo, hi = CTC_TEXT_CHARS
+    csv_path = write_column_csv(root / "columns", synthetic_texts(
+        COL_CROPS, CHARS, hi, seed=42, min_chars=lo), hw=COL_CROP_HW, seed=43)
+    with _recording(CTCTrainer) as recs:
+        model = Model("crnn", task="ctc", device=dev)
+        t0 = time.perf_counter()
+        final = model.train(data=str(csv_path), tokenizer=str(root / "ctc_tokenizer.json"),
+                            project=str(root / "runs"), name="ctc-files", exist_ok=True,
+                            verbose=False, **dict(CTC_RUN, workers=2, cache_images="ram",
+                                                  epochs=2))
+        wall = time.perf_counter() - t0
+    rec, trainer = recs[0], model._trainer
+    losses = [float(m["loss"]) for m in rec.metrics]
+    require(len(rec.counts) == 2 * (int(COL_CROPS * 0.8) // CTC_RUN["batch"])
+            and all(np.isfinite(losses)) and "cer" in final, "CTC from files: steps and CER")
+    r = dict(final=final, losses=losses, wall_s=wall, **_step_times(rec, WARM_STEPS))
+    r["loader_samples_per_s"] = _loader_rate(trainer.train_ds, CTC_RUN["batch"], 2)
+    print(f"CTC from a column_info.csv ({COL_CROPS} PNG crops): {len(rec.counts)} steps in "
+          f"{wall:.1f} s; ms/step {r['ms_per_step']:.3f} (12b on decoded crops: "
+          f"{ctc_run['ms_per_step']:.3f}), CER {final['cer']:.4f}; loader alone "
+          f"{r['loader_samples_per_s']:.1f} samples/s (2 workers, cache warm)")
+    return r
+
+
+def recognize_from_files(dev, root, launches: dict) -> dict:
+    """Phase 14d: ``Model("trocr", task="recognize").train(data=<one-line
+    folder>, ...)`` at the production widths (``REC_RUN``, bf16, augment on)
+    for 4 steps over PNG crops: K3 + K4 launches (6 + 6) a step, no plain
+    call; then ``evaluate_recognizer`` over its test split, whose CER equals
+    ``character_error_rate`` over the run's predictor's own readings."""
+    from kuzu_torch.api.model import Model
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.core.metrics import character_error_rate
+    from kuzu_torch.data.ocr_datasets import OneLineDataset
+    from kuzu_torch.tasks.recognize import RecognizePredictor, RecognizeTrainer
+    from kuzu_torch.testing import synthetic_texts, write_oneline_folder
+    from kuzu_torch.tools.evaluation import evaluate_recognizer
+
+    lo, hi = REC_TEXT_CHARS
+    texts = synthetic_texts(sum(LINE_SPLITS.values()), CHARS, hi, seed=44, min_chars=lo)
+    splits, at = {}, 0
+    for split, n in LINE_SPLITS.items():
+        splits[split], at = texts[at:at + n], at + n
+    lines = write_oneline_folder(root / "lines", splits, hw=COL_CROP_HW, seed=45)
+    with _recording(RecognizeTrainer) as recs:
+        model = Model("trocr", task="recognize", device=dev)
+        final = model.train(data=str(lines), tokenizer=str(root / "ctc_tokenizer.json"),
+                            project=str(root / "runs"), name="rec-files", exist_ok=True,
+                            verbose=False, val_batches=1, val_gen_batches=1, workers=2,
+                            **dict(REC_RUN, epochs=2))
+    rec, trainer = recs[0], model._trainer
+    depth = REC_RUN["enc_depth"]
+    per_step = want(area_attention=depth, area_attention_bwd=depth)
+    steps = 2 * (LINE_SPLITS["train"] // REC_RUN["batch"])
+    require(len(rec.counts) == steps and all(c == per_step for c in rec.counts)
+            and all(sum(p.values()) == 0 for p in rec.plain),
+            f"recognize from files: launches per step {rec.counts[:1]}")
+    for c in rec.counts + ([rec.val_counts] if rec.val_counts else []):
+        for name, n in c.items():
+            launches[name] += n
+    run_dir = trainer.save_dir
+    zero_counts()
+    ev = evaluate_recognizer(run_dir, lines, split="test", device=dev)
+    pred = RecognizePredictor(load_config(overrides={"model": str(run_dir)}), device=dev)
+    items = OneLineDataset(lines, None, split="test").items
+    reads = pred([p for p, _, _ in items])
+    cer = character_error_rate(reads, [t for _, t, _ in items])
+    for name, n in launch_counts().items():
+        launches[name] += n
+    r = dict(final=final, evaluate=ev, cer_of_reads=cer, **_step_times(rec, 0))
+    print(f"RecognizeTrainer from a one-line folder (production widths, bf16, augment): "
+          f"{steps} steps, launches per step {rec.counts[0]}, ms/step {r['ms_per_step']:.3f}; "
+          f"evaluate_recognizer(test) {ev}; CER of the predictor's readings {cer:.4f}")
+    require(ev["n"] == LINE_SPLITS["test"] and ev["cer"] == cer,
+            "evaluate_recognizer's CER equals the predictor's")
+    return r
+
+
+def image_file_training_phase(dev, root, ctc_run: dict, launches: dict) -> dict:
+    """Phase 14: a, b, c, d."""
+    out = dict(ops_card_vs_cpu=image_ops_card_vs_cpu(dev))
+    out["detector"] = detector_training_from_files(dev, root, launches)
+    torch.cuda.empty_cache()
+    out["ctc"] = ctc_from_files(dev, root, ctc_run)
+    out["recognize"] = recognize_from_files(dev, root, launches)
     return out
 
 
@@ -4171,6 +4583,10 @@ def main() -> int:
     train_slice_check(dev, launches)
     train = train_full_width(dev, launches)
     train["remat"] = remat_full_width(dev, launches)
+    files = recognizer_training["image_file_training"]["detector"]
+    print(f"p2x@640 b8 bf16 training: from the PNG folder (14b) {files['ms_per_step']:.3f} "
+          f"ms/step, {files['images_per_s']:.2f} images/s; on synthetic tensors (10) "
+          f"{train['ms_per_step']:.3f} ms/step, {train['images_per_s']:.2f} images/s")
 
     kernels = [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],

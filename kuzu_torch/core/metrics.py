@@ -1,7 +1,6 @@
-"""Detection metrics: mAP (101-point and 11-point), IoU matching, and the
-recognizer's edit distance and corpus CER (copied from
-``kuzu/core/metrics.py``: the port may not import it; character accuracy
-is not copied yet).
+"""Detection metrics: mAP (101-point and 11-point), IoU matching, the
+recognizer's edit distance and corpus CER, and the IoU-matched character
+accuracy (copied from ``kuzu/core/metrics.py``: the port may not import it).
 
 Capability parity with the reference's two metric stacks:
 - engine metrics (``yolov12/ultralytics/utils/metrics.py``): ``box_iou``,
@@ -254,3 +253,29 @@ def character_error_rate(preds: list, targets: list) -> float:
         total_edit += levenshtein(p, t)
         total_len += len(t)
     return total_edit / max(total_len, 1)
+
+
+def character_accuracy(
+    pred_boxes: np.ndarray,
+    pred_labels: np.ndarray,
+    gt_boxes: np.ndarray,
+    gt_labels: np.ndarray,
+    iou_threshold: float = 0.5,
+) -> float:
+    """Fraction of ground-truth characters matched, greedily in their order,
+    by an unused prediction of IoU >= ``iou_threshold`` (the best one) with
+    the same label; the prediction is used up either way."""
+    if len(gt_boxes) == 0:
+        return 0.0
+    iou = box_iou_np(gt_boxes, pred_boxes)
+    correct = 0
+    used = np.zeros(len(pred_boxes), bool)
+    for g in range(len(gt_boxes)):
+        cand = np.where((iou[g] >= iou_threshold) & ~used)[0]
+        if len(cand) == 0:
+            continue
+        best = cand[np.argmax(iou[g, cand])]
+        if pred_labels[best] == gt_labels[g]:
+            correct += 1
+        used[best] = True
+    return correct / len(gt_boxes)

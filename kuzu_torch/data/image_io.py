@@ -27,6 +27,21 @@ decoder, so the port reads and resizes images itself:
   choice and never switched quietly.
 - :func:`write_png` writes an RGB or gray uint8 image as PNG (filter Sub on
   every row, or Paeth), for tests and the GPU smoke run.
+- The training augmentations' cv2 calls: :func:`rgb_to_hsv_u8` /
+  :func:`hsv_to_rgb_u8` (``COLOR_RGB2HSV`` / ``COLOR_HSV2RGB``),
+  :func:`lut_u8` (``cv2.LUT``), :func:`rotation_matrix_2d`
+  (``getRotationMatrix2D``), :func:`warp_affine_u8` /
+  :func:`warp_perspective_u8` (``INTER_LINEAR``, ``BORDER_CONSTANT``),
+  :func:`remap_linear_u8` (float maps, ``BORDER_REFLECT``) and
+  :func:`filter2d_u8` (``ddepth=-1``, ``BORDER_REFLECT_101``), each the bytes
+  of the cv2 (5.0, x86-64, AVX2 dispatch) the JAX package runs on.
+  Where cv2 computes in float32, so do these, in cv2's order; its fused
+  multiply-adds are taken in float64 and rounded once to float32, which is
+  the fused result wherever the exact sum fits float64's 53 bits (every
+  input the tests and the datasets give). cv2 runs some of these ops on
+  blocks of pixels with vector code and the rest of a row with scalar code
+  that rounds or contracts otherwise; the ops repeat that split by column.
+- :func:`image_size` reads (width, height) from an image file's header.
 
 cv2 and PIL are imported only inside the decoding of the formats above.
 """
@@ -43,10 +58,15 @@ import torch
 # ------------------------------------------------------------------ resizes
 
 
+def _np_in(img) -> tuple[torch.Tensor, bool]:
+    """(``img`` as a tensor, whether it was a numpy array)."""
+    is_np = isinstance(img, np.ndarray)
+    return (torch.from_numpy(np.ascontiguousarray(img)) if is_np else img), is_np
+
+
 def _as_tensor(img) -> tuple[torch.Tensor, bool]:
     """(uint8 tensor with a batch axis, whether ``img`` was a numpy array)."""
-    is_np = isinstance(img, np.ndarray)
-    t = torch.from_numpy(np.ascontiguousarray(img)) if is_np else img
+    t, is_np = _np_in(img)
     if t.dtype != torch.uint8 or t.dim() not in (3, 4):
         raise ValueError(f"expected uint8 (H, W, C) or (B, H, W, C), got {tuple(t.shape)} "
                          f"{t.dtype}")
@@ -112,8 +132,12 @@ def resize_linear_u8(img, size: tuple[int, int]):
         return _like(x.clone(), batched, is_np)
     xi, xa = _cv2_linear_table(w, nw, clamp=True)
     yi, yb = _cv2_linear_table(h, nh, clamp=False)
-    horiz = _taps_along(x.to(torch.int32), 2, xi, xa) >> 4  # (B, h, nw, C)
     dev = x.device
+    rows = np.unique(yi)  # the horizontal pass on the rows the vertical taps read
+    if len(rows) < h:
+        x = x.index_select(1, torch.from_numpy(rows).to(dev))
+        yi = np.searchsorted(rows, yi)
+    horiz = _taps_along(x.to(torch.int32), 2, xi, xa) >> 4  # (B, rows, nw, C)
     r0 = horiz.index_select(1, torch.from_numpy(yi[:, 0]).to(dev))
     r1 = horiz.index_select(1, torch.from_numpy(yi[:, 1]).to(dev))
     b0 = torch.from_numpy(yb[:, 0]).to(dev).view(1, -1, 1, 1)
@@ -188,8 +212,7 @@ def rgb_to_ycrcb_u8(img):
     """``cv2.cvtColor(img, cv2.COLOR_RGB2YCrCb)`` on uint8 (..., 3), a tensor
     or an ndarray: ``Y = (R c0 + G c1 + B c2 + 2^13) >> 14``, ``Cr = ((R - Y)
     c3 + 128 2^14 + 2^13) >> 14``, ``Cb`` likewise from B, saturated."""
-    is_np = isinstance(img, np.ndarray)
-    t = torch.from_numpy(np.ascontiguousarray(img)) if is_np else img
+    t, is_np = _np_in(img)
     x = t.to(torch.int32)
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
     c0, c1, c2, c3, c4 = YCC_COEFFS
@@ -508,3 +531,344 @@ def imread_rgb(path: str | Path, backend: str = "cv2") -> np.ndarray:
     except _NeedsCodec as e:
         fmt = str(e)
     return _decode_with(backend, path, fmt)
+
+
+# ------------------------------------------------------- training augmentations
+
+HSV_SHIFT = 12  # cv2's RGB2HSV_b fixed point
+CV2_HSV_BLOCK = 32  # HSV2RGB_b's vector step: 4 x 8 float lanes (AVX2)
+CV2_WARP_LANES = 16  # the warps' vector step: 2 x 8 float lanes (AVX2)
+_HSV_SECTORS = ((1, 3, 0), (1, 0, 2), (3, 0, 1), (0, 2, 1), (0, 1, 3), (2, 1, 0))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once (cv2's ``v_fma`` / a contracted
+    scalar expression): the product and the sum in float64, one rounding."""
+    return (a.double() * (b.double() if torch.is_tensor(b) else float(b))
+            + (c.double() if torch.is_tensor(c) else float(c))).float()
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def rgb_to_hsv_u8(img):
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` on uint8 (..., 3), a tensor or
+    an ndarray: cv2's integer path, V = max, S = (diff sdiv[V] + 2^11) >> 12,
+    H from the max channel's difference times hdiv[diff] (12-bit tables
+    ``round(255 2^12 / i)`` and ``round(180 2^12 / (6 i))``), hue in 0-179."""
+    t, is_np = _np_in(img)
+    dev = t.device
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.zeros(256, np.int64)
+    hdiv = np.zeros(256, np.int64)
+    sdiv[1:] = np.rint((255 << HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << HSV_SHIFT) / (6.0 * i))
+    sdiv_t, hdiv_t = torch.from_numpy(sdiv).to(dev), torch.from_numpy(hdiv).to(dev)
+    x = t.long()
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    v = torch.maximum(torch.maximum(b, g), r)
+    diff = v - torch.minimum(torch.minimum(b, g), r)
+    half = 1 << (HSV_SHIFT - 1)
+    s = (diff * sdiv_t[v] + half) >> HSV_SHIFT
+    h = torch.where(v == r, g - b, torch.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * hdiv_t[diff] + half) >> HSV_SHIFT
+    h = h + (h < 0).long() * 180
+    out = torch.stack([h, s, v], -1).to(torch.uint8)
+    return out.numpy() if is_np else out
+
+
+def _hsv_tabs(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor):
+    """HSV2RGB's four candidate values v, v(1 - s), v(1 - s h), v(1 - s (1 -
+    h)) in float32, the two inner terms fused as cv2's contracted code."""
+    one = torch.ones_like(s)
+    return torch.stack([v, v * (one - s), v * _fma(-s, h, 1.0), v * _fma(-s, one - h, 1.0)], -1)
+
+
+def hsv_to_rgb_u8(img):
+    """``cv2.cvtColor(img, cv2.COLOR_HSV2RGB)`` on uint8 (H, W, 3) or (B, H,
+    W, 3), a tensor or an ndarray: float32 as cv2's HSV2RGB_b, S and V times
+    float32(1 / 255), H times float32(6 / 180), the sector's values times 255.
+    Per row, the first ``W // 32 * 32`` pixels take cv2's vector code (sector
+    from trunc, values truncated to bytes) and the rest its scalar code
+    (``fmod``, ``floor``, S = 0 gives V, values rounded half to even)."""
+    t, is_np = _np_in(img)
+    nvec = t.shape[-2] // CV2_HSV_BLOCK * CV2_HSV_BLOCK
+    sd = torch.tensor(_HSV_SECTORS, dtype=torch.long, device=t.device)
+    parts = []
+    for x, vector in ((t[..., :nvec, :], True), (t[..., nvec:, :], False)):
+        if x.shape[-2] == 0:
+            continue
+        x = x.float()
+        h, s, v = x[..., 0], x[..., 1] * _f32(1 / 255), x[..., 2] * _f32(1 / 255)
+        hh = h * _f32(6 / 180)
+        if vector:
+            pre = torch.trunc(hh)
+            sec = (pre - torch.trunc(pre * _f32(1 / 6)) * 6.0).long().clamp(0, 5)
+            rgb = torch.gather(_hsv_tabs(hh - pre, s, v), -1, sd[sec]) * 255.0
+            parts.append(torch.trunc(rgb).clamp(0, 255))
+            continue
+        hm = torch.fmod(hh, 6.0)
+        fl = torch.floor(hm)
+        bad = (fl < 0) | (fl >= 6)
+        fr = torch.where(bad, torch.zeros_like(hm), hm - fl)
+        sec = torch.where(bad, torch.zeros_like(fl), fl).long()
+        rgb = torch.gather(_hsv_tabs(fr, s, v), -1, sd[sec])
+        rgb = torch.where((s == 0)[..., None], v[..., None].expand_as(rgb), rgb)
+        parts.append(torch.round(rgb * 255.0).clamp(0, 255))
+    out = torch.cat(parts, -2).flip(-1).to(torch.uint8)
+    return out.numpy() if is_np else out
+
+
+def lut_u8(img, table):
+    """``cv2.LUT(img, table)``: each byte replaced by ``table[byte]`` (a 256
+    uint8 table, or one per channel as (256, C))."""
+    t, is_np = _np_in(img)
+    tab = torch.as_tensor(np.ascontiguousarray(table, np.uint8)).to(t.device)
+    idx = t.long()
+    out = tab[idx] if tab.dim() == 1 else tab[idx, torch.arange(tab.shape[1], device=t.device)]
+    return out.numpy() if is_np else out
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)`` in float64: the
+    centre as float32 (cv2's ``Point2f``), cos and sin from the C library."""
+    import math
+
+    cx, cy = _f32(center[0]), _f32(center[1])
+    a = angle * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
+
+
+def _bilinear_u8(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, border: str,
+                 value=None) -> torch.Tensor:
+    """cv2's float INTER_LINEAR at float32 source coordinates (oh, ow) over a
+    uint8 (H, W, C) tensor: ``ix = floor(sx)``, ``a = sx - ix``; the four
+    neighbours (``border``: ``"constant"`` with ``value`` a channel, or
+    ``"reflect"``); ``v0 = fma(a, p01 - p00, p00)``, ``v1`` likewise,
+    ``fma(b, v1 - v0, v0)``, rounded half to even and saturated."""
+    h, w, c = x.shape
+    fx, fy = torch.floor(sx), torch.floor(sy)
+    a, b = (sx - fx)[..., None], (sy - fy)[..., None]
+    big = float(1 << 30)
+    ix = fx.clamp(-big, big).long()
+    iy = fy.clamp(-big, big).long()
+    flat = x.reshape(h * w, c).float()
+
+    def pixel(yy, xx):
+        if border == "reflect":
+            yy, xx = _reflect(yy, h), _reflect(xx, w)
+            return flat[yy * w + xx]
+        inside = ((yy >= 0) & (yy < h) & (xx >= 0) & (xx < w))[..., None]
+        p = flat[(yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1))]
+        return torch.where(inside, p, value)
+
+    p00, p01 = pixel(iy, ix), pixel(iy, ix + 1)
+    p10, p11 = pixel(iy + 1, ix), pixel(iy + 1, ix + 1)
+    v0 = _fma(a, p01 - p00, p00)
+    v1 = _fma(a, p11 - p10, p10)
+    v = _fma(b, v1 - v0, v0)
+    return torch.round(v).clamp_(0, 255).to(torch.uint8)
+
+
+def _reflect(i: torch.Tensor, n: int) -> torch.Tensor:
+    """cv2's ``BORDER_REFLECT`` index (``fedcba|abcdefgh|hgfedcb``)."""
+    if n == 1:
+        return torch.zeros_like(i)
+    p = torch.remainder(i, 2 * n)
+    return torch.where(p >= n, 2 * n - 1 - p, p)
+
+
+def _border_value(value, c: int, dev) -> torch.Tensor:
+    vals = [value] * c if np.isscalar(value) else list(value)[:c]
+    vals += [0] * (c - len(vals))
+    return torch.tensor([float(np.clip(np.rint(v), 0, 255)) for v in vals], device=dev)
+
+
+def _warp(img, size, coords, border_value):
+    t, is_np = _np_in(img)
+    if t.dtype != torch.uint8 or t.dim() not in (2, 3):
+        raise ValueError(f"expected uint8 (H, W, C) or (H, W), got {tuple(t.shape)} {t.dtype}")
+    x = t if t.dim() == 3 else t[..., None]
+    ow, oh = int(size[0]), int(size[1])
+    dev = t.device
+    xs = torch.arange(ow, dtype=torch.float32, device=dev)[None, :]
+    ys = torch.arange(oh, dtype=torch.float32, device=dev)[:, None]
+    sx, sy = coords(xs, ys, ow)
+    out = _bilinear_u8(x, sx, sy, "constant", _border_value(border_value, x.shape[2], dev))
+    out = out if t.dim() == 3 else out[..., 0]
+    return out.numpy() if is_np else out
+
+
+def _affine_inverse(m: np.ndarray) -> list[float]:
+    """cv2 ``warpAffine``'s inversion of the forward 2 x 3 matrix, in double."""
+    m = [float(v) for v in np.asarray(m, np.float64).reshape(-1)]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, m[1] * -d, m[3] * -d, a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return m
+
+
+def warp_affine_u8(img, m, size: tuple[int, int], border_value=0):
+    """``cv2.warpAffine(img, m, (w, h), borderValue=...)`` with INTER_LINEAR and
+    BORDER_CONSTANT on uint8 (H, W, C) or (H, W), a tensor (any device) or an
+    ndarray. cv2 inverts ``m`` in double and takes it as float32; per row the
+    first ``w // 16 * 16`` columns (its vector steps) map by ``fma(M0, x,
+    float32(y M1 + M2))``, the rest by the scalar ``float32(fma(x, M0, y M1)
+    + M2)``; then :func:`_bilinear_u8`."""
+    mi = [_f32(v) for v in _affine_inverse(m)]
+
+    def coords(xs, ys, ow):
+        vec = xs < ow // CV2_WARP_LANES * CV2_WARP_LANES
+        out = []
+        for r in (0, 3):
+            row = ys * mi[r + 1] + mi[r + 2]
+            v = _fma(xs.expand(len(ys), -1), mi[r], row.expand(-1, ow))
+            s = _fma(xs.expand(len(ys), -1), mi[r], (ys * mi[r + 1]).expand(-1, ow)) + mi[r + 2]
+            out.append(torch.where(vec, v, s))
+        return out
+
+    return _warp(img, size, coords, border_value)
+
+
+def _invert3(m: np.ndarray) -> list[float]:
+    """cv2 ``invert`` of a 3 x 3 double matrix (DECOMP_LU takes its explicit
+    cofactor formula at n <= 3)."""
+    s = np.asarray(m, np.float64).reshape(3, 3).tolist()
+    d = (s[0][0] * (s[1][1] * s[2][2] - s[1][2] * s[2][1])
+         - s[0][1] * (s[1][0] * s[2][2] - s[1][2] * s[2][0])
+         + s[0][2] * (s[1][0] * s[2][1] - s[1][1] * s[2][0]))
+    d = 1.0 / d if d != 0 else 0.0
+    return [(s[1][1] * s[2][2] - s[1][2] * s[2][1]) * d, (s[0][2] * s[2][1] - s[0][1] * s[2][2]) * d,
+            (s[0][1] * s[1][2] - s[0][2] * s[1][1]) * d, (s[1][2] * s[2][0] - s[1][0] * s[2][2]) * d,
+            (s[0][0] * s[2][2] - s[0][2] * s[2][0]) * d, (s[0][2] * s[1][0] - s[0][0] * s[1][2]) * d,
+            (s[1][0] * s[2][1] - s[1][1] * s[2][0]) * d, (s[0][1] * s[2][0] - s[0][0] * s[2][1]) * d,
+            (s[0][0] * s[1][1] - s[0][1] * s[1][0]) * d]
+
+
+def warp_perspective_u8(img, m, size: tuple[int, int], border_value=0):
+    """``cv2.warpPerspective(img, m, (w, h), borderValue=...)`` with
+    INTER_LINEAR and BORDER_CONSTANT on uint8 (H, W, C) or (H, W). cv2
+    inverts ``m`` (double, cofactors) and takes it as float32; per row the
+    first ``w // 16 * 16`` columns map by ``fma(M0, x, float32(y M1 + M2))``
+    over ``fma(M6, x, float32(y M7 + M8))``, the rest by the scalar
+    ``float32(fma(x, M0, y M1) + M2)`` over its ``w``; float32 division."""
+    mi = [_f32(v) for v in _invert3(m)]
+
+    def coords(xs, ys, ow):
+        vec = xs < ow // CV2_WARP_LANES * CV2_WARP_LANES
+        xe = xs.expand(len(ys), -1)
+
+        def rows(r):
+            v = _fma(xe, mi[r], (ys * mi[r + 1] + mi[r + 2]).expand(-1, ow))
+            s = _fma(xe, mi[r], (ys * mi[r + 1]).expand(-1, ow)) + mi[r + 2]
+            return torch.where(vec, v, s)
+
+        w = rows(6)
+        return rows(0) / w, rows(3) / w
+
+    return _warp(img, size, coords, border_value)
+
+
+def remap_linear_u8(img, map_x, map_y):
+    """``cv2.remap(img, map_x, map_y, cv2.INTER_LINEAR,
+    borderMode=cv2.BORDER_REFLECT)`` with float32 maps (oh, ow) on uint8
+    (H, W, C) or (H, W): :func:`_bilinear_u8` at the maps' coordinates."""
+    t, is_np = _np_in(img)
+    x = t if t.dim() == 3 else t[..., None]
+    mx = torch.as_tensor(np.ascontiguousarray(map_x, np.float32)).to(t.device)
+    my = torch.as_tensor(np.ascontiguousarray(map_y, np.float32)).to(t.device)
+    out = _bilinear_u8(x, mx, my, "reflect")
+    out = out if t.dim() == 3 else out[..., 0]
+    return out.numpy() if is_np else out
+
+
+def _reflect101(i: torch.Tensor, n: int) -> torch.Tensor:
+    """cv2's ``BORDER_REFLECT_101`` index (``gfedcb|abcdefgh|gfedcba``)."""
+    if n == 1:
+        return torch.zeros_like(i)
+    p = torch.remainder(i, 2 * n - 2)
+    return torch.where(p >= n, 2 * n - 2 - p, p)
+
+
+def filter2d_u8(img, kernel):
+    """``cv2.filter2D(img, -1, kernel)`` on uint8 (H, W, C) or (H, W) with a
+    float32 k x k kernel (anchor at the centre, BORDER_REFLECT_101): cv2's
+    direct filter, the nonzero coefficients in row-major order, each
+    accumulated into a float32 sum from 0 by a fused multiply-add, the sum
+    rounded half to even and saturated."""
+    t, is_np = _np_in(img)
+    x = t if t.dim() == 3 else t[..., None]
+    k = np.asarray(kernel, np.float32)
+    kh, kw = k.shape
+    h, w, _ = x.shape
+    dev = t.device
+    xf = x.float()
+    acc = torch.zeros_like(xf)
+    for i, j in zip(*np.nonzero(k)):
+        rows = _reflect101(torch.arange(h, device=dev) + int(i) - kh // 2, h)
+        cols = _reflect101(torch.arange(w, device=dev) + int(j) - kw // 2, w)
+        acc = _fma(xf.index_select(0, rows).index_select(1, cols), float(k[i, j]), acc)
+    out = torch.round(acc).clamp_(0, 255).to(torch.uint8)
+    out = out if t.dim() == 3 else out[..., 0]
+    return out.numpy() if is_np else out
+
+
+def image_size(path: str | Path) -> tuple[int, int]:
+    """(width, height) of an image file from its header: PNG, BMP, PPM /
+    PGM and JPEG (its first start-of-frame marker) here, other formats
+    through PIL where it imports (an ``ImportError`` naming the format where
+    it does not)."""
+    path = Path(path)
+    with open(path, "rb") as f:
+        head = f.read(64 * 1024)
+    if head[:8] == PNG_SIGNATURE:
+        return struct.unpack(">II", head[16:24])
+    if head[:2] == b"BM":
+        w, h = struct.unpack("<ii", head[18:26])
+        return w, abs(h)
+    if head[:2] in (b"P5", b"P6"):
+        fields, pos = [], 2
+        while len(fields) < 2:
+            while head[pos:pos + 1].isspace():
+                pos += 1
+            if head[pos:pos + 1] == b"#":
+                pos = head.index(b"\n", pos)
+                continue
+            end = pos
+            while not head[end:end + 1].isspace():
+                end += 1
+            fields.append(int(head[pos:end]))
+            pos = end
+        return fields[0], fields[1]
+    if head[:3] == b"\xff\xd8\xff":
+        buf = path.read_bytes()
+        pos = 2
+        while pos + 9 < len(buf):
+            if buf[pos] != 0xFF:
+                pos += 1
+                continue
+            marker = buf[pos + 1]
+            if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7 or marker == 0xFF:
+                pos += 1 if marker == 0xFF else 2
+                continue
+            seg = struct.unpack(">H", buf[pos + 2:pos + 4])[0]
+            if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+                h, w = struct.unpack(">HH", buf[pos + 5:pos + 9])
+                return w, h
+            pos += 2 + seg
+        raise ValueError(f"{path}: JPEG without a start-of-frame marker")
+    fmt = _codec_name(head, path)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: reading the size of {fmt} needs PIL (Pillow), which is "
+                          "not installed") from e
+    with Image.open(path) as im:
+        return im.size

@@ -13,11 +13,13 @@ replacing ``DistributedSampler``.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from queue import Queue
 from typing import Any, Iterator, Protocol
 
 import numpy as np
+import torch
 
 
 class Dataset(Protocol):
@@ -49,6 +51,26 @@ def next_bucket(n: int, min_bucket: int = 8) -> int:
             nk = k * 4 // 3
         k = nk
     return k * min_bucket
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch's CPU ops on one intra-op thread in the calling thread for the
+    block (torch's thread count is a per-thread OpenMP setting). A
+    dataset's per-sample ops gain little from the pool, and its idle OpenMP
+    threads spin against the loader's other workers and the trainer, many
+    times slower where the host's cores are busy; the loader's workers
+    parallelize across samples instead (``chip_smoke.py`` 14b reads the
+    loader both ways)."""
+    n = torch.get_num_threads()
+    if n == 1:
+        yield
+        return
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def default_collate(samples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
@@ -92,18 +114,6 @@ class DataLoader:
         # 4 workers HALVED throughput there)
         self.num_workers = min(max(num_workers, 0), os.cpu_count() or 1)
         self.prefetch = prefetch
-        if self.num_workers > 0:
-            # cv2's internal per-call thread pool fights the loader's worker
-            # threads (measured: 8 workers gave 25 -> 27 img/s at flagship
-            # scale). Single-threaded cv2 calls let workers parallelize
-            # ACROSS samples instead (reference does the same,
-            # ultralytics/data/build.py cv2.setNumThreads(0)).
-            try:
-                import cv2
-
-                cv2.setNumThreads(0)
-            except ImportError:
-                pass
         # group_fn(idx) -> hashable key: batches draw only within a group
         # (rect/aspect-grouped batching — reference rect mode, data/base.py).
         # Keeps every batch shape-static per group so XLA compiles once per
@@ -217,7 +227,12 @@ class DataLoader:
             try:
                 from concurrent.futures import ThreadPoolExecutor
 
-                with ThreadPoolExecutor(self.num_workers) as pool:
+                # each worker's torch ops on one intra-op thread: the workers
+                # parallelize across samples (the reference's loader sets
+                # cv2.setNumThreads(0) for its cv2 calls)
+                with ThreadPoolExecutor(self.num_workers,
+                                        initializer=torch.set_num_threads,
+                                        initargs=(1,)) as pool:
                     for idxs, n_real in self._batches():
                         if stop.is_set():
                             return

@@ -29,6 +29,7 @@ from torch import nn
 
 from kuzu_torch.models.layers import f32_products
 from kuzu_torch.models.yolo.modules import flax_batch_norm
+from kuzu_torch.ops.conv import conv2d
 from kuzu_torch.ops.images import from_uint8
 
 STRIDES = ((2, 2), (2, 2), (1, 2), (1, 2))  # (time, short side) per stage
@@ -49,7 +50,7 @@ def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
 
 def _conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.Conv(dtype=...)``: the f32 kernel cast to x's dtype."""
-    return F.conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding)
+    return conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding)
 
 
 class ConvBN(nn.Module):

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kuzu_torch.ops.conv import conv2d
 from kuzu_torch.ops.flash_attention import (
     JAX_SCORES_BYTES,
     area_attention,
@@ -175,8 +176,8 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt, p = self.dtype, self.proj
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), p.weight.to(dt), p.bias.to(dt),
-                     stride=p.stride)
+        y = conv2d(x.permute(0, 3, 1, 2).to(dt), p.weight.to(dt), p.bias.to(dt),
+                   stride=p.stride)
         return y.flatten(2).transpose(1, 2)
 
 

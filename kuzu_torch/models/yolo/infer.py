@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kuzu_torch.models.yolo import modules as M
+from kuzu_torch.ops.conv import conv2d
 from kuzu_torch.ops.flash_attention import (
     area_attention,
     area_attention_fwd_fits,
@@ -69,7 +70,7 @@ class _P:
 def conv(p: _P, x: torch.Tensor, s: int = 1, g: int = 1, act: bool = True):
     """Conv + folded BN (+ SiLU)."""
     w, b = p.get()
-    y = F.conv2d(x, w, None, s, w.shape[-1] // 2, 1, g)
+    y = conv2d(x, w, None, s, w.shape[-1] // 2, 1, g)
     y = y + b.to(y.dtype).view(1, -1, 1, 1)
     return F.silu(y) if act else y
 
@@ -77,7 +78,7 @@ def conv(p: _P, x: torch.Tensor, s: int = 1, g: int = 1, act: bool = True):
 def plain_conv(p: _P, x: torch.Tensor):
     """Bias-carrying 1x1 conv without BN (Detect leaves)."""
     w, b = p.get()
-    y = F.conv2d(x, w.to(x.dtype))
+    y = conv2d(x, w.to(x.dtype))
     return y + b.to(y.dtype).view(1, -1, 1, 1)
 
 

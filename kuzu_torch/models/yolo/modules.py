@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kuzu_torch.ops.conv import conv2d
 from kuzu_torch.ops.flash_attention import (
     AreaAttention,
     area_attention_train_fits,
@@ -86,7 +87,7 @@ def flax_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
 def plain_conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A bias-carrying 1x1 conv in x's dtype: the product, then the bias
     added in that dtype (flax ``nn.Conv(dtype=...)`` with a bias)."""
-    y = F.conv2d(x, m.weight.to(x.dtype))
+    y = conv2d(x, m.weight.to(x.dtype))
     return y + m.bias.to(x.dtype).view(1, -1, 1, 1)
 
 
@@ -114,7 +115,7 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
-        y = F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding, 1, c.groups)
+        y = conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding, 1, c.groups)
         y = flax_batch_norm(self.bn, y)
         return F.silu(y) if self.act else y
 

@@ -17,9 +17,8 @@ One device only: the data-parallel mesh and tensor parallelism raise
 ``NotImplementedError`` naming the later slice that ports them.
 
 ``CropTrainer`` is the engine of the two recognizer tasks (recognize, CTC)
-over decoded line crops: their loaders and their photometric jitter.
-:func:`trainer_for` serves a task's decoded datasets until its image-file
-datasets are ported.
+over line crops: their image-file datasets, loaders and photometric jitter.
+:func:`trainer_for` serves a task's datasets decoded elsewhere.
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from kuzu_torch.core.checkpoint import CheckpointManager
 from kuzu_torch.core.config import Config
 from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
 from kuzu_torch.data.loader import DataLoader
+from kuzu_torch.data.ocr_datasets import ColumnInfoDataset, build_tokenizer_from_datasets
 from kuzu_torch.data.tokenizer import CharTokenizer
 from kuzu_torch.models.yolo.detector import resolve_device
 from kuzu_torch.ops.images import from_uint8, photometric_aug
@@ -287,22 +287,43 @@ class BaseTrainer:
 
 
 class CropTrainer(BaseTrainer):
-    """The engine of the recognizer tasks over decoded line crops.
+    """The engine of the recognizer tasks over line crops.
 
-    The reference's datasets (``OneLineDataset``, ``ColumnInfoDataset``)
-    read image files with PIL, which the card's machine lacks, so
-    ``build_datasets`` raises; callers hand decoded datasets (``image``
-    uint8 (H, W, 3), ``tokens`` (max_label_length,) ids, for the CTC task
-    optionally ``boxes`` (max_boxes, 4) xyxy px and ``num_boxes``) and their
-    tokenizer to :meth:`make_loaders`, or build the class with
-    :func:`trainer_for`."""
+    ``build_datasets`` reads ``cfg.data`` as the reference does: a ``.csv``
+    is a ``column_info.csv`` (``data/ocr_datasets.py::ColumnInfoDataset``),
+    anything else a one-line folder (``OneLineDataset``); the tokenizer is
+    the task's (:meth:`resolve_tokenizer`), else trained on the training
+    split. Decoded datasets (``image`` uint8 (H, W, 3), ``tokens``
+    (max_label_length,) ids, for the CTC task optionally ``boxes``
+    (max_boxes, 4) xyxy px and ``num_boxes``) and their tokenizer go to
+    :meth:`make_loaders` instead, or build the class with
+    :func:`trainer_for`. Subclasses give :meth:`make_dataset`."""
+
+    def resolve_tokenizer(self) -> CharTokenizer | None:
+        """The run's tokenizer where the config names one (``tokenizer``)."""
+        tok = self.cfg.get("tokenizer")
+        return CharTokenizer.load(tok) if tok else None
+
+    def make_dataset(self, split: str, tokenizer: CharTokenizer | None):
+        """The ``split`` of ``cfg.data`` (``tokenizer`` None: texts only)."""
+        raise NotImplementedError
+
+    def column_dataset(self, split: str, tokenizer: CharTokenizer | None, image_size,
+                       max_len: int) -> ColumnInfoDataset:
+        """``cfg.data`` as a ``column_info.csv``, augmented (``augment``) in
+        its training split, decoded once with ``cache_images=ram``."""
+        cfg = self.cfg
+        return ColumnInfoDataset(
+            str(cfg.data), tokenizer, split=split, image_size=image_size, max_length=max_len,
+            augment=bool(cfg.get("augment", True)) and split == "train",
+            seed=int(cfg.get("seed", 0)), cache_images=cfg.get("cache_images"))
 
     def build_datasets(self):
-        raise NotImplementedError(
-            f"the {self.cfg.get('task')} datasets (kuzu/data/ocr_datasets.py: OneLineDataset, "
-            "ColumnInfoDataset) read image files with PIL, which the GPU machine lacks; "
-            f"subclass {type(self).__name__} (or use trainer_for) and return "
-            "self.make_loaders(train_ds, val_ds, tokenizer) from build_datasets")
+        tokenizer = self.resolve_tokenizer()
+        if tokenizer is None:
+            tokenizer = build_tokenizer_from_datasets(self.make_dataset("train", None))
+        return self.make_loaders(self.make_dataset("train", tokenizer),
+                                 self.make_dataset("val", tokenizer), tokenizer)
 
     def make_loaders(self, train_ds, val_ds, tokenizer: CharTokenizer):
         """(train, val) loaders over decoded datasets, batched as the JAX
@@ -329,7 +350,7 @@ class CropTrainer(BaseTrainer):
 def trainer_for(datasets: tuple, cls: type) -> type:
     """A subclass of the trainer ``cls`` whose ``build_datasets`` returns
     ``self.make_loaders(*datasets)``: how tests and scripts train on data
-    they decode themselves until the image-file datasets are ported."""
+    they decode themselves."""
 
     class _Trainer(cls):
         def build_datasets(self):

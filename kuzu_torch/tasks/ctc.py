@@ -9,10 +9,10 @@ cer``. The production recipe is ``kuzu/tools/production.py:539-555``: bf16
 at imgsz [1024, 64], batch 16, max_label_length 128, adamw lr0 3e-4,
 warmup 1 epoch.
 
-The datasets are decoded crops handed to ``make_loaders`` or
-:func:`trainer_for` (``tasks/base.py::CropTrainer``: the reference's read
-image files with PIL, which the card's machine lacks). ``CTCPredictor``
-loads a run dir (or wraps a CRNN in memory) and decodes crops; called, it
+``build_datasets`` reads ``cfg.data``, a ``column_info.csv`` or a one-line
+folder (``tasks/base.py::CropTrainer``, ``data/ocr_datasets.py``); decoded
+crops go to ``make_loaders`` or :func:`trainer_for`. ``CTCPredictor`` loads
+a run dir (or wraps a CRNN in memory) and decodes crops; called, it
 transcribes image files (``data/ocr_datasets.py::load_letterboxed``, PIL's
 decode and resize reproduced without PIL).
 """
@@ -31,7 +31,7 @@ from kuzu_torch.api.model import register_task
 from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params
 from kuzu_torch.core.config import Config, load_config
 from kuzu_torch.core.metrics import character_error_rate
-from kuzu_torch.data.ocr_datasets import letterboxed_batch
+from kuzu_torch.data.ocr_datasets import OneLineDataset, letterboxed_batch
 from kuzu_torch.data.tokenizer import CharTokenizer
 from kuzu_torch.models.crnn import CRNN, DIMS, ctc_frames
 from kuzu_torch.models.yolo.detector import resolve_device
@@ -64,6 +64,18 @@ def build_crnn(cfg, num_classes: int, dtype: torch.dtype = torch.float32) -> CRN
 
 class CTCTrainer(CropTrainer):
     auto_optimizer = "adamw"  # the reference's ocr_lightning trains with Adam
+
+    def make_dataset(self, split: str, tokenizer: CharTokenizer | None):
+        """A ``column_info.csv`` (no box head: its boxes are in page pixels),
+        else a one-line folder, unaugmented, with its character boxes where
+        ``max_boxes > 0``."""
+        cfg = self.cfg
+        size, max_len = _image_size(cfg), int(cfg.get("max_label_length", 64))
+        if str(cfg.data).endswith(".csv"):
+            return self.column_dataset(split, tokenizer, size, max_len)
+        boxes = int(cfg.get("max_boxes", 0))
+        return OneLineDataset(str(cfg.data), tokenizer, split=split, image_size=size,
+                              max_length=max_len, with_boxes=boxes > 0, max_boxes=max(boxes, 1))
 
     def build_model(self) -> CRNN:
         cfg = self.cfg

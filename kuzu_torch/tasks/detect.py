@@ -8,11 +8,12 @@ statistics into the BN-folded executor (``YoloDetector``: the fused-ABlock,
 area-attention and NMS kernels on the card) and runs infer -> decode ->
 NMS (``multi_label``) into ``DetMetrics``.
 
-``build_datasets`` keeps the JAX signature; its folder-dataset body
-(``kuzu/data/yolo_dataset.py``) is not ported yet, so callers subclass it
-and hand their datasets to :meth:`DetectTrainer.make_loaders`, which records
-their ``nc`` and ``names`` in the run dir's ``data_spec.yaml`` for
-:class:`DetectPredictor`.
+``build_datasets`` reads ``cfg.data``, a ``dataset.yaml`` over a YOLO folder
+(``data/yolo_dataset.py::YoloDetectionDataset``: the mosaic, warp, HSV and
+flip recipe on the host, the reference's bytes); :meth:`DetectTrainer.
+make_loaders` takes datasets decoded elsewhere (:func:`trainer_for`). Either
+records the data's ``nc`` and ``names`` in the run dir's ``data_spec.yaml``
+for :class:`DetectPredictor`.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from kuzu_torch.core.metrics import DetMetrics
 from kuzu_torch.core.train import TrainState, build_optimizer
 from kuzu_torch.data.loader import DataLoader, next_bucket
 from kuzu_torch.data.sources import Frame, batched_frames, resolve_source
-from kuzu_torch.data.yolo_dataset import letterbox_np
+from kuzu_torch.data.yolo_dataset import YoloDetectionDataset, letterbox_np, load_dataset_yaml
 from kuzu_torch.models.yolo.detector import YoloDetector, resolve_device
 from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
 from kuzu_torch.ops.detect_loss import detection_loss
@@ -45,18 +46,41 @@ from kuzu_torch.tasks.base import BaseTrainer, resolve_val_batches
 DATA_SPEC = "data_spec.yaml"  # a run's nc and names, written by make_loaders
 
 
+HYP_KEYS = ("mosaic", "fliplr", "flipud", "hsv_h", "hsv_s", "hsv_v", "degrees", "translate",
+            "scale", "shear", "perspective", "mixup", "copy_paste", "erasing")
+
+
 class DetectTrainer(BaseTrainer):
     def build_datasets(self):
-        raise NotImplementedError(
-            "the folder dataset (kuzu/data/yolo_dataset.py) is not ported yet: it "
-            "decodes with cv2, which the GPU machine lacks; subclass DetectTrainer "
-            "and return self.make_loaders(train_ds, val_ds, nc) from build_datasets")
+        """(train, val) loaders over the ``cfg.data`` folder: the training
+        split augmented (``augment``, the ``HYP_KEYS`` hyperparameters,
+        ``cache_images``), the validation split letterboxed (the training
+        split where the yaml's has no images); ``rect`` batches both by
+        shape bucket (the training split's only without augmentation)."""
+        cfg = self.cfg
+        imgsz = int(cfg.get("imgsz", 640))
+        max_boxes = int(cfg.get("max_boxes", 300))
+        hyp = {k: float(cfg.get(k)) for k in HYP_KEYS if cfg.get(k) is not None}
+        spec = load_dataset_yaml(cfg.data)
+        rect = bool(cfg.get("rect", False))
+        self.train_ds = YoloDetectionDataset(
+            spec, split="train", imgsz=imgsz, max_boxes=max_boxes,
+            augment=bool(cfg.get("augment", True)), hyp=hyp, seed=int(cfg.get("seed", 0)),
+            rect=rect, cache_images=cfg.get("cache_images"))
+        try:
+            self.val_ds = YoloDetectionDataset(spec, split="val", imgsz=imgsz,
+                                               max_boxes=max_boxes, augment=False, rect=rect)
+        except FileNotFoundError:
+            self.val_ds = YoloDetectionDataset(spec, split="train", imgsz=imgsz,
+                                               max_boxes=max_boxes, augment=False, rect=rect)
+        return self.make_loaders(self.train_ds, self.val_ds, spec["nc"], spec["names"])
 
     def make_loaders(self, train_ds, val_ds, nc: int, names: dict | None = None):
         """(train, val) loaders over datasets of the ``Dataset`` protocol
         (``image`` uint8 (H, W, 3), ``gt_boxes`` (M, 4) xyxy px,
         ``gt_labels`` (M,), ``mask_gt`` (M,)), batched as the JAX trainer
-        batches its folder datasets."""
+        batches its folder datasets: a dataset with ``rect`` set in batches
+        of its shape buckets (``batch_shape_key``)."""
         cfg = self.cfg
         self.train_ds, self.val_ds = train_ds, val_ds
         self.data_spec = {"nc": int(nc), "names": names or {i: str(i) for i in range(nc)}}
@@ -64,11 +88,15 @@ class DetectTrainer(BaseTrainer):
             yaml.safe_dump(self.data_spec, f, sort_keys=False, allow_unicode=True)
         batch = int(cfg.get("batch", 16))
         workers = int(cfg.get("workers", 4))
+
+        def groups(ds):
+            return ds.batch_shape_key if getattr(ds, "rect", False) else None
+
         # set_epoch reaches the dataset (per-epoch augmentation seeds)
         train_loader = DataLoader(train_ds, batch, shuffle=True, seed=int(cfg.get("seed", 0)),
-                                  num_workers=workers)
+                                  num_workers=workers, group_fn=groups(train_ds))
         val_loader = DataLoader(val_ds, batch, shuffle=False, pad_last=True,
-                                num_workers=workers)
+                                num_workers=workers, group_fn=groups(val_ds))
         return train_loader, val_loader
 
     def build_model(self) -> YoloGraph:
@@ -154,8 +182,8 @@ class DetectTrainer(BaseTrainer):
 
 
 def trainer_for(datasets: tuple[Any, Any, int], cls: type = DetectTrainer) -> type:
-    """``cls`` serving ``(train_ds, val_ds, nc)`` (``base.trainer_for``)
-    until the folder dataset is ported."""
+    """``cls`` serving ``(train_ds, val_ds, nc)``, datasets decoded elsewhere
+    (``base.trainer_for``)."""
     return base.trainer_for(datasets, cls)
 
 
@@ -167,9 +195,9 @@ class DetectValidator:
     validation loader served by ``build_datasets``, and the run's EMA
     weights (LoRA adapters fused) are validated as the live weights.
 
-    ``trainer_cls`` is the trainer class (default ``DetectTrainer``); until
-    the folder dataset is ported, a :func:`trainer_for` class fills it with
-    decoded datasets."""
+    ``trainer_cls`` is the trainer class (default ``DetectTrainer``, over
+    ``cfg.data``'s folder; a :func:`trainer_for` class serves decoded
+    datasets)."""
 
     trainer_cls: type | None = None
 

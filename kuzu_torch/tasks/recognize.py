@@ -11,13 +11,12 @@ run's into the decoder (``graft_lm_decoder``). Validation: teacher-forced
 accuracy and the corpus CER of greedy or beam generation with the EMA
 weights, fitness ``1 - cer``.
 
-The datasets are decoded crops handed to ``make_loaders`` or
-:func:`trainer_for` (``tasks/base.py::CropTrainer``: the reference's read
-image files with PIL, which the card's machine lacks).
-``RecognizePredictor`` loads a run dir (or wraps a TrOCR in memory) and
-decodes crops; called, it transcribes image files
-(``data/ocr_datasets.py::load_letterboxed``, PIL's decode and resize
-reproduced without PIL).
+``build_datasets`` reads ``cfg.data``, a ``column_info.csv`` or a one-line
+folder (``tasks/base.py::CropTrainer``); decoded crops go to
+``make_loaders`` or :func:`trainer_for`. ``RecognizePredictor`` loads a run
+dir (or wraps a TrOCR in memory) and decodes crops; called, it transcribes
+image files (``data/ocr_datasets.py::load_letterboxed``, PIL's decode and
+resize reproduced without PIL).
 """
 
 from __future__ import annotations
@@ -34,7 +33,7 @@ from kuzu_torch.core.callbacks import LOGGER
 from kuzu_torch.core.checkpoint import CheckpointManager, load_inference_params, partial_load
 from kuzu_torch.core.config import Config, load_config
 from kuzu_torch.core.metrics import character_error_rate
-from kuzu_torch.data.ocr_datasets import letterboxed_batch
+from kuzu_torch.data.ocr_datasets import OneLineDataset, letterboxed_batch
 from kuzu_torch.data.tokenizer import CharTokenizer
 from kuzu_torch.models.layers import flax_init_
 from kuzu_torch.models.trocr import TrOCR, beam_generate, generate, graft_lm_decoder
@@ -80,6 +79,32 @@ class RecognizeTrainer(CropTrainer):
     # from-scratch TrOCR under the YOLO SGD auto-rule stalls; the reference
     # fine-tunes with AdamW
     auto_optimizer = "adamw"
+
+    def resolve_tokenizer(self) -> CharTokenizer | None:
+        """``tokenizer``, else the ``pretrained`` recognize run's, else the
+        ``decoder_init`` LM run's (token ids must line up with the grafted
+        embeddings)."""
+        cfg = self.cfg
+        tok = cfg.get("tokenizer")
+        if not tok and cfg.get("pretrained") not in (None, "", True, False):
+            cand = Path(str(cfg.pretrained)) / "tokenizer.json"
+            tok = cand if cand.exists() else None
+        if not tok and cfg.get("decoder_init"):
+            cand = Path(str(cfg.decoder_init)) / "tokenizer.json"
+            tok = cand if cand.exists() else None
+        return CharTokenizer.load(tok) if tok else None
+
+    def make_dataset(self, split: str, tokenizer: CharTokenizer | None):
+        """A ``column_info.csv`` or a one-line folder, augmented in the
+        training split."""
+        cfg = self.cfg
+        size, max_len = _image_size(cfg), int(cfg.get("max_label_length", 128))
+        if str(cfg.data).endswith(".csv"):
+            return self.column_dataset(split, tokenizer, size, max_len)
+        return OneLineDataset(str(cfg.data), tokenizer, split=split, image_size=size,
+                              max_length=max_len,
+                              augment=bool(cfg.get("augment", True)) and split == "train",
+                              seed=int(cfg.get("seed", 0)))
 
     def build_model(self) -> TrOCR:
         cfg = self.cfg

@@ -96,18 +96,12 @@ class SyntheticDetectionDataset:
     def __getitem__(self, i: int) -> dict[str, np.ndarray]:
         rng = np.random.default_rng((self.seed, i))
         s = self.imgsz
-        img = rng.integers(215, 250, (s, s, 3), dtype=np.uint8)  # paper and grain
-        k = min(int(rng.integers(self.boxes[0], self.boxes[1] + 1)), self.max_boxes)
-        wh = rng.integers(self.size[0], self.size[1] + 1, (k, 2))
-        x1 = (rng.random(k) * (s - wh[:, 0])).astype(np.int64)
-        y1 = (rng.random(k) * (s - wh[:, 1])).astype(np.int64)
+        img, drawn = glyph_page(rng, (s, s), self.boxes, self.size, max_boxes=self.max_boxes)
+        k = len(drawn)
         boxes = np.zeros((self.max_boxes, 4), np.float32)
         labels = np.zeros((self.max_boxes,), np.int32)
         mask = np.zeros((self.max_boxes,), bool)
-        for j in range(k):
-            x, y, w, h = x1[j], y1[j], wh[j, 0], wh[j, 1]
-            img[y:y + h, x:x + w] = rng.integers(10, 90)  # ink
-            boxes[j] = (x, y, x + w, y + h)
+        boxes[:k] = drawn
         labels[:k] = rng.integers(0, self.nc, k)
         mask[:k] = True
         return {"image": img, "gt_boxes": boxes, "gt_labels": labels, "mask_gt": mask}
@@ -218,6 +212,140 @@ def page_files(root, pages, paeth: tuple[int, ...] = ()) -> list:
     return [write_png(root / f"page{i:02d}.png", np.asarray(p),
                       filter="paeth" if i in paeth else "sub")
             for i, p in enumerate(pages)]
+
+
+def glyph_page(rng: np.random.Generator, hw: tuple[int, int], n_boxes: tuple[int, int],
+               size: tuple[int, int] = (8, 40),
+               max_boxes: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """A light page of (H, W) (paper and grain) with dark glyph-like
+    rectangles of ``size`` px a side (at most half the page's side), their
+    count drawn in ``n_boxes`` (then cut to ``max_boxes``): (uint8 (H, W,
+    3), xyxy px (k, 4) f32)."""
+    h, w = hw
+    img = rng.integers(215, 250, (h, w, 3), dtype=np.uint8)
+    k = int(rng.integers(n_boxes[0], n_boxes[1] + 1))
+    k = k if max_boxes is None else min(k, max_boxes)
+    wh = rng.integers(size[0], min(size[1], h // 2, w // 2) + 1, (k, 2))
+    x1 = (rng.random(k) * (w - wh[:, 0])).astype(np.int64)
+    y1 = (rng.random(k) * (h - wh[:, 1])).astype(np.int64)
+    for j in range(k):
+        img[y1[j]:y1[j] + wh[j, 1], x1[j]:x1[j] + wh[j, 0]] = rng.integers(10, 90)
+    boxes = np.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1]], 1).astype(np.float32)
+    return img, boxes
+
+
+def write_yolo_folder(root, counts: dict, hw=(120, 160), n_boxes=(3, 12), size=(8, 40),
+                      nc: int = 1, seed: int = 0, shapes: list | None = None,
+                      workers: int = 1):
+    """A seeded YOLO folder under ``root``: ``images/<split>/im{i:03d}.png``
+    (``image_io.write_png``) of glyph pages (:func:`glyph_page`), their
+    labels ``labels/<split>/im{i:03d}.txt`` (class, cx, cy, w, h normalized)
+    and ``dataset.yaml``; ``counts`` maps a split to its image count,
+    ``shapes`` (optional) gives the images' (H, W) in turn. The pages are
+    drawn in order, their PNGs written by ``workers`` threads. Returns the
+    yaml's path."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import yaml
+
+    from kuzu_torch.data.image_io import write_png
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    k = 0
+    with ThreadPoolExecutor(max(workers, 1)) as pool:
+        pending = []
+        for split, n in counts.items():
+            (root / "images" / split).mkdir(parents=True, exist_ok=True)
+            (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                h, w = shapes[k % len(shapes)] if shapes else hw
+                k += 1
+                img, boxes = glyph_page(rng, (h, w), n_boxes, size)
+                cls = rng.integers(0, nc, len(boxes))
+                pending.append(pool.submit(write_png, root / "images" / split / f"im{i:03d}.png",
+                                           img))
+                cx, cy = (boxes[:, 0] + boxes[:, 2]) / 2 / w, (boxes[:, 1] + boxes[:, 3]) / 2 / h
+                bw, bh = (boxes[:, 2] - boxes[:, 0]) / w, (boxes[:, 3] - boxes[:, 1]) / h
+                (root / "labels" / split / f"im{i:03d}.txt").write_text("".join(
+                    f"{c} {a:.6f} {b:.6f} {d:.6f} {e:.6f}\n"
+                    for c, a, b, d, e in zip(cls, cx, cy, bw, bh)))
+        for f in pending:
+            f.result()
+    spec = {"path": ".", "train": "images/train", "val": "images/val",
+            "names": {i: f"c{i}" for i in range(nc)}}
+    (root / "dataset.yaml").write_text(yaml.safe_dump(spec))
+    return root / "dataset.yaml"
+
+
+def line_crop(rng: np.random.Generator, text_ids, hw: tuple[int, int]) -> np.ndarray:
+    """A light column crop of (H, W) with one dark block per character id,
+    top to bottom (the gray level and width from the id)."""
+    h, w = hw
+    img = rng.integers(215, 250, (h, w, 3), dtype=np.uint8)
+    cell = max(h // max(len(text_ids), 1), 1)
+    for j, t in enumerate(text_ids):
+        bw = w // 4 + int(t) % max(w // 2, 1)
+        x0 = (w - bw) // 2
+        img[j * cell + cell // 8:(j + 1) * cell - cell // 8, x0:x0 + bw] = 10 + int(t) * 37 % 80
+    return img
+
+
+def write_column_csv(root, texts: list[str], hw=((120, 200), (24, 40)), seed: int = 0):
+    """A seeded ``column_info.csv`` under ``root`` (``column_image`` relative
+    paths, ``unicode_ids`` as ``U+XXXX`` words) over PNG crops of
+    :func:`line_crop`, each's H and W drawn in the ranges ``hw``. Returns the
+    CSV's path."""
+    import csv
+    from pathlib import Path
+
+    from kuzu_torch.data.image_io import write_png
+
+    root = Path(root)
+    (root / "crops").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i, text in enumerate(texts):
+        h, w = int(rng.integers(*hw[0])), int(rng.integers(*hw[1]))
+        write_png(root / "crops" / f"c{i:04d}.png", line_crop(rng, [ord(c) for c in text], (h, w)))
+        rows.append((f"crops/c{i:04d}.png", " ".join(f"U+{ord(c):04X}" for c in text)))
+    path = root / "column_info.csv"
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f).writerows([("column_image", "unicode_ids"), *rows])
+    return path
+
+
+def write_oneline_folder(root, splits: dict, hw=((120, 200), (24, 40)), seed: int = 0,
+                         books: int = 2, boxes: bool = False):
+    """A seeded one-line folder under ``root``: per split (``splits`` maps it
+    to its texts) ``{split}/images/book{b}/l{i:03d}.png`` crops of
+    :func:`line_crop` with ``labels/book{b}/l{i:03d}.txt``, and with
+    ``boxes`` ``bounding_boxes/book{b}/l{i:03d}.json`` (the blocks' xyxy,
+    every third file missing). Returns ``root``."""
+    import json
+    from pathlib import Path
+
+    from kuzu_torch.data.image_io import write_png
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, texts in splits.items():
+        for i, text in enumerate(texts):
+            book = f"book{i % books}"
+            for d in ("images", "labels", "bounding_boxes"):
+                (root / split / d / book).mkdir(parents=True, exist_ok=True)
+            h, w = int(rng.integers(*hw[0])), int(rng.integers(*hw[1]))
+            write_png(root / split / "images" / book / f"l{i:03d}.png",
+                      line_crop(rng, [ord(c) for c in text], (h, w)))
+            (root / split / "labels" / book / f"l{i:03d}.txt").write_text(text + "\n",
+                                                                           encoding="utf-8")
+            if boxes and i % 3:
+                cell = h // max(len(text), 1)
+                bx = [[2, j * cell, w - 2, (j + 1) * cell] for j in range(len(text))]
+                (root / split / "bounding_boxes" / book / f"l{i:03d}.json").write_text(
+                    json.dumps(bx))
+    return root
 
 
 @torch.no_grad()

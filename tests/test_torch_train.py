@@ -259,9 +259,17 @@ def test_unported_options_raise(tmp_path):
     DetectTrainer(load_config(overrides={"project": str(tmp_path), "lora_rank": 4}),
                   device="cpu")
     build_optimizer(load_config(overrides={"optimizer": "radam"}), torch.nn.Linear(2, 2))
-    cfg = load_config(overrides={"project": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="folder dataset"):
-        DetectTrainer(cfg, device="cpu").build_datasets()
+    # the folder dataset is ported: build_datasets reads cfg.data's YOLO folder
+    from kuzu_torch.data.yolo_dataset import YoloDetectionDataset
+    from kuzu_torch.testing import write_yolo_folder
+
+    data = write_yolo_folder(tmp_path / "data", {"train": 2, "val": 1}, hw=(48, 64), nc=2)
+    cfg = load_config(overrides={"project": str(tmp_path), "data": str(data), "imgsz": 64,
+                                 "batch": 2, "workers": 0})
+    train_loader, val_loader = DetectTrainer(cfg, device="cpu").build_datasets()
+    assert isinstance(train_loader.dataset, YoloDetectionDataset)
+    assert len(train_loader) == 1 and len(val_loader) == 1
+    assert next(iter(train_loader))["image"].shape == (2, 64, 64, 3)
 
 
 def test_trainer_needs_cuda_by_default(monkeypatch, tmp_path):

@@ -10,8 +10,19 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from kuzu_torch.testing import MAP_CLOSE_SHARE, MAP_MAX_REL, maps_agreement
+
+# Two intra-op threads for torch in every test process. The suite runs in
+# several worker processes on the host's cores, and torch's default (a
+# thread a core in each) left their OpenMP pools spinning against each
+# other and against XLA's: six port test files under six workers took 399
+# s at the default, 70 s at two threads, on an 8-core host. Each pytest
+# worker collects every test module, and so imports this one. On one
+# thread a remat gradient leaf (sequential f32 sums) falls outside its
+# tolerance; at two, as at the default, it is within it.
+torch.set_num_threads(2)
 
 
 def numpy_tree(tree):
