@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py 10   # the build and phase 10 alone, no result line
+
+The second form times the training step of one checkout on its own, so
+that two commits can be compared in one call on one card.
 
 Phases, each raising on failure:
 
@@ -163,8 +167,21 @@ Phases, each raising on failure:
    ``column_info.csv`` of 160 PNG column crops: ms/step, CER, the loader's
    rate; (d) the recognize trainer from a one-line folder at the
    production widths (K3 + K4 a step) and ``evaluate_recognizer``;
-15. the ``kernels`` JSON line, then the card's name and power limit;
-16. last line: ``{"ok": true, "device": {...}}``.
+15. (last, after 10) the rest of the detect zoo: (a) yolov8n, yolo11n,
+   yolov10n and yolov9c at 128, batch 2, seeded weights, card against CPU
+   under phase 4's criteria (raw maps, yolov10's of its one2one head;
+   decode; the selection of one decoded tensor; detections); (b) yolo11x, yolov8x, yolov9c and
+   yolov10x at 640, batch 8, bf16: ``infer`` -> ``decode`` -> NMS on K1
+   (yolov10x: ``nms_free_select``, equal to the CPU's on the same tensor),
+   every K1 call held against the plain recurrence on its inputs, ms/img,
+   device ms and idle share of a profiled call, peak memory; (c)
+   ``DetectTrainer`` at 640, batch 8, bf16 for yolo11x (the v8 loss,
+   C2PSA) and yolov10x (the E2E loss): launches, finite losses, ms/step, a
+   profiled step, peak memory, validation through K1 or NMS-free, the run
+   dir in ``DetectPredictor`` equal to the EMA weights; one yolo11x step
+   with ``remat`` against the plain step (phase 9's criteria);
+16. the ``kernels`` JSON line, then the card's name and power limit;
+17. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -4522,6 +4539,303 @@ def image_files_phase(dev, launches: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 15
+
+ZOO_SMALL = ("yolov8n", "yolo11n", "yolov10n", "yolov9c")  # 15a: card against CPU at 128
+ZOO_FULL = ("yolo11x", "yolov8x", "yolov9c", "yolov10x")  # 15b: inference at 640, b8
+ZOO_TRAIN = ("yolo11x", "yolov10x")  # 15c: the v8 loss with C2PSA, and the E2E loss
+ZOO_REMAT = "yolo11x"  # 15c's remat step
+ZOO_WARM, ZOO_TIMED = 2, 4  # 15c's steps
+ZOO_IMGSZ, ZOO_BATCH = 640, 8  # 15b and 15c
+
+
+def zoo_selection(det, pred) -> dict:
+    """The family's selection, as the port's predictor runs it: NMS on K1,
+    or yolov10's NMS-free top-k."""
+    return det.select(pred, CONF, 0.7, 300)
+
+
+def zoo_card_vs_cpu(dev, launches: dict) -> dict:
+    """15a: each family's n scale (yolov9c) at 128 px, batch 2, nc 80,
+    seeded weights, infer -> decode -> selection on the card and on the CPU
+    under phase 4's criteria: raw maps (every head) by ``maps_match``,
+    decode within 2 px and 2e-4, the selection of one decoded tensor on the
+    card identical to the CPU's, detections matched both ways."""
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.testing import detections_match, maps_agreement, maps_match
+
+    imgs = torch.from_numpy(
+        np.random.default_rng(15).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8))
+    out = {}
+    for name in ZOO_SMALL:
+        gpu = YoloDetector(name, nc=80, imgsz=128, device=dev).init(0)
+        cpu = YoloDetector(name, nc=80, imgsz=128, device="cpu").init(0)
+        zero_counts()
+        gmaps = gpu.infer(imgs)
+        gpred = gpu.decode(gmaps)
+        gdets = zoo_selection(gpu, gpred)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        end2end = gpu.spec.end2end
+        require(counts == want(nms=0 if end2end else 1), f"{name} launch counts {counts}")
+        for k, c in counts.items():
+            launches[k] += c
+        cmaps = cpu.infer(imgs)
+        cpred = cpu.decode(cmaps)
+        cdets = zoo_selection(cpu, cpred)
+        heads = ("one2one",) if end2end else ("",)
+        worst = (0.0, 1.0)
+        for head in heads:
+            cm = cmaps[head] if head else cmaps
+            gm = gmaps[head] if head else gmaps
+            for lvl, (c, g) in enumerate(zip(cm, gm)):
+                rel, share = maps_agreement(c, g)
+                worst = (max(worst[0], rel), min(worst[1], share))
+                require(maps_match(c, g), f"{name} card vs CPU raw maps {head} level {lvl}")
+        dbox = float((gpred[:, :4].cpu() - cpred[:, :4]).abs().max())
+        dscore = float((gpred[:, 4:].cpu() - cpred[:, 4:]).abs().max())
+        require(dbox <= 2.0 and dscore <= 2e-4, f"{name} card vs CPU decode")
+        same = zoo_selection(gpu, cpred.to(dev))
+        for key in cdets:
+            require(torch.equal(same[key].cpu(), cdets[key]),
+                    f"{name}: selection of one decoded tensor, card vs CPU: {key}")
+        nc_, ng = cdets["valid"].sum(1), gdets["valid"].sum(1).cpu()
+        m1, m2 = detections_match(cdets, gdets), detections_match(gdets, cdets)
+        print(f"15a {name}@128 b2: launches {counts}; maps worst rel {worst[0]:.4f} (< 0.05), "
+              f"least share close {worst[1]:.5f} (> 0.999); decode box {dbox:.4f} px, score "
+              f"{dscore:.2e}; {'NMS-free selection' if end2end else 'NMS (K1)'} of the CPU's "
+              f"decoded tensor on the card identical; valid {nc_.tolist()} CPU vs "
+              f"{ng.tolist()} card, matched {m1:.4f} / {m2:.4f} (>= 0.9)")
+        require(bool(((nc_ - ng).abs() <= 0.1 * nc_).all()) and m1 >= 0.9 and m2 >= 0.9,
+                f"{name} card vs CPU detections")
+        out[name] = dict(max_rel=worst[0], min_share=worst[1], box_px=dbox, score=dscore,
+                         matched=(m1, m2))
+        del gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_full_width(dev, launches: dict) -> dict:
+    """15b: yolo11x, yolov8x, yolov9c and yolov10x at 640, batch 8, bf16,
+    nc 80, seeded weights, conf 0.001: ``YoloDetector.infer`` -> ``decode``
+    -> NMS on K1 (yolov10x: ``nms_free_select``). Launch counts, finite
+    maps, every K1 call of one call held against the plain recurrence on
+    its inputs (0 keep mismatches), yolov10x's selection on the card equal
+    to the CPU's on the same tensor; ms/img (median of 10 calls, CUDA
+    events), device ms and idle share of one profiled call, peak memory."""
+    import kuzu_torch.ops.nms as nms_module
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.ops.nms import nms_free_select
+
+    n, sz = ZOO_BATCH, ZOO_IMGSZ
+    imgs = torch.from_numpy(
+        np.random.default_rng(16).integers(0, 256, (n, sz, sz, 3), dtype=np.uint8)).to(dev)
+    out = {}
+    for name in ZOO_FULL:
+        det = YoloDetector(name, nc=80, imgsz=sz, device=dev).init(0)
+
+        def run():
+            return zoo_selection(det, det.decode(det.infer(imgs)))
+
+        run()  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        k1 = dict(calls=0, keep_mismatches=0, valid_max=0)
+
+        def nms_check(fn, boxes, valid, thr):
+            keep = fn(boxes, valid, thr)
+            k1["calls"] += 1
+            k1["keep_mismatches"] += k1_keep_mismatches(keep, boxes, valid, thr)
+            k1["valid_max"] = max(k1["valid_max"], int(valid.sum(1).max()))
+            return keep
+
+        zero_counts()
+        with spy(nms_module, "batched_suppress", nms_check):
+            maps = det.infer(imgs)
+            pred = det.decode(maps)
+            dets = zoo_selection(det, pred)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        end2end = det.spec.end2end
+        require(counts == want(nms=0 if end2end else 1), f"{name} launch counts {counts}")
+        for k, c in counts.items():
+            launches[k] += c
+        flat = [m for ms in (maps.values() if end2end else [maps]) for m in ms]
+        require(all(bool(torch.isfinite(m).all()) for m in flat) and
+                bool(torch.isfinite(pred).all()), f"{name} finite maps and decode")
+        nvalid = dets["valid"].sum(1).tolist()
+        require(min(nvalid) > 0, f"{name}: every image has detections")
+        if end2end:
+            cpu = nms_free_select(pred.cpu(), conf_thres=CONF, max_det=300)
+            equal = all(torch.equal(dets[k].cpu(), cpu[k]) for k in cpu)
+            require(equal and k1["calls"] == 0, f"{name}: nms_free_select card vs CPU")
+            check = "nms_free_select on the card equal to the CPU's on the same tensor"
+        else:
+            require(k1["calls"] == 1 and k1["keep_mismatches"] == 0,
+                    f"{name}: K1 keeps against the plain recurrence {k1}")
+            check = (f"K1 {k1['calls']} call, up to {k1['valid_max']} valid boxes an image, keep "
+                     f"mismatches {k1['keep_mismatches']} (must be 0)")
+        torch.cuda.reset_peak_memory_stats()
+        e2e = time_ms(run, reps=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"15b {name}@{sz} b{n} bf16: {det.param_count()} params, launches {counts}; "
+              f"{check}; valid per image {nvalid}; {e2e:.3f} ms/batch = {e2e / n:.4f} ms/img "
+              f"(median of 10), peak memory {peak:.2f} GiB")
+        bd = device_breakdown(run)
+        out[name] = dict(ms_per_img=e2e / n, ms_per_batch=e2e, device_ms=bd["busy_ms"],
+                         idle_share=bd["idle_share"], peak_gib=peak, k1_launches=counts["nms"],
+                         params=det.param_count(), breakdown=bd)
+        del det, maps, pred, dets
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train_run(dev, name: str, root, launches: dict) -> dict:
+    """15c for one model: ``DetectTrainer`` over decoded synthetic pages
+    (``trainer_for``) at 640, batch 8, bf16, nc 1, one epoch of ZOO_WARM +
+    ZOO_TIMED steps and one validation batch: launches per step (none: PSA
+    attention is materialised) and in the validation (K1 once; yolov10x
+    NMS-free, none), finite losses, ms/step, a profiled step's device time
+    and idle share, peak memory; and the run dir in ``DetectPredictor``
+    against the trainer's EMA weights in memory: equal detections."""
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.tasks.detect import DetectPredictor, trainer_for
+    from kuzu_torch.testing import SyntheticDetectionDataset
+
+    steps, n, sz = ZOO_WARM + ZOO_TIMED, ZOO_BATCH, ZOO_IMGSZ
+    cfg = load_config(overrides=dict(model=name, imgsz=sz, batch=n, dtype="bfloat16",
+                                     epochs=1, workers=2, project=str(root), name=name,
+                                     exist_ok=True, save=True, verbose=False))
+    train_ds = SyntheticDetectionDataset(n * steps, sz, max_boxes=400, nc=1, seed=0)
+    val_ds = SyntheticDetectionDataset(n, sz, max_boxes=400, nc=1, seed=1)
+    trainer = trainer_for((train_ds, val_ds, 1))(cfg, device=dev)
+    rec = StepRecorder()
+    for ev, fn in (("on_train_start", rec.start), ("on_step_end", rec.step),
+                   ("on_val_start", rec.val_start), ("on_val_end", rec.val_end)):
+        trainer.callbacks.add(ev, fn)
+    trainer.train()
+    end2end = trainer.spec.end2end
+    require(len(rec.counts) == steps and all(c == want() for c in rec.counts),
+            f"{name} per-step launches {rec.counts}")
+    require(rec.val_counts == want(nms=0 if end2end else 1),
+            f"{name} validation launches {rec.val_counts}")
+    for k, c in rec.val_counts.items():
+        launches[k] += c
+    losses = [float(m["loss"]) for m in rec.metrics]
+    require(all(np.isfinite(losses)), f"{name} finite losses {losses}")
+    times = [a.elapsed_time(b) for a, b in zip(rec.events[:-1], rec.events[1:])]
+    ms = statistics.median(times[ZOO_WARM:])
+    print(f"15c {name}@{sz} b{n} bf16 DetectTrainer ({'E2E' if end2end else 'v8'} loss): "
+          f"{sum(p.numel() for p in trainer.state.model.parameters())} params; losses "
+          f"{[round(x, 3) for x in losses]}; {ms:.3f} ms/step (median of {ZOO_TIMED} after "
+          f"{ZOO_WARM}; steps {[round(t, 2) for t in times]}), peak memory "
+          f"{rec.peak / 2**30:.2f} GiB; validation launches {rec.val_counts} "
+          f"({'NMS-free selection' if end2end else 'K1'}), {rec.val_metrics}")
+    r = dict(ms_per_step=ms, step_ms=times, losses=losses, peak_gib=rec.peak / 2**30,
+             val_launches=rec.val_counts)
+    imgs = torch.from_numpy(np.stack([val_ds[i]["image"] for i in range(n)])).to(dev)
+    loaded = DetectPredictor(load_config(overrides={"model": str(trainer.save_dir),
+                                                    "conf": CONF}), device=dev)
+    mem = DetectPredictor.from_detector(
+        YoloDetector(trainer.spec, imgsz=sz, device=dev).load_state_dict(
+            trainer.state.ema_state_dict()), conf=CONF)
+    a, b = loaded._fwd(imgs), mem._fwd(imgs)
+    equal = all(torch.equal(a[k], b[k]) for k in a)
+    print(f"  run dir in DetectPredictor against the EMA weights in memory: detections equal "
+          f"{equal} ({int(a['valid'].sum())} valid)")
+    require(equal, f"{name}: the run dir's detections equal the EMA weights'")
+    del loaded, mem
+    # after the comparison: the profiled steps move the weights and the EMA
+    r["breakdown"] = train_step_breakdown(trainer, train_ds)
+    r["device_ms"], r["idle_share"] = r["breakdown"]["busy_ms"], r["breakdown"]["idle_share"]
+    del trainer
+    torch.cuda.empty_cache()
+    return r
+
+
+def zoo_remat_check(dev) -> dict:
+    """15c: one yolo11x@640 b8 bf16 train step with ``remat`` (C3k2 and C2PSA
+    checkpointed) against the plain step on the same weights and batch,
+    under phase 9's remat criteria: loss within 1e-4, whole-gradient cosine
+    >= 0.9999, every leaf above 1e-3 of the largest norm >= 0.999, equal
+    BatchNorm statistics; each step's peak memory."""
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
+    from kuzu_torch.data.loader import default_collate
+    from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
+    from kuzu_torch.ops.detect_loss import detection_loss
+    from kuzu_torch.testing import SyntheticDetectionDataset
+
+    path, scale = resolve_model_spec(ZOO_REMAT)
+    spec = parse_model_yaml(path, scale=scale, nc=1)
+    n, sz = ZOO_BATCH, ZOO_IMGSZ
+    ds = SyntheticDetectionDataset(n, sz, max_boxes=400, nc=1, seed=3)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in default_collate([ds[i] for i in range(n)]).items()}
+    cfg = load_config(overrides=dict(warmup_epochs=0, epochs=1, grad_clip=0))
+    runs = {}
+    for remat in (False, True):
+        graph = YoloGraph(spec, dtype=torch.bfloat16, remat=remat)
+        graph.reset_parameters(torch.Generator().manual_seed(0))
+        graph.to(dev)
+        tx = build_optimizer(cfg, graph, 1)
+        grads = {}
+        update = tx.step
+
+        def snapshot_then_step(count, grad_norm, graph=graph, grads=grads, update=update):
+            grads.update({n: p.grad.detach().float().cpu() for n, p in graph.named_parameters()})
+            update(count, grad_norm)
+
+        tx.step = snapshot_then_step
+        step = make_train_step(lambda model, b: detection_loss(
+            model(b["image"]), b["gt_labels"], b["gt_boxes"], b["mask_gt"], nc=1, imgsz=sz,
+            strides=spec.strides, reg_max=spec.reg_max), tx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = step(TrainState(graph, tx), batch)
+        torch.cuda.synchronize()
+        runs[remat] = dict(loss=float(metrics["loss"]), grads=grads,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           stats={n: t.detach().float().cpu() for n, t in graph.named_buffers()
+                                  if "running" in n})
+        del graph, tx, step
+        torch.cuda.empty_cache()
+    plain, rm = runs[False], runs[True]
+    names = list(plain["grads"])
+    rel = abs(rm["loss"] - plain["loss"]) / abs(plain["loss"])
+    whole = _cos(torch.cat([rm["grads"][n].flatten() for n in names]),
+                 torch.cat([plain["grads"][n].flatten() for n in names]))
+    top = max(float(t.norm()) for t in plain["grads"].values())
+    leaf = min(_cos(rm["grads"][n], plain["grads"][n]) for n in names
+               if float(plain["grads"][n].norm()) > 1e-3 * top)
+    stats_equal = all(torch.equal(rm["stats"][n], t) for n, t in plain["stats"].items())
+    print(f"15c {ZOO_REMAT}@{sz} b{n} bf16 step, remat vs plain: loss rel {rel:.2e} (<= 1e-4), "
+          f"whole-gradient cosine {whole:.7f} (>= 0.9999), worst leaf cosine {leaf:.5f} "
+          f"(>= 0.999), BN statistics equal {stats_equal}; peak memory "
+          f"{rm['peak_gib']:.2f} GiB with remat, {plain['peak_gib']:.2f} without")
+    require(rel <= 1e-4 and whole >= 0.9999 and leaf >= 0.999 and stats_equal,
+            f"{ZOO_REMAT} remat step equals the plain one")
+    return dict(loss_rel=rel, whole_cos=whole, leaf_cos=leaf, stats_equal=stats_equal,
+                peak_gib_remat=rm["peak_gib"], peak_gib_plain=plain["peak_gib"])
+
+
+def zoo_phase(dev, launches: dict) -> dict:
+    """Phase 15: 15a, 15b, 15c."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    out = dict(card_vs_cpu=zoo_card_vs_cpu(dev, launches),
+               inference=zoo_full_width(dev, launches))
+    with tempfile.TemporaryDirectory() as tmp:
+        out["training"] = {name: zoo_train_run(dev, name, Path(tmp), launches)
+                           for name in ZOO_TRAIN}
+    out["training"][f"{ZOO_REMAT}_remat"] = zoo_remat_check(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 15: {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 KERNELS = {
@@ -4559,6 +4873,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     _check_smem_formulas()
+    if sys.argv[1:] == ["10"]:
+        train = train_full_width(dev, dict.fromkeys(COUNTERS, 0))
+        train["remat"] = remat_full_width(dev, dict.fromkeys(COUNTERS, 0))
+        print(json.dumps({"train_yolov12p2x_640_b8": train, "card": card}))
+        print(card)
+        return 0
 
     res = kernel_phase(dev)
     launches = dict.fromkeys(COUNTERS, 0)
@@ -4583,6 +4903,7 @@ def main() -> int:
     train_slice_check(dev, launches)
     train = train_full_width(dev, launches)
     train["remat"] = remat_full_width(dev, launches)
+    zoo = zoo_phase(dev, launches)
     files = recognizer_training["image_file_training"]["detector"]
     print(f"p2x@640 b8 bf16 training: from the PNG folder (14b) {files['ms_per_step']:.3f} "
           f"ms/step, {files['images_per_s']:.2f} images/s; on synthetic tensors (10) "
@@ -4605,6 +4926,7 @@ def main() -> int:
     print(json.dumps({"image_files": image_files, "card": card}))
     print(json.dumps({"train_yolov12p2x_640_b8": train, "card": card}))
     print(json.dumps({"recognizer_training": recognizer_training, "card": card}, default=str))
+    print(json.dumps({"yolo_zoo": zoo, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 (counterpart of ``kuzu/models/yolo/detector.py``).
 
 ``infer`` returns the per-level raw maps (B, H, W, 4*reg_max + nc) as NHWC
-views; ``decode`` turns them into the (B, 4 + nc, A) tensor that
-``kuzu_torch.ops.nms.non_max_suppression`` consumes.
+views (yolov10: ``{"one2one": maps}``); ``decode`` turns them into
+the (B, 4 + nc, A) tensor that ``kuzu_torch.ops.nms.non_max_suppression``
+consumes, or, for yolov10, ``nms_free_select`` (:meth:`YoloDetector.select`
+picks by ``spec.end2end``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from kuzu_torch.models.yolo.graph import (
 from kuzu_torch.models.yolo.infer import fold_graph, run_graph
 from kuzu_torch.models.yolo.modules import dfl_expectation
 from kuzu_torch.ops.anchors import dist2bbox, make_anchors
+from kuzu_torch.ops.nms import nms_free_select, non_max_suppression
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -84,7 +87,7 @@ class YoloDetector:
         self.folded = fold_graph(self.graph)
         return self
 
-    def infer(self, images: torch.Tensor) -> list[torch.Tensor]:
+    def infer(self, images: torch.Tensor) -> list[torch.Tensor] | dict:
         """BN-folded forward of (B, H, W, 3) images on the detector's device."""
         if self.folded is None:
             raise RuntimeError("call init() or load_flax() first")
@@ -105,11 +108,14 @@ class YoloDetector:
         return cat[..., : 4 * rm], cat[..., 4 * rm:]
 
     @torch.no_grad()
-    def decode(self, feats: list[torch.Tensor]) -> torch.Tensor:
-        """Raw maps -> (B, 4 + nc, A): xywh pixel boxes + sigmoid scores.
+    def decode(self, feats: list[torch.Tensor] | dict) -> torch.Tensor:
+        """Raw maps -> (B, 4 + nc, A): xywh pixel boxes + sigmoid scores; of
+        yolov10's heads the one2one maps, as inference uses them.
 
         DFL runs in the maps' dtype (bf16) and is promoted to f32 at
         ``dist2bbox``; the class sigmoid runs in f32."""
+        if isinstance(feats, dict):
+            feats = feats["one2one"]
         box_dist, cls = self.flatten_feats(feats)
         shapes = [(f.shape[1], f.shape[2]) for f in feats]
         anchor_points, stride_t = make_anchors(shapes, self.strides, device=box_dist.device)
@@ -117,6 +123,17 @@ class YoloDetector:
         boxes = dist2bbox(dist, anchor_points[None], xywh=True) * stride_t[None]
         pred = torch.cat([boxes, torch.sigmoid(cls.float())], dim=-1)
         return pred.transpose(1, 2)
+
+    def select(self, pred: torch.Tensor, conf: float, iou: float, max_det: int,
+               multi_label: bool = False) -> dict[str, torch.Tensor]:
+        """Padded detections of a decoded (B, 4 + nc, A) tensor, as the JAX
+        predictor and validator choose: yolov10's one2one head by NMS-free
+        top-k (``iou`` and ``multi_label`` unused), every other head by NMS
+        on the K1 kernel."""
+        if self.spec.end2end:
+            return nms_free_select(pred, conf_thres=conf, max_det=max_det)
+        return non_max_suppression(pred, conf_thres=conf, iou_thres=iou, max_det=max_det,
+                                   multi_label=multi_label)
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.graph.parameters())

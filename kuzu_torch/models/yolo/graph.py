@@ -260,11 +260,18 @@ def resolve_model_spec(name: str) -> tuple[Path, str | None]:
     raise FileNotFoundError(f"no model yaml for '{name}' (looked in {MODEL_DIR})")
 
 
-# Modules of the yolov12 family; the rest of the zoo is a later slice.
-SUPPORTED = ("Conv", "DWConv", "C3k2", "A2C2f", "Upsample", "Concat", "Detect")
-# The block modules the flax graph wraps in nn.remat (``_block``), of those
-# ported; plain convs, Concat, Upsample and Detect are not wrapped.
-REMAT_BLOCKS = ("C3k2", "A2C2f")
+# Modules of the detect zoo (yolov8, yolov9c, yolov10, yolo11, yolov12).
+SUPPORTED = ("Conv", "DWConv", "C2f", "C3k2", "A2C2f", "C2PSA", "RepNCSPELAN4", "ADown",
+             "SPPELAN", "C2fCIB", "SCDown", "PSA", "SPPF", "Upsample", "Concat", "Detect",
+             "v10Detect")
+# The heads of the other tasks, with the slice that ports them.
+LATER = {m: "the Segment / Pose / OBB / Classify heads, with their tasks, losses and "
+            "datasets, are a later slice of the port (the next one)"
+         for m in ("Segment", "Pose", "OBB", "Classify")}
+# The block modules the flax graph wraps in nn.remat (``_block``); plain
+# convs, the pools' blocks, Concat, Upsample and the heads are not wrapped.
+REMAT_BLOCKS = ("C2f", "C3k2", "A2C2f", "C2PSA", "RepNCSPELAN4", "C2fCIB", "PSA")
+HEADS = ("Detect", "v10Detect")
 
 
 def _remat_contexts():
@@ -273,8 +280,52 @@ def _remat_contexts():
     return contextlib.nullcontext(), M.frozen_batch_stats()
 
 
+def unsupported(module: str) -> NotImplementedError:
+    """The error for a module the port does not build."""
+    why = LATER.get(module, "it is not part of the detect zoo")
+    return NotImplementedError(f"module '{module}' is not ported: {why}")
+
+
+def build_node(node: NodeSpec, spec: GraphSpec, c1: int) -> nn.Module:
+    """The module of one parsed node, as the flax graph builds it."""
+    m, a, n = node.module, node.args, node.repeats
+    if m == "Conv":
+        return M.Conv(c1, a[0], k=a[1] if len(a) > 1 else 1, s=a[2] if len(a) > 2 else 1,
+                      g=a[4] if len(a) > 4 else 1, act=a[5] if len(a) > 5 else True)
+    if m == "DWConv":
+        return M.DWConv(c1, a[0], k=a[1] if len(a) > 1 else 3, s=a[2] if len(a) > 2 else 1)
+    if m == "C2f":
+        return M.C2f(c1, a[0], n=n, shortcut=a[1])
+    if m == "C3k2":
+        return M.C3k2(c1, a[0], n=n, c3k=a[1], e=a[2])
+    if m == "A2C2f":
+        return M.A2C2f(c1, a[0], n=n, a2=a[1], residual=a[3], mlp_ratio=a[4], area=a[2])
+    if m == "C2PSA":
+        return M.C2PSA(c1, a[0], n=n, e=a[1])
+    if m == "RepNCSPELAN4":
+        return M.RepNCSPELAN4(c1, a[0], a[1], a[2], n=a[3])
+    if m == "ADown":
+        return M.ADown(c1, a[0])
+    if m == "SPPELAN":
+        return M.SPPELAN(c1, a[0], a[1])
+    if m == "C2fCIB":
+        return M.C2fCIB(c1, a[0], n=n, shortcut=a[1], lk=a[2])
+    if m == "SCDown":
+        return M.SCDown(c1, a[0], a[1], a[2])
+    if m == "PSA":
+        return M.PSA(c1, a[0], e=a[1])
+    if m == "SPPF":
+        return M.SPPF(c1, a[0], a[1])
+    if m == "Detect":
+        return M.Detect(spec.nc, spec.detect_ch, spec.reg_max, legacy=spec.legacy_head)
+    if m == "v10Detect":
+        return M.V10Detect(spec.nc, spec.detect_ch, spec.reg_max)
+    raise unsupported(m)
+
+
 class YoloGraph(nn.Module):
-    """The module tree of a parsed GraphSpec (yolov12 subset).
+    """The module tree of a parsed GraphSpec: the detect zoo (yolov8,
+    yolov9c, yolov10, yolo11, yolov12 and its P2 variant).
 
     ``forward`` is the flax graph's ``__call__`` (``kuzu/models/yolo/graph.py``)
     in ``dtype`` (master weights stay f32), following ``self.training``: the
@@ -283,8 +334,9 @@ class YoloGraph(nn.Module):
 
     ``remat=True`` recomputes each block's activations in the backward pass
     (``torch.utils.checkpoint``, non-reentrant), the counterpart of the flax
-    graph's ``nn.remat`` on its blocks: less memory for a second forward of
-    each block. Values, gradients and BatchNorm statistics are unchanged."""
+    graph's ``nn.remat`` on its blocks (``REMAT_BLOCKS``): less memory for a
+    second forward of each block. Values, gradients and BatchNorm statistics
+    are unchanged."""
 
     def __init__(self, spec: GraphSpec, dtype: torch.dtype = torch.float32,
                  remat: bool = False):
@@ -294,40 +346,19 @@ class YoloGraph(nn.Module):
         self.remat = remat
         ch: list[int] = []
         for node in spec.nodes:
-            m, a = node.module, node.args
-            if m not in SUPPORTED:
-                raise NotImplementedError(
-                    f"module '{m}' is not ported yet: the port covers the yolov12 "
-                    "family; the other detector variants are a later slice, "
-                    "after detector training")
-            c1 = ch[node.frm[0]] if ch else 3
-            name = f"n{node.index}_{m}"
-            if m == "Conv":
-                self.add_module(name, M.Conv(
-                    c1, a[0], k=a[1] if len(a) > 1 else 1, s=a[2] if len(a) > 2 else 1,
-                    g=a[4] if len(a) > 4 else 1, act=a[5] if len(a) > 5 else True))
-            elif m == "DWConv":
-                self.add_module(name, M.DWConv(
-                    c1, a[0], k=a[1] if len(a) > 1 else 3, s=a[2] if len(a) > 2 else 1))
-            elif m == "C3k2":
-                self.add_module(name, M.C3k2(c1, a[0], n=node.repeats, c3k=a[1], e=a[2]))
-            elif m == "A2C2f":
-                self.add_module(name, M.A2C2f(
-                    c1, a[0], n=node.repeats, a2=a[1], residual=a[3], mlp_ratio=a[4],
-                    area=a[2]))
-            elif m == "Detect":
-                if spec.legacy_head:
-                    raise NotImplementedError(
-                        "the v8-style Detect head is not ported yet (other "
-                        "detector variants, a later slice)")
-                self.add_module(name, M.Detect(spec.nc, spec.detect_ch, spec.reg_max))
+            if node.module not in SUPPORTED:
+                raise unsupported(node.module)
+            if node.module not in ("Upsample", "Concat"):
+                self.add_module(f"n{node.index}_{node.module}",
+                                build_node(node, spec, ch[node.frm[0]] if ch else 3))
             ch.append(node.c_out)
 
-    def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, images: torch.Tensor) -> list[torch.Tensor] | dict:
         """(B, H, W, 3) images (uint8, or float in [0, 1]) -> the per-level
-        raw maps (B, H, W, 4*reg_max + nc) as NHWC views. Pixels become f32
-        ``x / 255`` and then ``dtype``, as the flax graph's first conv casts
-        them; activations are NCHW in ``channels_last``."""
+        raw maps (B, H, W, 4*reg_max + nc) as NHWC views; yolov10's dual
+        head returns ``{"one2many": maps, "one2one": maps}``. Pixels become
+        f32 ``x / 255`` and then ``dtype``, as the flax graph's first conv
+        casts them; activations are NCHW in ``channels_last``."""
         x = from_uint8(images).to(self.dtype).permute(0, 3, 1, 2)
         cur = x.contiguous(memory_format=torch.channels_last)
         outputs: dict[int, torch.Tensor] = {}
@@ -339,7 +370,7 @@ class YoloGraph(nn.Module):
                 cur = M.upsample2x(ins[0])
             elif m == "Concat":
                 cur = torch.cat(ins, dim=1)
-            elif m == "Detect":
+            elif m in HEADS:
                 result = self.get_submodule(f"n{node.index}_{m}")(ins)
                 cur = ins[0]
             else:

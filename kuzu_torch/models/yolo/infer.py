@@ -1,5 +1,5 @@
-"""BN-folded inference executor for the YOLO graph (yolov12 subset of
-``kuzu/models/yolo/infer.py``).
+"""BN-folded inference executor for the YOLO graph (the detect zoo of
+``kuzu/models/yolo/infer.py``: yolov8, yolov9c, yolov10, yolo11, yolov12).
 
 :func:`fold_graph` folds every BatchNorm into its conv once, at load:
 weights become bf16 and biases stay f32, as ``_fold_bn`` does. Each ABlock
@@ -9,21 +9,28 @@ the attention kernels take is free. Token order is the NHWC row-major
 flatten, so areas are contiguous chunks of H*W as in the reference.
 
 Rounding points kept from JAX: the conv runs in bf16 and adds its bias cast
-to bf16 (``infer.py:85``); SiLU then runs on that bf16 sum.
+to bf16 (``infer.py:85``); SiLU then runs on that bf16 sum. PSA attention
+(C2PSA, PSA) is ``xla_attention``'s materialised arithmetic, as JAX's
+executor runs it; the max pools are ``F.max_pool2d`` (-inf padding, exact),
+ADown's 2x2 average adds its taps in XLA's order (``modules.avg_pool2``).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from kuzu_torch.models.yolo import modules as M
+from kuzu_torch.models.yolo.graph import unsupported
 from kuzu_torch.ops.conv import conv2d
 from kuzu_torch.ops.flash_attention import (
     area_attention,
     area_attention_fwd_fits,
     materialised_area_attention,
+    xla_attention,
 )
 from kuzu_torch.ops.fused_ablock import (
     ablock_weights,
@@ -106,6 +113,103 @@ def c3k2(p: _P, x, n: int, c3k_flag: bool, shortcut: bool = True):
     return conv(p.child("cv2"), torch.cat(parts, dim=1))
 
 
+def c2f(p: _P, x, n: int, shortcut: bool = False, block=bottleneck):
+    """C2f; ``block`` is the inner block (C2fCIB passes ``cib``)."""
+    y = conv(p.child("cv1"), x)
+    c = y.shape[1] // 2
+    parts = [y[:, :c], y[:, c:]]
+    for i in range(n):
+        parts.append(block(p.child(f"m{i}"), parts[-1], shortcut))
+    return conv(p.child("cv2"), torch.cat(parts, dim=1))
+
+
+def psa_attn(p: _P, x, num_heads: int):
+    """PSA attention (``modules.Attention``), materialised."""
+    b, _, h, w = x.shape
+    dim = p.child("proj").get()[0].shape[0]
+    kd = (dim // num_heads) // 2
+    q, k, v = M.psa_tokens(conv(p.child("qkv"), x, act=False), num_heads, kd)
+    out = xla_attention(q, k, v, scale=kd ** -0.5)
+    pe = conv(p.child("pe"), M.psa_unfold(v, b, h, w), g=dim, act=False)
+    return conv(p.child("proj"), M.psa_unfold(out, b, h, w) + pe, act=False)
+
+
+def psa_ffn(p: _P, b):
+    """b + attn(b), then b + ffn2(ffn1(b)): a PSABlock, and PSA's body."""
+    c = b.shape[1]
+    b = b + psa_attn(p.child("attn"), b, max(c // 64, 1))
+    return b + conv(p.child("ffn2"), conv(p.child("ffn1"), b), act=False)
+
+
+def c2psa(p: _P, x, n: int):
+    y = conv(p.child("cv1"), x)
+    c = y.shape[1] // 2
+    a, b = y[:, :c], y[:, c:]
+    for i in range(n):
+        b = psa_ffn(p.child(f"m{i}"), b)
+    return conv(p.child("cv2"), torch.cat([a, b], dim=1))
+
+
+def psa(p: _P, x):
+    y = conv(p.child("cv1"), x)
+    c = y.shape[1] // 2
+    return conv(p.child("cv2"), torch.cat([y[:, :c], psa_ffn(p, y[:, c:])], dim=1))
+
+
+def repconv(p: _P, x):
+    return F.silu(conv(p.child("conv1"), x, act=False) + conv(p.child("conv2"), x, act=False))
+
+
+def repcsp(p: _P, x, n: int):
+    a = conv(p.child("cv1"), x)
+    for i in range(n):
+        m = p.child(f"m{i}")
+        y = conv(m.child("cv2"), repconv(m.child("cv1"), a))
+        a = a + y if a.shape[1] == y.shape[1] else y
+    return conv(p.child("cv3"), torch.cat([a, conv(p.child("cv2"), x)], dim=1))
+
+
+def repncspelan4(p: _P, x, n: int):
+    y = conv(p.child("cv1"), x)
+    t = conv(p.child("cv2_conv"), repcsp(p.child("cv2_csp"), y[:, y.shape[1] // 2:], n))
+    u = conv(p.child("cv3_conv"), repcsp(p.child("cv3_csp"), t, n))
+    return conv(p.child("cv4"), torch.cat([y, t, u], dim=1))
+
+
+def adown(p: _P, x):
+    x = M.avg_pool2(x)
+    c = x.shape[1] // 2
+    x1 = conv(p.child("cv1"), x[:, :c], s=2)
+    x2 = conv(p.child("cv2"), M.max_pool(x[:, c:], 3, 2))
+    return torch.cat([x1, x2], dim=1)
+
+
+def sppf(p: _P, x, k: int = 5, last: str = "cv2"):
+    """SPPF; SPPELAN is the same with its merge conv named ``cv5``."""
+    y = [conv(p.child("cv1"), x)]
+    for _ in range(3):
+        y.append(M.max_pool(y[-1], k))
+    return conv(p.child(last), torch.cat(y, dim=1))
+
+
+def scdown(p: _P, x, s: int):
+    y = conv(p.child("cv1"), x)
+    return conv(p.child("cv2"), y, s=s, g=y.shape[1], act=False)
+
+
+def cib(p: _P, x, shortcut: bool, lk: bool):
+    y = conv(p.child("pw1"), conv(p.child("dw1"), x, g=x.shape[1]))
+    if lk:
+        r = p.child("rep")
+        y = F.silu(conv(r.child("conv"), y, g=y.shape[1], act=False)
+                   + conv(r.child("conv1"), y, g=y.shape[1], act=False))
+    else:
+        y = conv(p.child("dw2"), y, g=y.shape[1])
+    y = conv(p.child("pw2"), y)
+    y = conv(p.child("dw3"), y, g=y.shape[1])
+    return x + y if shortcut and x.shape[1] == y.shape[1] else y
+
+
 def aattn(p: _P, x, num_heads: int, area: int):
     """Area attention: the K3 kernel route where it fits, else materialised."""
     b, _, h, w = x.shape
@@ -161,25 +265,30 @@ def a2c2f(p: _P, x, n: int, a2: bool, area: int, residual: bool):
     return out
 
 
-def detect(p: _P, feats: list):
+def detect(p: _P, feats: list, legacy: bool = False):
     outs = []
     for i, x in enumerate(feats):
         bx = conv(p.child(f"box{i}_1"), conv(p.child(f"box{i}_0"), x))
         bx = plain_conv(p.child(f"box{i}_2"), bx)
-        c = conv(p.child(f"cls{i}_0dw").child("dw"), x, g=x.shape[1])
-        c = conv(p.child(f"cls{i}_0pw"), c)
-        c = conv(p.child(f"cls{i}_1dw").child("dw"), c, g=c.shape[1])
-        c = conv(p.child(f"cls{i}_1pw"), c)
+        if legacy:  # the v8 cls branch: two 3x3 convs
+            c = conv(p.child(f"cls{i}_1"), conv(p.child(f"cls{i}_0"), x))
+        else:
+            c = conv(p.child(f"cls{i}_0dw").child("dw"), x, g=x.shape[1])
+            c = conv(p.child(f"cls{i}_0pw"), c)
+            c = conv(p.child(f"cls{i}_1dw").child("dw"), c, g=c.shape[1])
+            c = conv(p.child(f"cls{i}_1pw"), c)
         c = plain_conv(p.child(f"cls{i}_2"), c)
         outs.append(torch.cat([bx, c], dim=1).permute(0, 2, 3, 1))  # NHWC view
     return outs
 
 
 @torch.no_grad()
-def run_graph(spec, table: dict, images: torch.Tensor) -> list[torch.Tensor]:
+def run_graph(spec, table: dict, images: torch.Tensor) -> list[torch.Tensor] | dict:
     """Execute the parsed GraphSpec on (B, H, W, 3) images (uint8, or float
     already in [0, 1]); returns the per-level raw maps (B, H, W, 4*reg_max+nc)
-    as NHWC views. The stem is the plain strided conv."""
+    as NHWC views; for yolov10's dual head ``{"one2one": maps}``, the head
+    that inference decodes (JAX's returns one2many's maps too, which its
+    jitted callers discard unread). The stem is the plain strided conv."""
     x = from_uint8(images, dtype=torch.bfloat16).permute(0, 3, 1, 2)
     x = x.contiguous(memory_format=torch.channels_last)
     outputs: dict[int, torch.Tensor] = {}
@@ -197,19 +306,38 @@ def run_graph(spec, table: dict, images: torch.Tensor) -> list[torch.Tensor]:
                        g=ins[0].shape[1])
         elif m == "C3k2":
             cur = c3k2(p, ins[0], n=node.repeats, c3k_flag=a[1])
+        elif m == "C2f":
+            cur = c2f(p, ins[0], n=node.repeats, shortcut=a[1])
         elif m == "A2C2f":
             cur = a2c2f(p, ins[0], n=node.repeats, a2=a[1], area=a[2], residual=a[3])
+        elif m == "C2PSA":
+            cur = c2psa(p, ins[0], n=node.repeats)
+        elif m == "C2fCIB":
+            cur = c2f(p, ins[0], n=node.repeats, shortcut=a[1], block=partial(cib, lk=a[2]))
+        elif m == "RepNCSPELAN4":
+            cur = repncspelan4(p, ins[0], n=a[3])
+        elif m == "ADown":
+            cur = adown(p, ins[0])
+        elif m == "SPPELAN":
+            cur = sppf(p, ins[0], last="cv5")
+        elif m == "SCDown":
+            cur = scdown(p, ins[0], s=a[2])
+        elif m == "PSA":
+            cur = psa(p, ins[0])
+        elif m == "SPPF":
+            cur = sppf(p, ins[0], k=a[1])
         elif m == "Upsample":
             cur = M.upsample2x(ins[0])
         elif m == "Concat":
             cur = torch.cat(ins, dim=1)
         elif m == "Detect":
-            result = detect(p, ins)
+            result = detect(p, ins, legacy=spec.legacy_head)
+            cur = ins[0]
+        elif m == "v10Detect":  # one2many is for training only (JAX's jit drops it)
+            result = {"one2one": detect(p.child("one2one"), ins)}
             cur = ins[0]
         else:
-            raise NotImplementedError(
-                f"module '{m}' is not ported yet: the port covers the yolov12 "
-                "family; the other detector variants are a later slice")
+            raise unsupported(m)
         if node.index in spec.save:
             outputs[node.index] = cur
     if result is None:

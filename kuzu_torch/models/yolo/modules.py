@@ -1,5 +1,6 @@
-"""YOLOv12 building blocks as ``nn.Module``s (yolov12 subset of
-``kuzu/models/yolo/modules.py``).
+"""The YOLO detect zoo's building blocks as ``nn.Module``s (the detect
+modules of ``kuzu/models/yolo/modules.py``: yolov8, yolov9c, yolov10,
+yolo11 and yolov12).
 
 Each module holds the parameters of its flax counterpart under the same
 names, so ``kuzu_torch.bridge`` maps a flax checkpoint one to one:
@@ -24,7 +25,8 @@ rounding points of flax under ``dtype=bf16`` are written out, not left to
 - SiLU, residual adds and concatenations run in the compute dtype.
 
 Area attention tokens are the NHWC row-major flatten of H*W, split into
-``area`` contiguous chunks.
+``area`` contiguous chunks; PSA attention (``Attention``) takes all H*W
+tokens, heads packed as flax packs them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +45,7 @@ from kuzu_torch.ops.flash_attention import (
     AreaAttention,
     area_attention_train_fits,
     materialised_area_attention,
+    xla_attention,
 )
 
 BN_MOMENTUM = 0.97  # flax momentum: ra = 0.97 ra + 0.03 batch statistic
@@ -132,19 +136,19 @@ class DWConv(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """cv1 -> cv2 with the residual where the widths agree (the yolov12
-    family always asks for the shortcut)."""
+    """cv1 -> cv2 with the residual where ``shortcut`` and the widths agree."""
 
     def __init__(self, c1: int, c2: int, g: int = 1, k: tuple[int, int] = (3, 3),
-                 e: float = 0.5):
+                 e: float = 0.5, shortcut: bool = True):
         super().__init__()
         c_ = int(c2 * e)
         self.cv1 = Conv(c1, c_, k[0])
         self.cv2 = Conv(c_, c2, k[1], g=g)
+        self.shortcut = shortcut
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv2(self.cv1(x))
-        return x + y if x.shape[1] == y.shape[1] else y
+        return x + y if self.shortcut and x.shape[1] == y.shape[1] else y
 
 
 class C3(nn.Module):
@@ -196,6 +200,314 @@ class C3k2(nn.Module):
         for i in range(self.n):
             parts.append(getattr(self, f"m{i}")(parts[-1]))
         return self.cv2(torch.cat(parts, dim=1))
+
+
+class C2f(nn.Module):
+    """cv1 split -> n full-width blocks -> concat -> cv2 (the v8 family's
+    block). ``block(c, c, shortcut=)`` builds each inner block: bottlenecks
+    (k 3x3, e 1.0), C2fCIB's CIBs."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 e: float = 0.5, block=partial(Bottleneck, e=1.0)):
+        super().__init__()
+        c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * c, 1)
+        for i in range(n):
+            self.add_module(f"m{i}", block(c, c, shortcut=shortcut))
+        self.cv2 = Conv((2 + n) * c, c2, 1)
+        self.n = n
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        c = y.shape[1] // 2
+        parts = [y[:, :c], y[:, c:]]
+        for i in range(self.n):
+            parts.append(getattr(self, f"m{i}")(parts[-1]))
+        return self.cv2(torch.cat(parts, dim=1))
+
+
+def max_pool(x: torch.Tensor, k: int, s: int = 1) -> torch.Tensor:
+    """k x k max pool at stride s, padded k // 2 with -inf (flax's
+    ``nn.max_pool`` with that padding, the executor's ``reduce_window``)."""
+    return F.max_pool2d(x, k, s, k // 2)
+
+
+class SPPF(nn.Module):
+    """cv1 -> three chained k x k max pools -> concat -> the merge conv
+    ``last`` (cv2; SPPELAN's cv5), over ``c_`` channels (c1 // 2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5, c_: int | None = None,
+                 last: str = "cv2"):
+        super().__init__()
+        c_ = c_ or c1 // 2
+        self.cv1 = Conv(c1, c_, 1)
+        self.add_module(last, Conv(4 * c_, c2, 1))
+        self.k, self.last = k, last
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = [self.cv1(x)]
+        for _ in range(3):
+            y.append(max_pool(y[-1], self.k))
+        return self.get_submodule(self.last)(torch.cat(y, dim=1))
+
+
+def psa_tokens(qkv: torch.Tensor, heads: int, kd: int):
+    """The ``qkv`` conv's (B, heads * (2 kd + hd), H, W) output -> q, k, v
+    with heads folded into the batch, (B * heads, H*W, kd | kd | hd): flax
+    reshapes the NHWC map to (B, H*W, heads, 2 kd + hd) and slices."""
+    b, ch, h, w = qkv.shape
+    t = qkv.permute(0, 2, 3, 1).reshape(b, h * w, heads, ch // heads)
+
+    def fold(z):
+        return z.transpose(1, 2).reshape(b * heads, h * w, -1)
+
+    return fold(t[..., :kd]), fold(t[..., kd:2 * kd]), fold(t[..., 2 * kd:])
+
+
+def psa_unfold(t: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
+    """(B * heads, H*W, hd) -> the (B, heads * hd, H, W) map, channels head
+    by head."""
+    heads = t.shape[0] // b
+    t = t.reshape(b, heads, h * w, -1).transpose(1, 2)
+    return t.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+
+
+class Attention(nn.Module):
+    """PSA multi-head attention over all H*W tokens: the ``qkv`` 1x1 conv
+    (q and k ``kd = hd * attn_ratio`` wide, v ``hd``), the 3x3 depthwise
+    ``pe`` on v and the ``proj`` 1x1 conv. The attention itself is
+    ``xla_attention``'s arithmetic, flax's: f32 scores scaled by kd^-1/2,
+    the softmax cast to v's dtype, f32 accumulation, the result in x's
+    dtype. It is materialised: q and k are narrower than v, which the
+    attention kernels do not take, and JAX's executor runs it the same way
+    (``infer.py:_psa_attn``)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        hd = dim // num_heads
+        self.kd = int(hd * attn_ratio)
+        self.qkv = Conv(dim, dim + 2 * self.kd * num_heads, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.num_heads = num_heads
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        q, k, v = psa_tokens(self.qkv(x), self.num_heads, self.kd)
+        out = xla_attention(q, k, v, scale=self.kd ** -0.5)
+        pe = self.pe(psa_unfold(v, b, h, w))
+        return self.proj(psa_unfold(out, b, h, w) + pe)
+
+
+class PSABlock(nn.Module):
+    """x + attn(x), then x + ffn2(ffn1(x))."""
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int = 4):
+        super().__init__()
+        self.add_body(c, attn_ratio, num_heads)
+
+    def add_body(self, c: int, attn_ratio: float, num_heads: int) -> None:
+        self.attn = Attention(c, num_heads, attn_ratio)
+        self.ffn1 = Conv(c, 2 * c, 1)
+        self.ffn2 = Conv(2 * c, c, 1, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(x)
+        return x + self.ffn2(self.ffn1(x))
+
+
+class C2PSA(nn.Module):
+    """cv1 split; n PSABlocks on the second half; concat -> cv2 (yolo11)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * c, 1)
+        for i in range(n):
+            self.add_module(f"m{i}", PSABlock(c, 0.5, max(c // 64, 1)))
+        self.cv2 = Conv(2 * c, c2, 1)
+        self.n = n
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        c = y.shape[1] // 2
+        a, b = y[:, :c], y[:, c:]
+        for i in range(self.n):
+            b = getattr(self, f"m{i}")(b)
+        return self.cv2(torch.cat([a, b], dim=1))
+
+
+class PSA(PSABlock):
+    """cv1 split; a PSABlock's body (its attn, ffn1, ffn2) on the second
+    half; concat -> cv2 (yolov10)."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        nn.Module.__init__(self)  # cv1 first: the seeded draws follow this order
+        c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * c, 1)
+        self.add_body(c, 0.5, max(c // 64, 1))
+        self.cv2 = Conv(2 * c, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        c = y.shape[1] // 2
+        return self.cv2(torch.cat([y[:, :c], super().forward(y[:, c:])], dim=1))
+
+
+class RepConv(nn.Module):
+    """silu(3x3 conv + BN  +  1x1 conv + BN), unfused as in flax."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 3, act=False)
+        self.conv2 = Conv(c1, c2, 1, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.conv1(x) + self.conv2(x))
+
+
+class RepBottleneck(nn.Module):
+    """RepConv -> 3x3 Conv, with the residual where the widths agree."""
+
+    def __init__(self, c1: int, c2: int, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = RepConv(c1, c_)
+        self.cv2 = Conv(c_, c2, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if x.shape[1] == y.shape[1] else y
+
+
+class RepCSP(nn.Module):
+    """C3 with RepBottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1)
+        for i in range(n):
+            self.add_module(f"m{i}", RepBottleneck(c_, c_, 1.0))
+        self.cv2 = Conv(c1, c_, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.n = n
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.cv1(x)
+        for i in range(self.n):
+            a = getattr(self, f"m{i}")(a)
+        return self.cv3(torch.cat([a, self.cv2(x)], dim=1))
+
+
+class RepNCSPELAN4(nn.Module):
+    """cv1 split; two chained RepCSP + 3x3 Conv branches; concat -> cv4
+    (the yolov9 block)."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1):
+        super().__init__()
+        self.cv1 = Conv(c1, c3, 1)
+        self.cv2_csp = RepCSP(c3 - c3 // 2, c4, n)
+        self.cv2_conv = Conv(c4, c4, 3)
+        self.cv3_csp = RepCSP(c4, c4, n)
+        self.cv3_conv = Conv(c4, c4, 3)
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        half = y.shape[1] // 2
+        t = self.cv2_conv(self.cv2_csp(y[:, half:]))
+        u = self.cv3_conv(self.cv3_csp(t))
+        return self.cv4(torch.cat([y, t, u], dim=1))
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average at stride 1, no padding, as XLA reduces the window: the
+    taps added in row-major order, each sum rounded to x's dtype, then
+    x 0.25 (exact). Bit-equal to flax's ``nn.avg_pool`` and the executor's
+    ``reduce_window`` on the CPU in bf16 and f32."""
+    a, b = x[:, :, :-1, :-1], x[:, :, :-1, 1:]
+    c, d = x[:, :, 1:, :-1], x[:, :, 1:, 1:]
+    return (((a + b) + c) + d) * 0.25
+
+
+class ADown(nn.Module):
+    """The yolov9 downsample: 2x2 average, channel split, a strided 3x3
+    conv on the first half, a 3x3/2 max pool and 1x1 conv on the second."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = Conv(c1 // 2, c2 // 2, 3, 2)
+        self.cv2 = Conv(c1 - c1 // 2, c2 // 2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = avg_pool2(x)
+        c = x.shape[1] // 2
+        return torch.cat([self.cv1(x[:, :c]), self.cv2(max_pool(x[:, c:], 3, 2))], dim=1)
+
+
+class SPPELAN(SPPF):
+    """SPPF over c3 channels, its merge conv named cv5 (yolov9)."""
+
+    def __init__(self, c1: int, c2: int, c3: int, k: int = 5):
+        super().__init__(c1, c2, k, c_=c3, last="cv5")
+
+
+class SCDown(nn.Module):
+    """1x1 Conv, then a k x k depthwise conv at stride s without SiLU."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1)
+        self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """silu(7x7 depthwise + BN  +  3x3 depthwise + BN), unfused."""
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = Conv(ed, ed, 7, g=ed, act=False)
+        self.conv1 = Conv(ed, ed, 3, g=ed, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """dw1 -> pw1 -> (RepVGGDW ``rep`` if lk, else dw2) -> pw2 -> dw3, with
+    the residual where ``shortcut`` and the widths agree."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5,
+                 lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.dw1 = Conv(c1, c1, 3, g=c1)
+        self.pw1 = Conv(c1, 2 * c_, 1)
+        if lk:
+            self.rep = RepVGGDW(2 * c_)
+        else:
+            self.dw2 = Conv(2 * c_, 2 * c_, 3, g=2 * c_)
+        self.pw2 = Conv(2 * c_, c2, 1)
+        self.dw3 = Conv(c2, c2, 3, g=c2)
+        self.shortcut, self.lk = shortcut, lk
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.pw1(self.dw1(x))
+        y = self.rep(y) if self.lk else self.dw2(y)
+        y = self.dw3(self.pw2(y))
+        return x + y if self.shortcut and x.shape[1] == y.shape[1] else y
+
+
+class C2fCIB(C2f):
+    """C2f with CIB blocks (yolov10)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 lk: bool = False, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, e, block=partial(CIB, e=1.0, lk=lk))
 
 
 class AAttn(nn.Module):
@@ -287,11 +599,12 @@ class A2C2f(nn.Module):
 
 
 class Detect(nn.Module):
-    """Anchor-free head (v12 cls branch): per level ``box{i}_0..2`` and
-    ``cls{i}_0dw, 0pw, 1dw, 1pw, 2``; ``box{i}_2``/``cls{i}_2`` are plain 1x1
-    convs with bias."""
+    """Anchor-free head: per level ``box{i}_0..2`` and the cls branch, the
+    v12 one (``cls{i}_0dw, 0pw, 1dw, 1pw``: depthwise 3x3 + 1x1, twice) or
+    with ``legacy`` the v8 one (``cls{i}_0, 1``: two 3x3 Convs), then
+    ``cls{i}_2``; ``box{i}_2``/``cls{i}_2`` are plain 1x1 convs with bias."""
 
-    def __init__(self, nc: int, ch: list[int], reg_max: int = 16):
+    def __init__(self, nc: int, ch: list[int], reg_max: int = 16, legacy: bool = False):
         super().__init__()
         c2 = max(16, ch[0] // 4, reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
@@ -299,12 +612,16 @@ class Detect(nn.Module):
             self.add_module(f"box{i}_0", Conv(c, c2, 3))
             self.add_module(f"box{i}_1", Conv(c2, c2, 3))
             self.add_module(f"box{i}_2", nn.Conv2d(c2, 4 * reg_max, 1))
-            self.add_module(f"cls{i}_0dw", DWConv(c, c, 3))
-            self.add_module(f"cls{i}_0pw", Conv(c, c3, 1))
-            self.add_module(f"cls{i}_1dw", DWConv(c3, c3, 3))
-            self.add_module(f"cls{i}_1pw", Conv(c3, c3, 1))
+            if legacy:
+                self.add_module(f"cls{i}_0", Conv(c, c3, 3))
+                self.add_module(f"cls{i}_1", Conv(c3, c3, 3))
+            else:
+                self.add_module(f"cls{i}_0dw", DWConv(c, c, 3))
+                self.add_module(f"cls{i}_0pw", Conv(c, c3, 1))
+                self.add_module(f"cls{i}_1dw", DWConv(c3, c3, 3))
+                self.add_module(f"cls{i}_1pw", Conv(c3, c3, 1))
             self.add_module(f"cls{i}_2", nn.Conv2d(c3, nc, 1))
-        self.nl = len(ch)
+        self.nl, self.legacy = len(ch), legacy
 
     def forward(self, feats: list[torch.Tensor]) -> list[torch.Tensor]:
         """Per-level raw maps (B, H, W, 4*reg_max + nc), as NHWC views."""
@@ -312,11 +629,30 @@ class Detect(nn.Module):
         for i, x in enumerate(feats):
             bx = self.get_submodule(f"box{i}_1")(self.get_submodule(f"box{i}_0")(x))
             bx = plain_conv(self.get_submodule(f"box{i}_2"), bx)
-            c = self.get_submodule(f"cls{i}_0pw")(self.get_submodule(f"cls{i}_0dw")(x))
-            c = self.get_submodule(f"cls{i}_1pw")(self.get_submodule(f"cls{i}_1dw")(c))
+            if self.legacy:
+                c = self.get_submodule(f"cls{i}_1")(self.get_submodule(f"cls{i}_0")(x))
+            else:
+                c = self.get_submodule(f"cls{i}_0pw")(self.get_submodule(f"cls{i}_0dw")(x))
+                c = self.get_submodule(f"cls{i}_1pw")(self.get_submodule(f"cls{i}_1dw")(c))
             c = plain_conv(self.get_submodule(f"cls{i}_2"), c)
             outs.append(torch.cat([bx, c], dim=1).permute(0, 2, 3, 1))
         return outs
+
+
+class V10Detect(nn.Module):
+    """The yolov10 dual head: ``one2many`` and ``one2one``, two v12-style
+    Detect heads. one2one reads detached features (flax's
+    ``stop_gradient``), so only one2many's loss reaches the backbone; both
+    move their BatchNorm statistics in training."""
+
+    def __init__(self, nc: int, ch: list[int], reg_max: int = 16):
+        super().__init__()
+        self.one2many = Detect(nc, ch, reg_max)
+        self.one2one = Detect(nc, ch, reg_max)
+
+    def forward(self, feats: list[torch.Tensor]) -> dict[str, list[torch.Tensor]]:
+        return {"one2many": self.one2many(feats),
+                "one2one": self.one2one([f.detach() for f in feats])}
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -331,7 +667,8 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 def init_weights(root: nn.Module, generator: torch.Generator) -> None:
     """The flax default init in distribution (not in bits): conv kernels
     lecun_normal, BN scale 1 / bias 0 / mean 0 / var 1, Detect biases 1.0
-    (box) and -4.6 (cls), A2C2f gamma 0.01. The Detect biases are set after
+    (box) and -4.6 (cls) in every head (the legacy one, both of yolov10's),
+    A2C2f gamma 0.01. The Detect biases are set after
     the walk: ``modules()`` visits a Detect before its convs, whose step
     zeroes every bias."""
     for m in root.modules():

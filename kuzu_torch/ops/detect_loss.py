@@ -5,7 +5,8 @@ Class BCE against the task-aligned soft targets over every anchor; CIoU and
 distribution-focal loss on the foreground anchors weighted by their target
 scores; all three normalised by ``max(sum(target_scores), 1)``. The loss runs
 in f32 whatever the maps' dtype, and the assigner sees detached scores and
-boxes. GTs arrive padded (B, M, 4) with a mask.
+boxes. GTs arrive padded (B, M, 4) with a mask. :func:`e2e_detection_loss`
+is yolov10's dual-head loss.
 """
 
 from __future__ import annotations
@@ -95,3 +96,28 @@ def detection_loss(
         "num_fg": fg.sum().float() / b,
     }
     return total, metrics
+
+
+def e2e_detection_loss(
+    feats: dict,  # {"one2many": maps, "one2one": maps}
+    gt_labels: torch.Tensor,
+    gt_bboxes: torch.Tensor,
+    mask_gt: torch.Tensor,
+    nc: int,
+    imgsz: int,
+    strides: Sequence[int],
+    box_w: float = 7.5,
+    cls_w: float = 0.5,
+    dfl_w: float = 1.5,
+    reg_max: int = REG_MAX,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """yolov10's dual-head loss (``kuzu/ops/detect_loss.py::
+    e2e_detection_loss``): :func:`detection_loss` of the one2many maps at
+    TAL top-10 plus that of the one2one maps at top-1; each metric is the
+    two heads' sum. The one2one head read detached features, so its term
+    trains that head alone."""
+    kw = dict(nc=nc, imgsz=imgsz, strides=strides, box_w=box_w, cls_w=cls_w, dfl_w=dfl_w,
+              reg_max=reg_max)
+    t_m, m_m = detection_loss(feats["one2many"], gt_labels, gt_bboxes, mask_gt, topk=10, **kw)
+    t_o, m_o = detection_loss(feats["one2one"], gt_labels, gt_bboxes, mask_gt, topk=1, **kw)
+    return t_m + t_o, {k: m_m[k] + m_o[k] for k in m_m}

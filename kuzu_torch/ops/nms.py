@@ -1,4 +1,5 @@
-"""Fixed-shape non-maximum suppression (counterpart of ``kuzu/ops/nms.py``).
+"""Fixed-shape non-maximum suppression and yolov10's NMS-free selection
+(counterpart of ``kuzu/ops/nms.py``).
 
 Candidates are reduced to the top ``max_nms`` by score, the greedy keep-mask
 comes from :func:`kuzu_torch.ops.nms_kernel.batched_suppress` (the CUDA kernel on
@@ -123,3 +124,36 @@ def non_max_suppression(
         idx = out[4]
         res["indices"] = idx // nc if multi_label and nc > 1 else idx
     return res
+
+
+def nms_free_select(
+    prediction: torch.Tensor,
+    conf_thres: float = 0.25,
+    max_det: int = 300,
+) -> dict[str, torch.Tensor]:
+    """NMS-free selection for yolov10's one2one head (``kuzu/ops/nms.py::
+    nms_free_select``): the top ``max_det`` anchors by their best class
+    score, then a top-k over those anchors' (anchor, class) scores, no
+    suppression. Ties go to the lower index, as ``jax.lax.top_k`` takes
+    them. The padded output contract of :func:`non_max_suppression`, but
+    scores and boxes under ``conf_thres`` stay in place with ``valid``
+    false, as JAX's."""
+    pred = prediction.transpose(1, 2)  # (B, A, 4+nc)
+    boxes = xywh2xyxy(pred[..., :4])
+    scores = pred[..., 4:]
+    b, a, nc = scores.shape
+    k = min(max_det, a)
+    _, anc_idx = _top_k(scores.amax(dim=-1), k)
+    sel_boxes = torch.gather(boxes, 1, anc_idx[..., None].expand(-1, -1, 4))
+    sel_scores = torch.gather(scores, 1, anc_idx[..., None].expand(-1, -1, nc))
+    vals, flat_idx = _top_k(sel_scores.reshape(b, k * nc), k)
+    out_boxes = torch.gather(sel_boxes, 1, (flat_idx // nc)[..., None].expand(-1, -1, 4))
+    classes = (flat_idx % nc).to(torch.int32)
+    valid = vals > conf_thres
+    pad = max_det - k
+    if pad > 0:  # pad to the static contract
+        out_boxes = torch.nn.functional.pad(out_boxes, (0, 0, 0, pad))
+        vals = torch.nn.functional.pad(vals, (0, pad))
+        classes = torch.nn.functional.pad(classes, (0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
+    return {"boxes": out_boxes, "scores": vals, "classes": classes, "valid": valid}

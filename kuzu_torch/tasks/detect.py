@@ -1,12 +1,14 @@
-"""Detection task: YOLOv12 training, mAP validation and prediction
-(counterpart of ``kuzu/tasks/detect.py``'s ``DetectTrainer``,
-``DetectValidator`` and ``DetectPredictor``).
+"""Detection task: training, mAP validation and prediction of the detect
+zoo (yolov8, yolov9c, yolov10, yolo11, yolov12; counterpart of
+``kuzu/tasks/detect.py``'s ``DetectTrainer``, ``DetectValidator`` and
+``DetectPredictor``).
 
 Training runs the graph's training forward, the TAL assigner and the v8 loss
-in f32; validation folds the EMA parameters with the live BatchNorm
-statistics into the BN-folded executor (``YoloDetector``: the fused-ABlock,
-area-attention and NMS kernels on the card) and runs infer -> decode ->
-NMS (``multi_label``) into ``DetMetrics``.
+(yolov10: the dual-head E2E loss) in f32; validation folds the EMA
+parameters with the live BatchNorm statistics into the BN-folded executor
+(``YoloDetector``: the fused-ABlock, area-attention and NMS kernels on the
+card) and runs infer -> decode -> NMS (``multi_label``; yolov10: NMS-free
+selection) into ``DetMetrics``.
 
 ``build_datasets`` reads ``cfg.data``, a ``dataset.yaml`` over a YOLO folder
 (``data/yolo_dataset.py::YoloDetectionDataset``: the mosaic, warp, HSV and
@@ -38,8 +40,7 @@ from kuzu_torch.data.sources import Frame, batched_frames, resolve_source
 from kuzu_torch.data.yolo_dataset import YoloDetectionDataset, letterbox_np, load_dataset_yaml
 from kuzu_torch.models.yolo.detector import YoloDetector, resolve_device
 from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
-from kuzu_torch.ops.detect_loss import detection_loss
-from kuzu_torch.ops.nms import non_max_suppression
+from kuzu_torch.ops.detect_loss import detection_loss, e2e_detection_loss
 from kuzu_torch.tasks import base
 from kuzu_torch.tasks.base import BaseTrainer, resolve_val_batches
 
@@ -128,10 +129,11 @@ class DetectTrainer(BaseTrainer):
 
     def loss_fn(self, model: YoloGraph, batch: dict,
                 rng: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
-        """The v8 loss of the training forward; it draws nothing (``rng``
-        unused, as the JAX trainer's)."""
+        """The v8 loss of the training forward (yolov10: the E2E loss of its
+        two heads); it draws nothing (``rng`` unused, as the JAX trainer's)."""
         feats = model(batch["image"])
-        return detection_loss(
+        loss = e2e_detection_loss if self.spec.end2end else detection_loss
+        return loss(
             feats, batch["gt_labels"], batch["gt_boxes"], batch["mask_gt"],
             nc=self.nc, imgsz=self.imgsz, strides=self.strides,
             box_w=float(self.cfg.get("box", 7.5)),
@@ -154,9 +156,8 @@ class DetectTrainer(BaseTrainer):
             mask = batch.pop("sample_mask", np.ones(len(batch["image"]), np.float32))
             pred = det.decode(det.infer(torch.from_numpy(batch["image"])))
             # multi_label: every class above the threshold per anchor, the
-            # reference validator's semantics
-            out = non_max_suppression(pred, conf_thres=conf, iou_thres=iou_t,
-                                      max_det=max_det, multi_label=True)
+            # reference validator's semantics (NMS-free selection for v10)
+            out = det.select(pred, conf, iou_t, max_det, multi_label=True)
             out = {k: v.cpu().numpy() for k, v in out.items()}
             for i in range(len(batch["image"])):
                 if mask[i] == 0:
@@ -240,7 +241,8 @@ def _load_data_spec(run_dir: Path, train_cfg: Config) -> dict:
 class DetectPredictor:
     """Padded detections on letterboxed uint8 batches: the BN-folded forward
     (bf16, the port's only executor; the JAX predictor builds its detector
-    in f32), the DFL decode and NMS on the predictor's device.
+    in f32), the DFL decode and NMS (yolov10: NMS-free selection) on the
+    predictor's device.
 
     ``DetectPredictor(cfg)`` loads the run dir ``cfg.model`` (``args.yaml``
     and ``weights/`` as ``DetectTrainer`` writes them, EMA preferred, the
@@ -342,18 +344,17 @@ class DetectPredictor:
     def _attach_extras(self, result, out, i, valid, orig_shape, gain, pad) -> None:
         """Hook for composite heads (segment masks, pose keypoints): receives
         the letterbox geometry so extras rescale into the original frame like
-        the boxes do. The yolov12 detect head has none."""
+        the boxes do. The detect heads have none."""
 
     @torch.no_grad()
     def _fwd(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
         """(B, imgsz, imgsz, 3) uint8 -> padded NMS output (``boxes``,
-        ``scores``, ``classes``, ``valid``) in the letterbox frame."""
+        ``scores``, ``classes``, ``valid``; yolov10: NMS-free selection) in
+        the letterbox frame."""
         if not self.ready:
             self._setup()
         det = self.detector
-        pred = det.decode(det.infer(images))
-        return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
-                                   max_det=self.max_det)
+        return det.select(det.decode(det.infer(images)), self.conf, self.iou, self.max_det)
 
 
 register_task(

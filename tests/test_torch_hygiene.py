@@ -66,9 +66,9 @@ def test_unported_modules_raise():
 
     spec = parse_model_yaml({
         "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "SPPF", [16, 5]]],
-        "head": [[[1], 1, "Detect", []]],
+        "head": [[[1], 1, "Segment", [8, 32]]],
     }, nc=2)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="Segment.*later slice"):
         YoloDetector(spec, device="cpu")
 
 
@@ -82,7 +82,10 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
         _build.library("nms")
 
 
-@pytest.mark.parametrize("name", ["yolov12.yaml", "yolov12-p2.yaml"])
+@pytest.mark.parametrize("name", ["yolov12.yaml", "yolov12-p2.yaml", "yolov8.yaml", "yolov9c.yaml",
+                                  "yolov10n.yaml", "yolov10s.yaml", "yolov10x.yaml",
+                                  "yolo11.yaml", "yolov8-seg.yaml", "yolov8-pose.yaml",
+                                  "yolov8-obb.yaml", "yolov8-cls.yaml"])
 def test_yaml_copies_are_identical(name):
     port = REPO / "kuzu_torch" / "cfg" / "models" / name
     assert port.read_bytes() == (REPO / "kuzu" / "cfg" / "models" / name).read_bytes()

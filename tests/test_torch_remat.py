@@ -16,19 +16,27 @@ GT_BOXES = [[[8, 8, 40, 44], [60, 10, 96, 40], [20, 70, 60, 110]],
             [[70, 70, 110, 100], [10, 20, 40, 60], [50, 30, 90, 60]]]
 
 
-def _step(remat: bool, tmp_path):
+def _step(remat: bool, tmp_path, model: str = "yolov12n"):
+    """One f32 step of ``model``@128 through ``DetectTrainer``; ``block_calls``
+    counts the forwards of the graph's ``REMAT_BLOCKS`` nodes (a recompute
+    runs one again)."""
     from kuzu_torch.core.config import load_config
     from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
+    from kuzu_torch.models.yolo.graph import REMAT_BLOCKS
     from kuzu_torch.ops.flash_attention import area_attention
     from kuzu_torch.tasks.detect import DetectTrainer
 
-    cfg = load_config(overrides=dict(model="yolov12n", imgsz=128, dtype="float32",
+    cfg = load_config(overrides=dict(model=model, imgsz=128, dtype="float32",
                                      warmup_epochs=0, epochs=1, remat=remat,
-                                     project=str(tmp_path), name=f"remat{int(remat)}"))
+                                     project=str(tmp_path), name=f"{model}_remat{int(remat)}"))
     trainer = DetectTrainer(cfg, device="cpu")
     trainer.data_spec = {"nc": 3}
     graph = trainer.build_model()
     assert graph.remat is remat
+    block_calls = [0]
+    for name, m in graph.named_children():
+        if name.split("_", 1)[1] in REMAT_BLOCKS:
+            m.register_forward_pre_hook(lambda *_: block_calls.__setitem__(0, block_calls[0] + 1))
     tx = build_optimizer(cfg, graph, 1)
     state = TrainState(graph, tx)
     grads = {}
@@ -50,7 +58,7 @@ def _step(remat: bool, tmp_path):
     metrics = make_train_step(trainer.loss_fn, tx)(state, batch)
     stats = {n: t.detach().clone() for n, t in graph.named_buffers() if "running" in n}
     return dict(metrics={k: float(v) for k, v in metrics.items()}, grads=grads, stats=stats,
-                k3_calls=area_attention.plain_calls - before)
+                k3_calls=area_attention.plain_calls - before, block_calls=block_calls[0])
 
 
 @pytest.fixture(scope="module")
@@ -69,6 +77,11 @@ def test_remat_recomputes_the_blocks(remat_pair):
 
 
 def test_remat_loss_and_gradients_match(remat_pair):
+    check_remat_pair(remat_pair)
+
+
+def check_remat_pair(remat_pair) -> None:
+    """The remat step's loss and every gradient against the plain step's."""
     plain, remat = remat_pair
     for k in ("loss", "box_loss", "cls_loss", "dfl_loss", "num_fg", "grad_norm"):
         np.testing.assert_allclose(remat["metrics"][k], plain["metrics"][k], rtol=1e-5,
@@ -82,6 +95,12 @@ def test_remat_loss_and_gradients_match(remat_pair):
 
 
 def test_remat_batch_norm_statistics_equal(remat_pair):
+    check_remat_stats(remat_pair)
+
+
+def check_remat_stats(remat_pair) -> None:
+    """The remat step moved the BatchNorm statistics once: equal to the
+    plain step's, and moved."""
     plain, remat = remat_pair
     assert set(remat["stats"]) == set(plain["stats"]) and plain["stats"]
     moved = 0

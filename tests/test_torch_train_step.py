@@ -36,23 +36,25 @@ def _leaf(tree, path):
     return np.asarray(tree)
 
 
-_JAX_STEPS: dict = {}  # remat -> (detector, optimizer, jitted step), compiled once
+_JAX_STEPS: dict = {}  # (arch, remat) -> (detector, optimizer, jitted step), compiled once
 
 
-def jax_step(remat: bool):
+def jax_step(remat: bool, arch: str = "yolov12n"):
     """JAX's detector, optimizer and train step for the pair, built once per
-    ``remat`` so that every pair of a process shares one compile: the
-    optimizer chain wrapped so that its state also carries the gradients it
-    was handed."""
-    if remat in _JAX_STEPS:
-        return _JAX_STEPS[remat]
+    ``(arch, remat)`` so that every pair of a process shares one compile:
+    the optimizer chain wrapped so that its state also carries the
+    gradients it was handed. The loss is the JAX trainer's choice: the E2E
+    loss for yolov10's dual head, else the v8 loss."""
+    if (arch, remat) in _JAX_STEPS:
+        return _JAX_STEPS[arch, remat]
     from kuzu.core.config import load_config as j_config
     from kuzu.core.train import build_optimizer as j_optimizer
     from kuzu.core.train import make_train_step as j_step
     from kuzu.models.yolo.detector import YoloDetector as JaxDetector
-    from kuzu.ops.detect_loss import detection_loss as j_loss
+    from kuzu.ops.detect_loss import detection_loss, e2e_detection_loss
 
-    jdet = JaxDetector("yolov12n", nc=3, dtype=jnp.float32, imgsz=128, remat=remat)
+    jdet = JaxDetector(arch, nc=3, dtype=jnp.float32, imgsz=128, remat=remat)
+    j_loss = e2e_detection_loss if jdet.spec.end2end else detection_loss
     strides = tuple(jdet.strides)
     base = j_optimizer(j_config(overrides=STEP_OVERRIDES), 1)
 
@@ -70,33 +72,35 @@ def jax_step(remat: bool):
                                 imgsz=128, strides=strides)
         return total, (metrics, dict(mutated))
 
-    _JAX_STEPS[remat] = (jdet, tx, j_step(j_loss_fn, tx, has_model_state=True, donate=False))
-    return _JAX_STEPS[remat]
+    _JAX_STEPS[arch, remat] = (jdet, tx, j_step(j_loss_fn, tx, has_model_state=True,
+                                                donate=False))
+    return _JAX_STEPS[arch, remat]
 
 
 def run_step_pair(remat: bool = False, detect_biases: str = "flax",
-                  batch: dict | None = None) -> dict:
-    """The step on both sides; with ``remat`` each block of both graphs is
-    rematerialized in the backward (flax's ``nn.remat``, the port's
-    ``torch.utils.checkpoint``). ``detect_biases``: ``"flax"`` keeps the
-    seeded init's Detect biases (box 1.0, cls -4.6, flax's), ``"zero"`` sets
-    them to 0. ``batch``: 2 images of 128 with 3 GT slots each (default:
-    seeded noise and ``GT_BOXES``)."""
+                  batch: dict | None = None, arch: str = "yolov12n") -> dict:
+    """The step of ``arch`` on both sides; with ``remat`` each block of both
+    graphs is rematerialized in the backward (flax's ``nn.remat``, the
+    port's ``torch.utils.checkpoint``). ``detect_biases``: ``"flax"`` keeps
+    the seeded init's Detect biases (box 1.0, cls -4.6, flax's), ``"zero"``
+    sets them to 0. ``batch``: 2 images of 128 with 3 GT slots each
+    (default: seeded noise and ``GT_BOXES``). ``maps`` in the result are
+    the port's (for yolov10 its one2many head's)."""
     from kuzu.core.train import init_state
 
     from kuzu_torch.bridge import _targets
     from kuzu_torch.core.config import load_config
     from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
     from kuzu_torch.models.yolo.graph import YoloGraph
-    from kuzu_torch.ops.detect_loss import detection_loss
+    from kuzu_torch.ops.detect_loss import detection_loss, e2e_detection_loss
     from kuzu_torch.ops.flash_attention import area_attention
 
-    jdet, tx, step = jax_step(remat)
+    jdet, tx, step = jax_step(remat, arch)
     graph = YoloGraph(jdet.spec, dtype=torch.float32, remat=remat)
     graph.reset_parameters(torch.Generator().manual_seed(0))
     if detect_biases == "zero":
         for name, p in graph.named_parameters():
-            if "Detect" in name and name.endswith("_2.bias"):
+            if "Detect" in name and name.endswith("_2.bias"):  # every head's
                 with torch.no_grad():
                     p.zero_()
     # copies: numpy views of the port's buffers would let the port's step,
@@ -131,17 +135,20 @@ def run_step_pair(remat: bool = False, detect_biases: str = "flax",
 
     topt.step = snapshot_then_step
 
+    t_loss = e2e_detection_loss if jdet.spec.end2end else detection_loss
+
     def t_loss_fn(model, b):
         feats = model(b["image"])
-        maps.append([f.detach() for f in feats])
-        return detection_loss(feats, b["gt_labels"], b["gt_boxes"], b["mask_gt"], nc=3,
-                              imgsz=128, strides=strides)
+        maps.append([f.detach() for f in (feats["one2many"] if isinstance(feats, dict)
+                                          else feats)])
+        return t_loss(feats, b["gt_labels"], b["gt_boxes"], b["mask_gt"], nc=3, imgsz=128,
+                      strides=strides)
 
     k3_before = area_attention.plain_calls
     tmetrics = make_train_step(t_loss_fn, topt)(
         tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
     names = {id(p): n for n, p in graph.named_parameters()}
-    return dict(variables=variables, jstate=jstate, jmetrics=jmetrics,
+    return dict(arch=arch, variables=variables, jstate=jstate, jmetrics=jmetrics,
                 jgrads=numpy_tree(jstate.opt_state[1]),
                 tstate=tstate, tmetrics=tmetrics, tgrads=grads, maps=maps[0], batch=batch,
                 targets=list(_targets(graph)), names=names, strides=strides,
@@ -223,13 +230,14 @@ def exact_gradients(pair: dict, with_metrics: bool = False):
     function both f32 sides approximate; ``with_metrics``: (its loss terms
     as floats, the gradients)."""
     from kuzu.models.yolo.detector import YoloDetector as JaxDetector
-    from kuzu.ops.detect_loss import detection_loss as j_loss
+    from kuzu.ops.detect_loss import detection_loss, e2e_detection_loss
 
     b = pair["batch"]
     with jax.enable_x64(True):
         f64 = lambda t: jax.tree.map(lambda a: jnp.asarray(np.asarray(a), jnp.float64), t)
         variables = f64(pair["variables"])
-        jdet = JaxDetector("yolov12n", nc=3, dtype=jnp.float64, imgsz=128)
+        jdet = JaxDetector(pair["arch"], nc=3, dtype=jnp.float64, imgsz=128)
+        j_loss = e2e_detection_loss if jdet.spec.end2end else detection_loss
 
         def loss(params):
             feats, _ = jdet.apply({"params": params, "batch_stats": variables["batch_stats"]},
@@ -326,6 +334,13 @@ def test_flax_biases_gradients_against_f64(flax_bias_pair):
     vector no farther from them than JAX's (f32 on the CPU: port 2.5e-6,
     JAX 1.4e-5 from the f64 norm). Run with ``-s`` it prints the readings
     and the largest leaves'."""
+    check_gradients_against_f64(flax_bias_pair)
+
+
+def check_gradients_against_f64(flax_bias_pair: dict) -> None:
+    """The port's gradient norm within 1e-5 relative of the f64 one and no
+    farther than JAX's, its gradient vector no farther from the f64 one
+    than JAX's."""
     exact = exact_gradients(flax_bias_pair)
     f64_sq = 0.0
     dist = {"port": 0.0, "jax": 0.0}

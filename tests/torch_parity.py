@@ -146,7 +146,9 @@ def jax_detect_predictor(tdet, name: str, conf: float = 0.001, max_det: int = 30
     letterbox and unscaling) over the port detector ``tdet``'s weights, with
     no run dir: its forward is the BN-folded executor in bf16 (the port's)
     with Pallas in interpret mode, or with ``f32`` the flax apply in f32 (what
-    JAX's predictor runs on the CPU); then decode and NMS. Every batch pads to
+    JAX's predictor runs on the CPU); then decode and, as JAX's predictor
+    chooses by ``spec.end2end``, NMS or yolov10's NMS-free selection (``iou``
+    unused there). Every batch pads to
     ``pad_to`` images before the jitted forward (NMS is per image), so one
     compile serves every call; ``_fwd_jit`` and ``variables`` serve the
     ship-once cascade. ``name``: the architecture ``tdet`` was built as;
@@ -154,7 +156,7 @@ def jax_detect_predictor(tdet, name: str, conf: float = 0.001, max_det: int = 30
     from kuzu.core.config import load_config
     from kuzu.models.yolo.detector import YoloDetector as JaxDetector
     from kuzu.models.yolo.infer import run_graph
-    from kuzu.ops.nms import non_max_suppression
+    from kuzu.ops.nms import nms_free_select, non_max_suppression
     from kuzu.tasks.detect import DetectPredictor
 
     jdet = JaxDetector(name, nc=tdet.nc, dtype=jnp.float32 if f32 else jnp.bfloat16,
@@ -164,6 +166,8 @@ def jax_detect_predictor(tdet, name: str, conf: float = 0.001, max_det: int = 30
         maps = (jdet.module.apply(variables, images, train=False) if f32
                 else run_graph(jdet.spec, variables, images, interpret=True))
         pred = jdet.decode(maps)
+        if jdet.spec.end2end:
+            return nms_free_select(pred, conf_thres=conf, max_det=max_det)
         return non_max_suppression(pred, conf_thres=conf, iou_thres=iou, max_det=max_det)
 
     pred = DetectPredictor(load_config(overrides={"conf": conf, "iou": iou,
