@@ -149,7 +149,8 @@ Phases, each raising on failure:
    (characters inside each column crop, the CRNN on [1024, 64] crops) and
    ``process_pages`` over 4 pages of two shapes (the host path): launches,
    times, a profiled call's stages, card against CPU by phase 8a's criteria
-   (the detectors' f32 forwards, 8 columns a page); (d) ``pack_yc`` /
+   (the detectors' f32 and f64 forwards, 8 columns a page, the character
+   detector at depth 0.33 to keep the CPU's runs short); (d) ``pack_yc`` /
    ``unpack_yc`` card against CPU on 8b's 16 pages and the ``yc``
    cascade's columns and texts beside the RGB cascade's; (e) the ship-once
    route against the host path on 4 of those pages (reported, not held);
@@ -180,8 +181,20 @@ Phases, each raising on failure:
    profiled step, peak memory, validation through K1 or NMS-free, the run
    dir in ``DetectPredictor`` equal to the EMA weights; one yolo11x step
    with ``remat`` against the plain step (phase 9's criteria);
-16. the ``kernels`` JSON line, then the card's name and power limit;
-17. last line: ``{"ok": true, "device": {...}}``.
+16. (after 15) the Segment, Pose, OBB and Classify heads: (a)
+   yolov8n-seg, -pose, -obb and -cls at 128, batch 2, bf16, card against
+   CPU (raw maps and the extra outputs; the selection of one set of
+   outputs, K1 or the rotated keeps; masks >= 99% of pixels, keypoints
+   within 0.05 px; classify logits within 1e-3 of the largest, top-1);
+   (b) yolov8x-seg / -pose @640 b8, -obb @1024 b4, -cls @224 b64 through
+   their predictors' forwards: ms/img, device ms, idle share, K1's share,
+   peak memory; (c) the same four trained through ``Model(...).train``
+   from PNG files written in the phase (3 + 5 steps): ms/step, a profiled
+   step, peak memory, finite losses, the run dir's predictor equal to the
+   EMA weights. ``python3 chip_smoke.py 16`` runs the build and phase 16
+   alone (no result line);
+17. the ``kernels`` JSON line, then the card's name and power limit;
+18. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -1464,10 +1477,11 @@ def remat_full_width(dev, launches: dict) -> dict:
     return out
 
 
-def train_step_breakdown(trainer, ds) -> dict:
-    """One training step taken apart: CUDA events between its phases
-    (forward, assigner + loss, backward, optimizer + EMA) and, under
-    torch.profiler, kernel time by group, with the device's idle share."""
+def train_step_breakdown(trainer, ds, n: int = 8) -> dict:
+    """One training step on ``n`` samples of ``ds`` taken apart: CUDA events
+    between its phases (forward, assigner + loss, backward, optimizer +
+    EMA) and, under torch.profiler, kernel time by group, with the device's
+    idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from kuzu_torch.core.train import ema_decay_at, ema_update, global_norm
@@ -1475,7 +1489,7 @@ def train_step_breakdown(trainer, ds) -> dict:
 
     dev = trainer.device
     b = {k: torch.from_numpy(v).to(dev)
-         for k, v in default_collate([ds[i] for i in range(8)]).items()}
+         for k, v in default_collate([ds[i] for i in range(n)]).items()}
     state, model, tx = trainer.state, trainer.state.model, trainer.state.optimizer
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
 
@@ -4001,6 +4015,7 @@ PAGE_HW = (3868, 2422)  # the real page's size (data/real_page/sample_gt.json)
 A4_HW = (3508, 2480)  # an A4 scan at 300 dpi
 N_FILES = 8  # pages of 13b
 CPU_COL_MAX_DET = 8  # columns of 13c's process_page held card vs CPU (a p2x@640 forward each in f64 on the CPU)
+CMP_DEPTH = 0.33  # 13c's card-vs-CPU character detector: the 'n' scales' depth multiple
 COL_MODEL, CHAR_MODEL, CHAR_IMGSZ = "yolov12s", "yolov12-p2x", 640  # 8b's detectors
 
 
@@ -4226,11 +4241,39 @@ def _compare_results(card: list[dict], cpu: list[dict], what: str) -> dict:
     return a
 
 
+def cut_depth_char_detector(dev, full):
+    """13c's character detector for the card-against-CPU runs: 8b's
+    yolov12-p2x (its widths, yaml and nc) at the depth multiple CMP_DEPTH
+    (the A2C2f and C3k2 repeats 4 -> 1, 2 -> 1), seeded, BatchNorm
+    calibrated on phase 8b's first page's tiles and its box head set as
+    8b's: both devices run the same weights, and the CPU's f64 and f32
+    forwards over 8 crops and 8 tiles take about half the time."""
+    import yaml
+
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.models.yolo.graph import parse_model_yaml, resolve_model_spec
+    from kuzu_torch.pipeline.device_pages import device_tiles
+    from kuzu_torch.testing import box_head, calibrate_batch_norm
+
+    path, scale = resolve_model_spec(CHAR_MODEL)
+    d = yaml.safe_load(path.read_text())
+    d["scales"][scale] = [CMP_DEPTH, *d["scales"][scale][1:]]
+    spec = parse_model_yaml(d, scale=scale, nc=full.nc)
+    char = YoloDetector(spec, imgsz=CHAR_IMGSZ, device=dev).init(1)
+    pages = production_pages()[:1].to(dev)
+    calibrate_batch_norm(char.graph, device_tiles(pages, 2, 0.15, CHAR_IMGSZ)[0])
+    box_head(char, (1, 1, 1, 1))
+    print(f"  13c card vs CPU: {CHAR_MODEL} at depth {CMP_DEPTH}, {char.param_count()} params "
+          f"({full.param_count()} at full depth)")
+    return char
+
+
 def _reference_pipeline(d, col, char, crnn, tok, dtype, col_max_det: int):
-    """13c's pipeline for card against CPU: 8b's weights on ``d``, the
-    detectors' unfolded graphs (eval mode) and the CRNN in ``dtype`` (f64 or
-    f32); an f64 detector's decoded output goes to the NMS in f32, as the
-    main path's does. The main path runs the bf16 executor with its kernels:
+    """13c's pipeline for card against CPU: the detectors' weights (``col``,
+    ``char``: YoloDetectors, their specs and sizes) on ``d``, their unfolded
+    graphs (eval mode) and the CRNN in ``dtype`` (f64 or f32); an f64
+    detector's decoded output goes to the NMS in f32, as the main path's
+    does. The main path runs the bf16 executor with its kernels:
     a calibrated seeded detector amplifies bf16 rounding, so two bf16
     executors part by design."""
     import copy
@@ -4240,8 +4283,9 @@ def _reference_pipeline(d, col, char, crnn, tok, dtype, col_max_det: int):
     from kuzu_torch.tasks.ctc import CTCPredictor
     from kuzu_torch.tasks.detect import DetectPredictor
 
-    def detector(name, src, **kw):
-        det = YoloDetector(name, nc=1, device=d, **kw).load_state_dict(src.graph.state_dict())
+    def detector(src):
+        det = YoloDetector(src.spec, imgsz=src.imgsz, device=d).load_state_dict(
+            src.graph.state_dict())
         det.graph.eval()  # a new module trains: its BatchNorms would take each batch's statistics
         if dtype == torch.float64:
             det.graph.double()
@@ -4255,10 +4299,10 @@ def _reference_pipeline(d, col, char, crnn, tok, dtype, col_max_det: int):
         rec.double()
         rec.dtype = rec.encoder.dtype = torch.float64
     return KuzushijiPipeline(
-        column_model=DetectPredictor.from_detector(detector(COL_MODEL, col, imgsz=PAGE, reg_max=32),
-                                                   conf=CONF, iou=0.7, max_det=col_max_det),
-        char_model=DetectPredictor.from_detector(detector(CHAR_MODEL, char, imgsz=CHAR_IMGSZ),
-                                                 conf=CONF, iou=0.7, max_det=2000),
+        column_model=DetectPredictor.from_detector(detector(col), conf=CONF, iou=0.7,
+                                                   max_det=col_max_det),
+        char_model=DetectPredictor.from_detector(detector(char), conf=CONF, iou=0.7,
+                                                 max_det=2000),
         recognizer=CTCPredictor.from_model(rec, tok, CROP, device=d),
         tile_grid=0, tile_overlap=0.15, max_det=2000, device=d)
 
@@ -4393,14 +4437,24 @@ def flat_cascade(dev, root, col, char, crnn, tok, launches: dict) -> dict:
                                           "geometry", "crops", "recognizer"],
             "every host-path stage profiled")
 
-    # card against CPU on the same weights, in f64 and in f32 forwards
+    # card against CPU on the same weights, in f64 and in f32 forwards; the
+    # character detector at CMP_DEPTH (its own seeded, calibrated weights)
     t0 = time.perf_counter()
+    char = cut_depth_char_detector(dev, char)
     dtypes = {"f64": torch.float64, "f32": torch.float32}
-    flat_cmp = {}
+    flat_cmp, seconds = {}, {}
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        r = fn()
+        seconds[key] = time.perf_counter() - t
+        return r
+
     for name, dt in dtypes.items():
         flat = {d: _reference_pipeline(d, col, char, crnn, tok, dt, CPU_COL_MAX_DET)
                 for d in (dev, "cpu")}
-        one = {d: [p.process_page(page)] for d, p in flat.items()}
+        one = {d: [timed(f"process_page {name} {torch.device(d).type}",
+                         lambda p=p: p.process_page(page))] for d, p in flat.items()}
         flat_cmp[name] = _compare_results(one[dev], one["cpu"],
                                           f"process_page (tile_grid=0), {name} forwards")
     del flat
@@ -4409,7 +4463,10 @@ def flat_cascade(dev, root, col, char, crnn, tok, launches: dict) -> dict:
     two = {}
     for key, p in host.items():
         p.tile_grid = 2
-        two[key] = p.process_pages(mixed[:2])
+        two[key] = timed(f"host path {key[1]} {torch.device(key[0]).type}",
+                         lambda p=p: p.process_pages(mixed[:2]))
+    print("  13c card-vs-CPU runs, seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
     host_cmp = {name: _compare_results(
         two[dev, name], two["cpu", name],
         f"process_pages host path (col_refine on), 2 shapes, {name} forwards") for name in dtypes}
@@ -4836,6 +4893,350 @@ def zoo_phase(dev, launches: dict) -> dict:
     return out
 
 
+# ------------------------------------------- phase 16: the other task heads
+
+HEADS_SMALL = ("yolov8n-seg", "yolov8n-pose", "yolov8n-obb", "yolov8n-cls")  # 16a, 128 b2
+# 16b / 16c at Ultralytics' published settings: (task, model, imgsz, batch)
+HEADS_FULL = (("segment", "yolov8x-seg", 640, 8), ("pose", "yolov8x-pose", 640, 8),
+              ("obb", "yolov8x-obb", 1024, 4), ("classify", "yolov8x-cls", 224, 64))
+HEADS_WARM, HEADS_TIMED = 3, 5  # 16c's steps
+HEADS_NC = {"segment": 80, "pose": 1, "obb": 15}  # the yamls' COCO / COCO-pose / DOTA classes
+CLS_CLASSES = 64  # 16c's glyph folder: 64 classes, 8 training images and 1 validation each
+MASK_SHARE = 0.99  # 16a: mask pixels equal, card against CPU
+KPT_PX = 0.05  # 16a: keypoints, card against CPU
+CLS_TOL = 1e-3  # 16a: classify logits (f32, the predictor's dtype), relative to the largest
+
+
+MASK_COEFF_SCALE = 1e7  # 16a: seeded mask logits are ~1e-7, inside the sigmoid's rounding at 0.5
+
+
+def scaled_coefficients(outputs: dict) -> dict:
+    """A Segment output with its mask coefficients times MASK_COEFF_SCALE.
+    Seeded, every mask logit is ~1e-7, where f32 sigmoid rounds to 0.5 or
+    to the next float by each library's own formula, so masks would be the
+    sign of rounding; scaled, the logits are O(1), as a trained head's, and
+    the masks depend on the input (a stand-in, as ``testing.box_head`` is
+    for the box heads)."""
+    return {**outputs, "coeffs": outputs["coeffs"] * MASK_COEFF_SCALE}
+
+
+def mask_logits(outputs: dict, sel: dict) -> torch.Tensor:
+    """The kept boxes' mask logits (coefficients x prototypes), uncropped."""
+    c = torch.gather(outputs["coeffs"], 1,
+                     sel["indices"][..., None].expand(-1, -1, outputs["coeffs"].shape[-1]))
+    return torch.einsum("bdn,bhwn->bdhw", c, outputs["protos"])
+
+
+def head_outputs(det, outputs, task: str, sel: dict) -> dict:
+    """A head's extras for the selection ``sel`` (its anchor indices):
+    segment's masks, pose's keypoints."""
+    from kuzu_torch.tasks.pose import decode_keypoints
+    from kuzu_torch.tasks.segment import compose_masks
+
+    if task == "segment":
+        return {"masks": compose_masks(outputs, sel, det.imgsz)}
+    return {"kpts": decode_keypoints(det, outputs, sel)}
+
+
+def heads_card_vs_cpu(dev, launches: dict) -> dict:
+    """16a: each head's n scale at 128 px, batch 2, its yaml's nc, seeded
+    weights, bf16, on the card and on the CPU: raw maps and the extra
+    outputs by ``maps_match``; the selection of one decoded tensor (the
+    CPU's) identical on both devices (K1 against the plain sweep; OBB the
+    rotated keeps); on that selection each device's masks (>= 99% of pixels
+    equal) and keypoints (within 0.05 px); classify's logits of the module
+    tree (eval mode, f32: ``ClassifyPredictor``'s, as JAX's predictor) within
+    1e-3 of the largest with identical top-1, bf16's reported."""
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.models.yolo.graph import YoloGraph
+    from kuzu_torch.ops.obb import nms_rotated_padded
+    from kuzu_torch.tasks.obb import rotated_candidates
+    from kuzu_torch.testing import maps_agreement, maps_match
+
+    imgs = torch.from_numpy(
+        np.random.default_rng(16).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8))
+    out = {}
+    for name in HEADS_SMALL:
+        task = {"seg": "segment", "pose": "pose", "obb": "obb", "cls": "classify"}[
+            name.split("-")[1]]
+        if task == "classify":  # the predictor's route: the module tree, eval, f32
+            errs = {}
+            for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                logits = []
+                for d in (dev, "cpu"):
+                    g = YoloGraph(YoloDetector(name, device="cpu").spec, dtype=dt)
+                    g.reset_parameters(torch.Generator().manual_seed(0))
+                    with torch.no_grad():
+                        logits.append(g.to(d).eval()(imgs.to(d)).float().cpu())
+                lg, lc = logits
+                errs[label] = (float((lg - lc).abs().max() / lc.abs().max()),
+                               bool(torch.equal(lg.argmax(-1), lc.argmax(-1))))
+            err, top1 = errs["f32"]
+            print(f"16a {name}@128 b2 (module tree, eval): logits card vs CPU max |d| / max |CPU| "
+                  f"f32 {err:.2e} (<= {CLS_TOL}), top-1 identical {top1}; bf16 (the training "
+                  f"dtype, reported) {errs['bf16'][0]:.2e}, top-1 identical {errs['bf16'][1]}")
+            require(err <= CLS_TOL and top1, f"{name} card vs CPU logits")
+            out[name] = dict(logit_err=err, top1_equal=top1, logit_err_bf16=errs["bf16"][0])
+            continue
+        gpu = YoloDetector(name, imgsz=128, device=dev).init(0)
+        cpu = YoloDetector(name, imgsz=128, device="cpu").init(0)
+        zero_counts()
+        gout = gpu.infer(imgs)
+        torch.cuda.synchronize()
+        cout = cpu.infer(imgs)
+        worst = (0.0, 1.0)
+        for key in gout:
+            pairs = zip(cout[key], gout[key]) if key == "det" else [(cout[key], gout[key])]
+            for c, g in pairs:
+                rel, share = maps_agreement(c, g)
+                worst = (max(worst[0], rel), min(worst[1], share))
+                require(maps_match(c, g), f"{name} card vs CPU raw maps: {key}")
+        if task == "obb":
+            cand = rotated_candidates(cpu, cout)
+            valid = torch.ones(cand[1].shape, dtype=torch.bool)
+            cdets = nms_rotated_padded(*cand, valid, iou_threshold=0.7, score_threshold=CONF)
+            same = nms_rotated_padded(*(t.to(dev) for t in (*cand, valid)), iou_threshold=0.7,
+                                      score_threshold=CONF)
+            extra = ("rotated keeps (probIoU, the batched fixed point) of the CPU's decoded "
+                     "candidates")
+        else:
+            cpred = cpu.decode(cout)
+            cdets = cpu.select(cpred, CONF, 0.7, 300, return_indices=True)
+            same = gpu.select(cpred.to(dev), CONF, 0.7, 300, return_indices=True)
+            extra = "NMS (K1 against the plain sweep) of the CPU's decoded tensor"
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        require(counts == want(nms=0 if task == "obb" else 1), f"{name} launch counts {counts}")
+        for k, c in counts.items():
+            launches[k] += c
+        for key in cdets:
+            require(torch.equal(same[key].cpu(), cdets[key]),
+                    f"{name}: selection of one set of outputs, card vs CPU: {key}")
+        r = dict(max_rel=worst[0], min_share=worst[1], valid=cdets["valid"].sum(1).tolist())
+        line = ""
+        if task != "obb":
+            sel_g = {k: v.to(dev) for k, v in cdets.items()}
+            if task == "segment":
+                gout, cout = scaled_coefficients(gout), scaled_coefficients(cout)
+            eg, ec = head_outputs(gpu, gout, task, sel_g), head_outputs(cpu, cout, task, cdets)
+            if task == "segment":
+                # the CPU's coefficients and prototypes composed on both
+                # devices (f32, TF32 off), as the selection takes one
+                # decoded tensor; each device's own forward is reported:
+                # its bf16 maps part by up to 5%, which moves the masks of
+                # the pixels whose logit lies within that of 0 (the
+                # coefficients scaled in both, see scaled_coefficients)
+                v = cdets["valid"]
+                same = head_outputs(gpu, {k: v_.to(dev) for k, v_ in cout.items()
+                                          if k != "det"}, task, sel_g)
+                share = float((same["masks"].cpu()[v] == ec["masks"][v]).float().mean())
+                own = float((eg["masks"].cpu()[v] == ec["masks"][v]).float().mean())
+                scale = float(mask_logits(cout, cdets)[v].abs().max())
+                require(share >= MASK_SHARE, f"{name} mask pixels card vs CPU {share}")
+                r.update(mask_share=share, mask_share_own_forwards=own, mask_logit_max=scale)
+                line = (f"; masks of the kept boxes from the CPU's outputs {share:.5f} of pixels "
+                        f"equal (>= {MASK_SHARE}); from each device's own forward {own:.5f} "
+                        f"(reported: max |mask logit| {scale:.2e})")
+            else:
+                v = cdets["valid"]
+                dpx = float((eg["kpts"].cpu()[v][..., :2] - ec["kpts"][v][..., :2]).abs().max())
+                require(dpx <= KPT_PX, f"{name} keypoints card vs CPU {dpx} px")
+                r["kpt_px"] = dpx
+                line = f"; keypoints of the kept boxes within {dpx:.4f} px (<= {KPT_PX})"
+        print(f"16a {name}@128 b2 bf16: launches {counts}; maps worst rel {worst[0]:.4f} "
+              f"(< 0.05), least share close {worst[1]:.5f} (> 0.999); {extra} on the card "
+              f"identical; valid {r['valid']}{line}")
+        out[name] = r
+        del gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def heads_full_width(dev, launches: dict) -> dict:
+    """16b: each head at its published size, seeded weights, bf16, through
+    its predictor's forward (segment: infer, decode, NMS on K1 with indices,
+    the masks; pose: the keypoints; obb: the rotated decode and NMS;
+    classify: ``ClassifyPredictor.probs`` of the module tree): launches,
+    finite outputs, ms/img (median of 10), device ms, idle share and K1's
+    device ms of one profiled call, peak memory."""
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.tasks.classify import ClassifyPredictor, build_classifier
+    from kuzu_torch.tasks.obb import OBBPredictor
+    from kuzu_torch.tasks.pose import PosePredictor
+    from kuzu_torch.tasks.segment import SegmentPredictor
+
+    out = {}
+    for task, name, sz, n in HEADS_FULL:
+        imgs = torch.from_numpy(np.random.default_rng(17).integers(
+            0, 256, (n, sz, sz, 3), dtype=np.uint8)).to(dev)
+        if task == "classify":
+            pred = ClassifyPredictor.__new__(ClassifyPredictor)
+            pred.model = build_classifier(name, 1000)
+            pred.model.reset_parameters(torch.Generator().manual_seed(0))
+            pred.model.to(dev).eval()
+            pred.ready, pred.device = True, dev
+            params = sum(p.numel() for p in pred.model.parameters())
+            run = lambda: pred.probs(imgs)  # noqa: E731
+        else:
+            det = YoloDetector(name, nc=HEADS_NC[task], imgsz=sz, device=dev).init(0)
+            cls = {"segment": SegmentPredictor, "pose": PosePredictor, "obb": OBBPredictor}[task]
+            pred = cls.from_detector(det, conf=CONF, iou=0.7, max_det=300)
+            params = det.param_count()
+            run = lambda: pred._fwd(imgs)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        zero_counts()
+        res = run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        k1 = 1 if task in ("segment", "pose") else 0
+        require(counts == want(nms=k1), f"{name} launch counts {counts}")
+        for k, c in counts.items():
+            launches[k] += c
+        if task == "classify":
+            require(bool(torch.isfinite(res).all()) and tuple(res.shape) == (n, 1000),
+                    f"{name} finite probabilities")
+            what = f"probabilities {tuple(res.shape)}"
+        else:
+            valid = res["valid"].sum(1).tolist()
+            require(min(valid) > 0 and bool(torch.isfinite(res["boxes"]).all()),
+                    f"{name}: finite detections in every image")
+            what = f"valid per image {valid}" + (
+                f", masks {tuple(res['masks'].shape)}" if task == "segment" else
+                f", keypoints {tuple(res['kpts'].shape)}" if task == "pose" else "")
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(run, reps=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dtype = "f32 (the predictor's, as JAX's)" if task == "classify" else "bf16"
+        print(f"16b {name}@{sz} b{n} {dtype}: {params} params, launches {counts}; {what}; "
+              f"{ms:.3f} ms/batch = {ms / n:.4f} ms/img (median of 10), peak memory "
+              f"{peak:.2f} GiB")
+        bd = device_breakdown(run)
+        k1_ms = bd["groups_ms"].get("K1 nms", 0.0)
+        print(f"  K1: {k1_ms:.4f} ms of {bd['busy_ms']:.3f} ms device")
+        out[name] = dict(ms_per_img=ms / n, ms_per_batch=ms, device_ms=bd["busy_ms"],
+                         idle_share=bd["idle_share"], k1_device_ms=k1_ms, peak_gib=peak,
+                         k1_launches=counts["nms"], params=params, breakdown=bd)
+        del pred, imgs
+        torch.cuda.empty_cache()
+    return out
+
+
+def head_folder(root, task: str, sz: int, n: int):
+    """16c's data: PNG pages written here (``testing.write_head_folder`` /
+    ``write_glyph_folder``), enough for HEADS_WARM + HEADS_TIMED batches of
+    ``n`` and one validation batch; 3 x 4 pages at ``sz``'s aspect."""
+    from kuzu_torch.testing import write_glyph_folder, write_head_folder
+
+    steps = HEADS_WARM + HEADS_TIMED
+    if task == "classify":
+        per = -(-n * steps // CLS_CLASSES)
+        return write_glyph_folder(root / task, {"train": per, "val": 1},
+                                  n_classes=CLS_CLASSES, hw=(64, 48))
+    return write_head_folder(root / task, task, {"train": n * steps, "val": n},
+                             hw=(sz * 3 // 4, sz), n_inst=(4, 12), nc=HEADS_NC.get(task, 1),
+                             seed=16)
+
+
+def heads_train_run(dev, task: str, name: str, sz: int, n: int, root, launches: dict) -> dict:
+    """16c for one head: ``Model(name, task=...).train`` over PNG files
+    written in the phase (the port's own datasets decode them), bf16, one
+    epoch of HEADS_WARM + HEADS_TIMED steps and one validation batch:
+    launches per step (none) and in the validation (K1 once for segment and
+    pose), finite losses, ms/step, a profiled step (kernel ms, idle share),
+    peak memory; the run dir in its predictor against the EMA weights in
+    memory: equal outputs."""
+    from kuzu_torch.api.model import Model
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.tasks.classify import ClassifyPredictor, build_classifier
+    from kuzu_torch.tasks.obb import OBBPredictor
+    from kuzu_torch.tasks.pose import PosePredictor
+    from kuzu_torch.tasks.segment import SegmentPredictor
+
+    t0 = time.perf_counter()
+    data = head_folder(root, task, sz, n)
+    write_s = time.perf_counter() - t0
+    model = Model(name, task=task, device=dev)
+    rec = StepRecorder()
+    trainer_cls = model._component("trainer")
+
+    class Recorded(trainer_cls):
+        def train(self):
+            for ev, fn in (("on_train_start", rec.start), ("on_step_end", rec.step),
+                           ("on_val_start", rec.val_start), ("on_val_end", rec.val_end)):
+                self.callbacks.add(ev, fn)
+            model.recorded = self
+            return super().train()
+
+    model._component = lambda kind: Recorded if kind == "trainer" else trainer_cls
+    model.train(data=str(data), imgsz=sz, batch=n, dtype="bfloat16", epochs=1, workers=4,
+                project=str(root / "runs"), name=task, exist_ok=True, verbose=False)
+    trainer = model.recorded
+    steps = HEADS_WARM + HEADS_TIMED
+    k1 = 1 if task in ("segment", "pose") else 0
+    require(len(rec.counts) == steps and all(c == want() for c in rec.counts),
+            f"{name} per-step launches {rec.counts}")
+    require(rec.val_counts == want(nms=k1), f"{name} validation launches {rec.val_counts}")
+    for k, c in rec.val_counts.items():
+        launches[k] += c
+    losses = [float(m["loss"]) for m in rec.metrics]
+    require(all(np.isfinite(losses)), f"{name} finite losses {losses}")
+    times = [a.elapsed_time(b) for a, b in zip(rec.events[:-1], rec.events[1:])]
+    ms = statistics.median(times[HEADS_WARM:])
+    params = sum(p.numel() for p in trainer.state.model.parameters())
+    print(f"16c {name}@{sz} b{n} bf16 {type(trainer).__mro__[1].__name__} from {data.name}'s "
+          f"PNG files (written in {write_s:.1f} s): {params} params; losses "
+          f"{[round(x, 3) for x in losses]}; {ms:.3f} ms/step (median of {HEADS_TIMED} after "
+          f"{HEADS_WARM}; steps {[round(t, 2) for t in times]}), peak memory "
+          f"{rec.peak / 2**30:.2f} GiB; validation launches {rec.val_counts}, {rec.val_metrics}")
+    r = dict(ms_per_step=ms, step_ms=times, losses=losses, peak_gib=rec.peak / 2**30,
+             val_launches=rec.val_counts, params=params)
+    run_dir = trainer.save_dir
+    ds = trainer.val_ds
+    imgs = torch.from_numpy(np.stack([ds[i]["image"] for i in range(min(n, len(ds)))])).to(dev)
+    cfg = load_config(overrides={"model": str(run_dir), "conf": CONF})
+    if task == "classify":  # the predictor runs f32, as JAX's
+        loaded = ClassifyPredictor(cfg, device=dev)
+        mem = build_classifier(name, trainer.train_ds.num_classes).to(dev).eval()
+        mem.load_state_dict(trainer.state.ema_state_dict())
+        with torch.no_grad():
+            a, b = loaded.probs(imgs), torch.softmax(mem(imgs), -1)
+        equal, nvalid = bool(torch.equal(a, b)), len(a)
+    else:
+        pcls = {"segment": SegmentPredictor, "pose": PosePredictor, "obb": OBBPredictor}[task]
+        loaded = pcls(cfg, device=dev)
+        mem = pcls.from_detector(YoloDetector(trainer.spec, imgsz=sz, device=dev).load_state_dict(
+            trainer.state.ema_state_dict()), conf=CONF)
+        a, b = loaded._fwd(imgs), mem._fwd(imgs)
+        equal, nvalid = all(torch.equal(a[k], b[k]) for k in a), int(a["valid"].sum())
+    print(f"  run dir in {type(loaded).__name__} against the EMA weights in memory: outputs "
+          f"equal {equal} ({nvalid} {'images' if task == 'classify' else 'valid'})")
+    require(equal, f"{name}: the run dir's outputs equal the EMA weights'")
+    del loaded, mem
+    r["breakdown"] = train_step_breakdown(trainer, trainer.train_ds, n)
+    r["device_ms"], r["idle_share"] = r["breakdown"]["busy_ms"], r["breakdown"]["idle_share"]
+    del trainer, model
+    torch.cuda.empty_cache()
+    return r
+
+
+def heads_phase(dev, launches: dict) -> dict:
+    """Phase 16: 16a, 16b, 16c."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    out = dict(card_vs_cpu=heads_card_vs_cpu(dev, launches),
+               inference=heads_full_width(dev, launches))
+    with tempfile.TemporaryDirectory() as tmp:
+        out["training"] = {name: heads_train_run(dev, task, name, sz, n, Path(tmp), launches)
+                           for task, name, sz, n in HEADS_FULL}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 KERNELS = {
@@ -4873,6 +5274,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     _check_smem_formulas()
+    if sys.argv[1:] == ["16"]:
+        # the whole script's setting (kernel_phase): the plain references in full f32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        heads = heads_phase(dev, dict.fromkeys(COUNTERS, 0))
+        print(json.dumps({"heads": heads, "card": card}, default=str))
+        print(card)
+        return 0
     if sys.argv[1:] == ["10"]:
         train = train_full_width(dev, dict.fromkeys(COUNTERS, 0))
         train["remat"] = remat_full_width(dev, dict.fromkeys(COUNTERS, 0))
@@ -4904,6 +5312,7 @@ def main() -> int:
     train = train_full_width(dev, launches)
     train["remat"] = remat_full_width(dev, launches)
     zoo = zoo_phase(dev, launches)
+    heads = heads_phase(dev, launches)
     files = recognizer_training["image_file_training"]["detector"]
     print(f"p2x@640 b8 bf16 training: from the PNG folder (14b) {files['ms_per_step']:.3f} "
           f"ms/step, {files['images_per_s']:.2f} images/s; on synthetic tensors (10) "
@@ -4927,6 +5336,7 @@ def main() -> int:
     print(json.dumps({"train_yolov12p2x_640_b8": train, "card": card}))
     print(json.dumps({"recognizer_training": recognizer_training, "card": card}, default=str))
     print(json.dumps({"yolo_zoo": zoo, "card": card}, default=str))
+    print(json.dumps({"heads": heads, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

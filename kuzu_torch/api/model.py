@@ -2,8 +2,10 @@
 ``kuzu/api/model.py``): ``Model(...).train() / .val() / .predict()``.
 
 A task name maps to its trainer, validator and predictor classes; the port's
-task modules (``detect``, ``ctc``, ``recognize``, ``lm``) register
-themselves on import through :func:`register_task`. Every component runs on
+task modules (``detect``, ``segment``, ``pose``, ``obb``, ``classify``,
+``ctc``, ``recognize``, ``lm``) register themselves on import through
+:func:`register_task`. As in JAX, a name guesses its task by markers only
+(``yolov8n-seg`` guesses detect): pass ``task`` for the other heads. Every component runs on
 ``device`` (the card when None).
 """
 
@@ -28,10 +30,14 @@ def register_task(name: str, **components: Callable) -> None:
 
 def task_map() -> dict[str, dict[str, Callable]]:
     # import side-effect registration
+    import kuzu_torch.tasks.classify  # noqa: F401
     import kuzu_torch.tasks.ctc  # noqa: F401
     import kuzu_torch.tasks.detect  # noqa: F401
     import kuzu_torch.tasks.lm  # noqa: F401
+    import kuzu_torch.tasks.obb  # noqa: F401
+    import kuzu_torch.tasks.pose  # noqa: F401
     import kuzu_torch.tasks.recognize  # noqa: F401
+    import kuzu_torch.tasks.segment  # noqa: F401
 
     return _TASK_REGISTRY
 

@@ -2,8 +2,10 @@
 (a copy of ``kuzu/api/results.py``, which the port may not import).
 
 ``Boxes`` (xyxy / xywh / normalised views, indexing), ``Results`` (dict-style
-access, iteration, ``filter``, ``save_txt``, ``to_json``, ``summary``) and
-``Masks`` hold numpy arrays, as the reference's do. ``Masks.full`` repeats
+access, iteration, ``filter``, ``save_txt``, ``to_json``, ``summary``),
+``Masks``, ``Keypoints`` and ``OBBoxes`` (the segment, pose and OBB
+predictors' extras; JAX keeps the last two in ``kuzu/tasks/pose.py`` and
+``kuzu/tasks/obb.py``) hold numpy arrays, as the reference's do. ``Masks.full`` repeats
 cv2's ``INTER_NEAREST`` with index arithmetic. ``Results.plot`` and
 ``save`` draw text with cv2's fonts, which the port does not have: they
 raise ``NotImplementedError`` (ROADMAP.md).
@@ -83,6 +85,52 @@ class Masks:
         return np.asarray(self.data, bool)[:, ys[:, None], xs[None, :]]
 
 
+class Keypoints:
+    """Per-detection keypoints in the original image frame (reference
+    ``engine/results.py`` Keypoints; set by the pose predictor)."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple[int, int]):
+        self.data = data  # (n, K, D): xy px (+ visibility probability)
+        self.orig_shape = orig_shape
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    @property
+    def xy(self) -> np.ndarray:
+        return self.data[..., :2]
+
+    @property
+    def conf(self) -> np.ndarray | None:
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
+class OBBoxes:
+    """Rotated detections (reference ``engine/results.py`` OBB; set by the
+    OBB predictor)."""
+
+    def __init__(self, data: np.ndarray, conf: np.ndarray, cls: np.ndarray):
+        self.data = data  # (n, 5) xywhr
+        self.conf = conf
+        self.cls = cls
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    @property
+    def xywhr(self) -> np.ndarray:
+        return self.data
+
+    @property
+    def xyxyxyxy(self) -> np.ndarray:
+        """(n, 4, 2) corner points."""
+        import torch
+
+        from kuzu_torch.ops.obb import rbox_corners
+
+        return rbox_corners(torch.as_tensor(np.asarray(self.data))).numpy()
+
+
 class Results:
     def __init__(
         self,
@@ -100,6 +148,7 @@ class Results:
         self.speed = speed or {}
         self.masks = masks
         self.keypoints = None  # set by the pose predictor
+        self.obb = None  # set by the OBB predictor
 
     def __len__(self) -> int:
         return len(self.boxes)

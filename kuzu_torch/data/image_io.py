@@ -872,3 +872,229 @@ def image_size(path: str | Path) -> tuple[int, int]:
                           "not installed") from e
     with Image.open(path) as im:
         return im.size
+
+
+# ------------------------------------------------------------ masks and luma
+
+XY_SHIFT = 16  # cv2's drawing fixed point
+XY_ONE = 1 << XY_SHIFT
+_INT_MAX = 2**31 - 1
+_INT64_MAX = 2**63 - 1
+
+
+def _trunc_div(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def clip_line(w: int, h: int, p1: list[int], p2: list[int]) -> bool:
+    """cv2's ``clipLine(Size(w, h), pt1, pt2)``: the segment clipped to the
+    image in place (int64 ends, the intersections in double, truncated);
+    False where it lies wholly outside."""
+    right, bottom = w - 1, h - 1
+    if w <= 0 or h <= 0:
+        return False
+    x1, y1 = p1
+    x2, y2 = p2
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    p1[:] = [x1, y1]
+    p2[:] = [x2, y2]
+    return (c1 | c2) == 0
+
+
+def _line8(img: np.ndarray, p1: list[int], p2: list[int], color) -> None:
+    """cv2's ``Line`` at 8-connectivity: ``LineIterator(img, p1, p2, 8,
+    leftToRight=true)`` (clipped to the image first), Bresenham with the
+    error ``dx - 2 dy``, a diagonal step while it is negative."""
+    h, w = img.shape[:2]
+    p1, p2 = list(p1), list(p2)
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h and 0 <= p2[1] < h):
+        if not clip_line(w, h, p1, p2):
+            return
+    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
+    if dx < 0:  # left to right
+        dx, dy = -dx, -dy
+        p1, p2 = p2, p1
+    sx, sy = 1, 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    major, minor = (dy, dx) if vert else (dx, dy)
+    err = major - 2 * minor
+    x, y = p1
+    for _ in range(major + 1):
+        img[y, x] = color
+        step = err < 0
+        err += -2 * minor + (2 * major if step else 0)
+        if vert:
+            y += sy
+            x += sx if step else 0
+        else:
+            x += sx
+            y += sy if step else 0
+
+
+class _Edge:
+    __slots__ = ("y0", "y1", "x", "dx", "next")
+
+    def __init__(self, y0=0, y1=0, x=0, dx=0):
+        self.y0, self.y1, self.x, self.dx, self.next = y0, y1, x, dx, None
+
+
+def _collect_edges(img: np.ndarray, pts: np.ndarray, color, edges: list) -> None:
+    """cv2 5's ``CollectPolyEdges`` at LINE_8, shift 0: each edge drawn as
+    an 8-connected line, and the non-horizontal ones collected in 16.16
+    fixed point. An edge with an end outside the image takes the x of its
+    clipped ends (and their rows, unless the clipped segment is level: then
+    it runs vertically over its own rows), extrapolated back to its first
+    row."""
+    h, w = img.shape[:2]
+    n = len(pts)
+    pt0 = [int(pts[-1][0]) << XY_SHIFT, int(pts[-1][1])]
+    for i in range(n):
+        pt1 = [int(pts[i][0]) << XY_SHIFT, int(pts[i][1])]
+        pt0c, pt1c = list(pt0), list(pt1)
+        t0 = [(pt0[0] + (XY_ONE >> 1)) >> XY_SHIFT, pt0[1]]
+        t1 = [(pt1[0] + (XY_ONE >> 1)) >> XY_SHIFT, pt1[1]]
+        _line8(img, t0, t1, color)
+        if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h and 0 <= t1[1] < h):
+            clip_line(w, h, t0, t1)
+            if t0[1] != t1[1]:
+                pt0c[1], pt1c[1] = t0[1], t1[1]
+            pt0c[0], pt1c[0] = t0[0] << XY_SHIFT, t1[0] << XY_SHIFT
+        if pt0[1] != pt1[1]:
+            dx = _trunc_div(pt1c[0] - pt0c[0], pt1c[1] - pt0c[1])
+            if pt0[1] < pt1[1]:
+                edges.append(_Edge(pt0[1], pt1[1], pt0c[0] + (pt0[1] - pt0c[1]) * dx, dx))
+            else:
+                edges.append(_Edge(pt1[1], pt0[1], pt1c[0] + (pt1[1] - pt1c[1]) * dx, dx))
+        pt0 = pt1
+
+
+def _fill_edges(img: np.ndarray, edges: list, color) -> None:
+    """cv2 5's ``FillEdgeCollection`` at LINE_8: the active-edge scan, each
+    row filled between pairs of edges from ``ceil(x)`` to ``floor(x)``
+    (16.16 fixed point) inclusive, clipped to the image, the active list
+    bubble-sorted by x after each row."""
+    h, w = img.shape[:2]
+    total = len(edges)
+    if total < 2:
+        return
+    y_max, y_min = -_INT_MAX - 1, _INT_MAX
+    x_max, x_min = -1, _INT64_MAX
+    for e1 in edges:
+        x1 = e1.x + (e1.y1 - e1.y0) * e1.dx
+        y_min, y_max = min(y_min, e1.y0), max(y_max, e1.y1)
+        x_min, x_max = min(x_min, e1.x, x1), max(x_max, e1.x, x1)
+    if y_max < 0 or y_min >= h or x_max < 0 or x_min >= (w << XY_SHIFT):
+        return
+    edges.sort(key=lambda e: (e.y0, e.x, e.dx))
+    edges.append(_Edge(_INT_MAX))  # sentinel
+    head = _Edge()
+    i = 0
+    e = edges[0]
+    y_max = min(y_max, h)
+    y = e.y0
+    while y < y_max:
+        draw = False
+        clipline = y < 0
+        prelast, last = head, head.next
+        while last is not None or e.y0 == y:
+            if last is not None and last.y1 == y:  # the edge ends on this row
+                prelast.next = last.next
+                last = last.next
+                continue
+            keep_prelast = prelast
+            if last is not None and (e.y0 > y or last.x < e.x):
+                prelast, last = last, last.next
+            elif i < total:  # an edge starts on this row
+                prelast.next = e
+                e.next = last
+                prelast = e
+                i += 1
+                e = edges[i]
+            else:
+                break
+            if draw:
+                if not clipline:
+                    if keep_prelast.x > prelast.x:
+                        x1, x2 = (prelast.x + XY_ONE - 1) >> XY_SHIFT, keep_prelast.x >> XY_SHIFT
+                    else:
+                        x1, x2 = (keep_prelast.x + XY_ONE - 1) >> XY_SHIFT, prelast.x >> XY_SHIFT
+                    if x1 < w and x2 >= 0:
+                        img[y, max(x1, 0):min(x2, w - 1) + 1] = color
+                keep_prelast.x += keep_prelast.dx
+                prelast.x += prelast.dx
+            draw = not draw
+        keep_prelast = None  # bubble sort of the active list by x
+        while True:
+            prelast, last = head, head.next
+            last_exchange = None
+            while last is not keep_prelast and last.next is not None:
+                te = last.next
+                if last.x > te.x:
+                    prelast.next = te
+                    last.next = te.next
+                    te.next = last
+                    prelast = te
+                    last_exchange = prelast
+                else:
+                    prelast, last = last, te
+            if last_exchange is None:
+                break
+            keep_prelast = last_exchange
+            if keep_prelast is head.next or keep_prelast is head:
+                break
+        y += 1
+
+
+def fill_poly(img: np.ndarray, polys, color) -> np.ndarray:
+    """``cv2.fillPoly(img, polys, color)`` (LINE_8, shift 0) in place on a
+    2-D integer image: each polygon's edges drawn as 8-connected lines,
+    then the interior of all of them filled by cv2's even-odd scan-line
+    rule; ``polys`` lists (N, 2) integer vertex arrays (x, y). Pixel for
+    pixel cv2 5.0's, out-of-frame, concave, self-intersecting and
+    degenerate polygons included."""
+    edges: list = []
+    for p in polys:
+        p = np.asarray(p).reshape(-1, 2)
+        if len(p):
+            _collect_edges(img, p, color, edges)
+    _fill_edges(img, edges, color)
+    return img
+
+
+# PIL's ``convert("L")`` from RGB: ITU-R 601-2 luma, 16-bit weights, rounded
+L24 = (19595, 38470, 7471)
+
+
+def rgb_to_l_u8(img: np.ndarray) -> np.ndarray:
+    """PIL's ``Image.convert("L")`` of uint8 (H, W, 3) RGB: ``(R 19595 + G
+    38470 + B 7471 + 2^15) >> 16``, (H, W) uint8."""
+    x = np.asarray(img).astype(np.uint32)
+    y = x[..., 0] * L24[0] + x[..., 1] * L24[1] + x[..., 2] * L24[2] + 0x8000
+    return (y >> 16).astype(np.uint8)

@@ -1,5 +1,6 @@
 """YOLO-format detection data: the folder dataset and its host-side
-augmentations (counterpart of ``kuzu/data/yolo_dataset.py:26-583``).
+augmentations, and the Segment, Pose and OBB datasets (counterpart of
+``kuzu/data/yolo_dataset.py``).
 
 ``dataset.yaml`` (path / train / val / names), label files next to an
 ``images`` dir's ``labels`` twin, the label cache, rect buckets, the image
@@ -487,3 +488,199 @@ class YoloDetectionDataset:
         mask[:n] = True
         return {"image": np.ascontiguousarray(img, np.uint8), "gt_boxes": out_boxes,
                 "gt_labels": out_labels, "mask_gt": mask}
+
+
+def read_yolo_segments(path: Path) -> list[tuple[int, np.ndarray]]:
+    """Segment-format labels, ``cls x1 y1 x2 y2 ... xn yn`` (a normalised
+    polygon an instance, at least 3 points): [(cls, (n, 2) float32)]."""
+    if not path.exists():
+        return []
+    out = []
+    for line in path.read_text().splitlines():
+        vals = line.split()
+        if len(vals) < 7:  # cls + >=3 points
+            continue
+        cls = int(float(vals[0]))
+        pts = np.asarray(vals[1:], np.float32).reshape(-1, 2)
+        out.append((cls, pts))
+    return out
+
+
+class YoloSegmentDataset(YoloDetectionDataset):
+    """Instance-segmentation samples: polygons -> boxes and one overlap-index
+    ``masks`` map an image ((S / mask_ratio)^2 int32, pixel i + 1 for
+    instance i, later instances over earlier ones), filled by
+    ``image_io.fill_poly`` (cv2's ``fillPoly``) from the int32 vertices
+    ``(p / mask_ratio).astype(int32)``. Augmentation: HSV and the flips (no
+    mosaic or warp, as JAX's)."""
+
+    def __init__(self, *args, mask_ratio: int = 4, **kwargs):
+        kwargs.setdefault("cache", False)  # polygon rows aren't (cls, xywh)
+        super().__init__(*args, **kwargs)
+        self.mask_ratio = mask_ratio
+        self.hyp["mosaic"] = 0.0
+
+    def _sample(self, idx: int) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed * 1_000_003 + self._epoch * 7919 + idx) % (2**31))
+        path = self.images[idx]
+        img = self._decode(idx)
+        h, w = img.shape[:2]
+        segs = read_yolo_segments(_label_path(path))
+        polys = [pts * [w, h] for _, pts in segs]
+        labels = np.asarray([c for c, _ in segs], np.int32)
+
+        img, gain, (px, py) = letterbox_np(img, self.imgsz)
+        polys = [p * gain + [px, py] for p in polys]
+        if self.augment:
+            img = hsv_jitter(img, rng, self.hyp["hsv_h"], self.hyp["hsv_s"], self.hyp["hsv_v"])
+            if rng.uniform() < self.hyp["fliplr"]:
+                img = img[:, ::-1]
+                polys = [np.stack([img.shape[1] - p[:, 0], p[:, 1]], 1) for p in polys]
+            if rng.uniform() < self.hyp["flipud"]:
+                img = img[::-1]
+                polys = [np.stack([p[:, 0], img.shape[0] - p[:, 1]], 1) for p in polys]
+
+        boxes = np.asarray([[p[:, 0].min(), p[:, 1].min(), p[:, 0].max(), p[:, 1].max()]
+                            for p in polys], np.float32).reshape(-1, 4)
+        mh, mw = img.shape[0] // self.mask_ratio, img.shape[1] // self.mask_ratio
+        mask = np.zeros((mh, mw), np.int32)
+        for i, p in enumerate(polys[: self.max_boxes]):
+            io.fill_poly(mask, [(p / self.mask_ratio).astype(np.int32)], i + 1)
+
+        out = _padded(boxes, labels, self.max_boxes)
+        out["image"] = np.ascontiguousarray(img, np.uint8)
+        out["masks"] = mask
+        return out
+
+
+class YoloPoseDataset(YoloDetectionDataset):
+    """Keypoint samples from ``cls cx cy w h (x y v)*K`` rows (normalised):
+    ``gt_kpts`` (max_boxes, K, D) px beside the detect fields. HSV and
+    fliplr only; fliplr permutes the keypoints by the spec's ``flip_idx``
+    where it has one."""
+
+    def __init__(self, *args, kpt_shape: tuple[int, int] = (17, 3), **kwargs):
+        kwargs.setdefault("cache", False)  # keypoint rows parse in _load_pose
+        super().__init__(*args, **kwargs)
+        self.kpt_shape = tuple(self.spec.get("kpt_shape", kpt_shape))
+        self.flip_idx = list(self.spec.get("flip_idx", []))
+        self.hyp["mosaic"] = 0.0
+
+    def _load_pose(self, idx: int):
+        img = self._decode(idx)
+        h, w = img.shape[:2]
+        k, d = self.kpt_shape
+        labels, boxes, kpts = [], [], []
+        lp = _label_path(self.images[idx])
+        if lp.exists():
+            for line in lp.read_text().splitlines():
+                vals = np.asarray(line.split(), np.float32)
+                if len(vals) != 5 + k * d:
+                    continue
+                labels.append(int(vals[0]))
+                cx, cy, bw, bh = vals[1:5] * [w, h, w, h]
+                boxes.append([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2])
+                kp = vals[5:].reshape(k, d)
+                kp[:, 0] *= w
+                kp[:, 1] *= h
+                kpts.append(kp)
+        return (img, np.asarray(boxes, np.float32).reshape(-1, 4), np.asarray(labels, np.int32),
+                np.asarray(kpts, np.float32).reshape(-1, k, d))
+
+    def _sample(self, idx: int) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed * 1_000_003 + self._epoch * 7919 + idx) % (2**31))
+        img, boxes, labels, kpts = self._load_pose(idx)
+        img, gain, (px, py) = letterbox_np(img, self.imgsz)
+        if len(boxes):
+            boxes = boxes * gain + [px, py, px, py]
+            kpts[..., 0] = kpts[..., 0] * gain + px
+            kpts[..., 1] = kpts[..., 1] * gain + py
+        if self.augment:
+            img = hsv_jitter(img, rng, self.hyp["hsv_h"], self.hyp["hsv_s"], self.hyp["hsv_v"])
+            if rng.uniform() < self.hyp["fliplr"]:
+                img = img[:, ::-1]
+                if len(boxes):
+                    boxes[:, [0, 2]] = img.shape[1] - boxes[:, [2, 0]]
+                    kpts[..., 0] = img.shape[1] - kpts[..., 0]
+                    if self.flip_idx:
+                        kpts = kpts[:, self.flip_idx]
+        k, d = self.kpt_shape
+        out = _padded(boxes, labels, self.max_boxes)
+        out_kpts = np.zeros((self.max_boxes, k, d), np.float32)
+        n = min(len(boxes), self.max_boxes)
+        out_kpts[:n] = kpts[:n]
+        out["image"] = np.ascontiguousarray(img, np.uint8)
+        out["gt_kpts"] = out_kpts
+        return out
+
+
+def read_yolo_obb(path: Path) -> tuple[np.ndarray, np.ndarray]:
+    """OBB labels (DOTA / ultralytics), ``cls x1 y1 ... x4 y4`` normalised
+    corners -> (labels (N,), rboxes (N, 5) normalised xywhr): the centre the
+    corners' mean, w and h the first two edges' lengths, theta their first
+    edge's float64 ``arctan2`` moved into [-pi/4, 3 pi/4)."""
+    if not path.exists():
+        return np.zeros((0,), np.int32), np.zeros((0, 5), np.float32)
+    labels, rboxes = [], []
+    for line in path.read_text().splitlines():
+        vals = line.split()
+        if len(vals) != 9:
+            continue
+        labels.append(int(float(vals[0])))
+        pts = np.asarray(vals[1:], np.float32).reshape(4, 2)
+        ctr = pts.mean(0)
+        e1 = pts[1] - pts[0]
+        e2 = pts[3] - pts[0]
+        w, h = float(np.hypot(*e1)), float(np.hypot(*e2))
+        r = float(np.arctan2(e1[1], e1[0]))
+        while r >= 3 * np.pi / 4:  # the head's range
+            r -= np.pi
+        while r < -np.pi / 4:
+            r += np.pi
+        rboxes.append([ctr[0], ctr[1], w, h, r])
+    return np.asarray(labels, np.int32), np.asarray(rboxes, np.float32)
+
+
+class YoloOBBDataset(YoloDetectionDataset):
+    """Oriented-box samples: corner labels -> ``gt_rboxes`` (max_boxes, 5)
+    xywhr px. HSV only (a flip would have to move the angle)."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("cache", False)  # corner rows aren't (cls, xywh)
+        super().__init__(*args, **kwargs)
+        self.hyp["mosaic"] = 0.0
+
+    def _sample(self, idx: int) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed * 1_000_003 + self._epoch * 7919 + idx) % (2**31))
+        img = self._decode(idx)
+        h, w = img.shape[:2]
+        labels, rb = read_yolo_obb(_label_path(self.images[idx]))
+        rb = rb * [w, h, w, h, 1.0] if len(rb) else rb
+        img, gain, (px, py) = letterbox_np(img, self.imgsz)
+        if len(rb):
+            rb = rb * [gain, gain, gain, gain, 1.0] + [px, py, 0, 0, 0]
+        if self.augment:
+            img = hsv_jitter(img, rng, self.hyp["hsv_h"], self.hyp["hsv_s"], self.hyp["hsv_v"])
+        m = self.max_boxes
+        out_rb = np.zeros((m, 5), np.float32)
+        out_labels = np.zeros((m,), np.int32)
+        n = min(len(rb), m)
+        out_rb[:n] = rb[:n]
+        out_labels[:n] = labels[:n]
+        vmask = np.zeros((m,), bool)
+        vmask[:n] = True
+        return {"image": np.ascontiguousarray(img, np.uint8), "gt_rboxes": out_rb,
+                "gt_labels": out_labels, "mask_gt": vmask}
+
+
+def _padded(boxes: np.ndarray, labels: np.ndarray, m: int) -> dict[str, np.ndarray]:
+    """``gt_boxes`` (m, 4), ``gt_labels`` (m,) and ``mask_gt`` (m,), the
+    first min(N, m) rows filled."""
+    out_boxes = np.zeros((m, 4), np.float32)
+    out_labels = np.zeros((m,), np.int32)
+    n = min(len(boxes), m)
+    out_boxes[:n] = boxes[:n]
+    out_labels[:n] = labels[:n]
+    mask = np.zeros((m,), bool)
+    mask[:n] = True
+    return {"gt_boxes": out_boxes, "gt_labels": out_labels, "mask_gt": mask}

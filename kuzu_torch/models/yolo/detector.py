@@ -2,7 +2,8 @@
 (counterpart of ``kuzu/models/yolo/detector.py``).
 
 ``infer`` returns the per-level raw maps (B, H, W, 4*reg_max + nc) as NHWC
-views (yolov10: ``{"one2one": maps}``); ``decode`` turns them into
+views (yolov10: ``{"one2one": maps}``; Segment, Pose, OBB: a dict with the
+maps under ``det``); ``decode`` turns them into
 the (B, 4 + nc, A) tensor that ``kuzu_torch.ops.nms.non_max_suppression``
 consumes, or, for yolov10, ``nms_free_select`` (:meth:`YoloDetector.select`
 picks by ``spec.end2end``).
@@ -110,12 +111,13 @@ class YoloDetector:
     @torch.no_grad()
     def decode(self, feats: list[torch.Tensor] | dict) -> torch.Tensor:
         """Raw maps -> (B, 4 + nc, A): xywh pixel boxes + sigmoid scores; of
-        yolov10's heads the one2one maps, as inference uses them.
+        yolov10's heads the one2one maps, as inference uses them; of a
+        Segment, Pose or OBB output its ``det`` maps.
 
         DFL runs in the maps' dtype (bf16) and is promoted to f32 at
         ``dist2bbox``; the class sigmoid runs in f32."""
-        if isinstance(feats, dict):
-            feats = feats["one2one"]
+        if isinstance(feats, dict):  # yolov10's one2one; Segment / Pose / OBB's det
+            feats = feats["one2one"] if "one2one" in feats else feats["det"]
         box_dist, cls = self.flatten_feats(feats)
         shapes = [(f.shape[1], f.shape[2]) for f in feats]
         anchor_points, stride_t = make_anchors(shapes, self.strides, device=box_dist.device)
@@ -125,7 +127,8 @@ class YoloDetector:
         return pred.transpose(1, 2)
 
     def select(self, pred: torch.Tensor, conf: float, iou: float, max_det: int,
-               multi_label: bool = False) -> dict[str, torch.Tensor]:
+               multi_label: bool = False,
+               return_indices: bool = False) -> dict[str, torch.Tensor]:
         """Padded detections of a decoded (B, 4 + nc, A) tensor, as the JAX
         predictor and validator choose: yolov10's one2one head by NMS-free
         top-k (``iou`` and ``multi_label`` unused), every other head by NMS
@@ -133,7 +136,7 @@ class YoloDetector:
         if self.spec.end2end:
             return nms_free_select(pred, conf_thres=conf, max_det=max_det)
         return non_max_suppression(pred, conf_thres=conf, iou_thres=iou, max_det=max_det,
-                                   multi_label=multi_label)
+                                   multi_label=multi_label, return_indices=return_indices)
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.graph.parameters())

@@ -260,18 +260,19 @@ def resolve_model_spec(name: str) -> tuple[Path, str | None]:
     raise FileNotFoundError(f"no model yaml for '{name}' (looked in {MODEL_DIR})")
 
 
-# Modules of the detect zoo (yolov8, yolov9c, yolov10, yolo11, yolov12).
+# Modules of the YOLO zoo (yolov8, yolov9c, yolov10, yolo11, yolov12 and the
+# Segment / Pose / OBB / Classify heads).
 SUPPORTED = ("Conv", "DWConv", "C2f", "C3k2", "A2C2f", "C2PSA", "RepNCSPELAN4", "ADown",
              "SPPELAN", "C2fCIB", "SCDown", "PSA", "SPPF", "Upsample", "Concat", "Detect",
-             "v10Detect")
-# The heads of the other tasks, with the slice that ports them.
-LATER = {m: "the Segment / Pose / OBB / Classify heads, with their tasks, losses and "
-            "datasets, are a later slice of the port (the next one)"
-         for m in ("Segment", "Pose", "OBB", "Classify")}
+             "v10Detect", "Segment", "Pose", "OBB", "Classify")
+# What the port does not build yet, with its ROADMAP.md section 1 item.
+LATER = ("YOLO-NAS (item 13.2), the TPU layout options (s2d convolutions, the "
+         "packed stem: item 13.3) and SimpleViT (item 15) are later slices of the port")
 # The block modules the flax graph wraps in nn.remat (``_block``); plain
 # convs, the pools' blocks, Concat, Upsample and the heads are not wrapped.
 REMAT_BLOCKS = ("C2f", "C3k2", "A2C2f", "C2PSA", "RepNCSPELAN4", "C2fCIB", "PSA")
-HEADS = ("Detect", "v10Detect")
+# Heads over the listed feature maps; Classify reads one map.
+HEADS = ("Detect", "v10Detect", "Segment", "Pose", "OBB")
 
 
 def _remat_contexts():
@@ -282,8 +283,8 @@ def _remat_contexts():
 
 def unsupported(module: str) -> NotImplementedError:
     """The error for a module the port does not build."""
-    why = LATER.get(module, "it is not part of the detect zoo")
-    return NotImplementedError(f"module '{module}' is not ported: {why}")
+    return NotImplementedError(f"module '{module}' is not ported: the port builds the "
+                               f"YOLO zoo's modules; {LATER}")
 
 
 def build_node(node: NodeSpec, spec: GraphSpec, c1: int) -> nn.Module:
@@ -320,12 +321,24 @@ def build_node(node: NodeSpec, spec: GraphSpec, c1: int) -> nn.Module:
         return M.Detect(spec.nc, spec.detect_ch, spec.reg_max, legacy=spec.legacy_head)
     if m == "v10Detect":
         return M.V10Detect(spec.nc, spec.detect_ch, spec.reg_max)
+    if m == "Segment":
+        return M.Segment(spec.nc, spec.detect_ch, nm=a[1], npr=a[2], reg_max=spec.reg_max,
+                         legacy=spec.legacy_head)
+    if m == "Pose":
+        return M.Pose(spec.nc, spec.detect_ch, kpt_shape=tuple(a[1]), reg_max=spec.reg_max,
+                      legacy=spec.legacy_head)
+    if m == "OBB":
+        return M.OBB(spec.nc, spec.detect_ch, ne=a[1], reg_max=spec.reg_max,
+                     legacy=spec.legacy_head)
+    if m == "Classify":
+        return M.Classify(c1, spec.nc)
     raise unsupported(m)
 
 
 class YoloGraph(nn.Module):
     """The module tree of a parsed GraphSpec: the detect zoo (yolov8,
-    yolov9c, yolov10, yolo11, yolov12 and its P2 variant).
+    yolov9c, yolov10, yolo11, yolov12 and its P2 variant) and the Segment,
+    Pose, OBB and Classify heads.
 
     ``forward`` is the flax graph's ``__call__`` (``kuzu/models/yolo/graph.py``)
     in ``dtype`` (master weights stay f32), following ``self.training``: the
@@ -356,7 +369,9 @@ class YoloGraph(nn.Module):
     def forward(self, images: torch.Tensor) -> list[torch.Tensor] | dict:
         """(B, H, W, 3) images (uint8, or float in [0, 1]) -> the per-level
         raw maps (B, H, W, 4*reg_max + nc) as NHWC views; yolov10's dual
-        head returns ``{"one2many": maps, "one2one": maps}``. Pixels become
+        head returns ``{"one2many": maps, "one2one": maps}``, Segment
+        ``{"det", "coeffs", "protos"}``, Pose ``{"det", "kpts_raw"}``, OBB
+        ``{"det", "angle"}`` and Classify the (B, nc) f32 logits. Pixels become
         f32 ``x / 255`` and then ``dtype``, as the flax graph's first conv
         casts them; activations are NCHW in ``channels_last``."""
         x = from_uint8(images).to(self.dtype).permute(0, 3, 1, 2)
@@ -373,6 +388,9 @@ class YoloGraph(nn.Module):
             elif m in HEADS:
                 result = self.get_submodule(f"n{node.index}_{m}")(ins)
                 cur = ins[0]
+            elif m == "Classify":
+                result = self.get_submodule(f"n{node.index}_{m}")(ins[0])
+                cur = ins[0]
             else:
                 mod = self.get_submodule(f"n{node.index}_{m}")
                 if (self.remat and m in REMAT_BLOCKS and self.training
@@ -384,7 +402,7 @@ class YoloGraph(nn.Module):
             if node.index in self.spec.save:
                 outputs[node.index] = cur
         if result is None:
-            raise ValueError("model yaml has no Detect node")
+            raise ValueError("model yaml has no head node")
         return result
 
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -1,5 +1,7 @@
 """BN-folded inference executor for the YOLO graph (the detect zoo of
-``kuzu/models/yolo/infer.py``: yolov8, yolov9c, yolov10, yolo11, yolov12).
+``kuzu/models/yolo/infer.py``: yolov8, yolov9c, yolov10, yolo11, yolov12;
+and the Segment, Pose and OBB heads, whose dicts carry their extra outputs
+in f32 beside the ``det`` maps).
 
 :func:`fold_graph` folds every BatchNorm into its conv once, at load:
 weights become bf16 and biases stay f32, as ``_fold_bn`` does. Each ABlock
@@ -17,6 +19,7 @@ ADown's 2x2 average adds its taps in XLA's order (``modules.avg_pool2``).
 
 from __future__ import annotations
 
+import math
 from functools import partial
 
 import torch
@@ -282,13 +285,53 @@ def detect(p: _P, feats: list, legacy: bool = False):
     return outs
 
 
+def proto(p: _P, x):
+    """Mask prototypes (``modules.Proto``): conv3 -> 2x up -> conv3 -> conv1."""
+    return conv(p.child("cv3"), conv(p.child("cv2"), M.upsample2x(conv(p.child("cv1"), x))))
+
+
+def branch(p: _P, feats: list, prefix: str, width: int) -> torch.Tensor:
+    """A Segment / Pose / OBB head's per-level branch, (B, A, width) in f32."""
+    out = []
+    for i, x in enumerate(feats):
+        m = plain_conv(p.child(f"{prefix}{i}_2"),
+                       conv(p.child(f"{prefix}{i}_1"), conv(p.child(f"{prefix}{i}_0"), x)))
+        out.append(m.permute(0, 2, 3, 1).reshape(m.shape[0], -1, width))
+    return torch.cat(out, dim=1).float()
+
+
+def segment(p: _P, feats: list, legacy: bool, nm: int) -> dict:
+    """Segment head: Detect + mask coefficients + Proto, f32 coeffs / protos."""
+    protos = proto(p.child("proto"), feats[0])
+    return {"det": detect(p.child("detect"), feats, legacy=legacy),
+            "coeffs": branch(p, feats, "m", nm),
+            "protos": protos.permute(0, 2, 3, 1).float()}
+
+
+def pose(p: _P, feats: list, legacy: bool, kpt_shape) -> dict:
+    """Pose head: Detect + keypoint branches, ``kpts_raw`` (B, A, K, D) f32."""
+    k, d = kpt_shape
+    raw = branch(p, feats, "k", k * d)
+    return {"det": detect(p.child("detect"), feats, legacy=legacy),
+            "kpts_raw": raw.reshape(raw.shape[0], raw.shape[1], k, d)}
+
+
+def obb(p: _P, feats: list, legacy: bool, ne: int) -> dict:
+    """OBB head: Detect + angle branches, theta = (sigmoid - 0.25) pi in f32."""
+    raw = branch(p, feats, "a", ne)
+    return {"det": detect(p.child("detect"), feats, legacy=legacy),
+            "angle": (torch.sigmoid(raw) - 0.25) * math.pi}
+
+
 @torch.no_grad()
 def run_graph(spec, table: dict, images: torch.Tensor) -> list[torch.Tensor] | dict:
     """Execute the parsed GraphSpec on (B, H, W, 3) images (uint8, or float
     already in [0, 1]); returns the per-level raw maps (B, H, W, 4*reg_max+nc)
     as NHWC views; for yolov10's dual head ``{"one2one": maps}``, the head
     that inference decodes (JAX's returns one2many's maps too, which its
-    jitted callers discard unread). The stem is the plain strided conv."""
+    jitted callers discard unread); Segment ``{"det", "coeffs",
+    "protos"}``, Pose ``{"det", "kpts_raw"}``, OBB ``{"det", "angle"}``.
+    The stem is the plain strided conv."""
     x = from_uint8(images, dtype=torch.bfloat16).permute(0, 3, 1, 2)
     x = x.contiguous(memory_format=torch.channels_last)
     outputs: dict[int, torch.Tensor] = {}
@@ -336,10 +379,23 @@ def run_graph(spec, table: dict, images: torch.Tensor) -> list[torch.Tensor] | d
         elif m == "v10Detect":  # one2many is for training only (JAX's jit drops it)
             result = {"one2one": detect(p.child("one2one"), ins)}
             cur = ins[0]
+        elif m == "Segment":
+            result = segment(p, ins, legacy=spec.legacy_head, nm=a[1])
+            cur = ins[0]
+        elif m == "Pose":
+            result = pose(p, ins, legacy=spec.legacy_head, kpt_shape=tuple(a[1]))
+            cur = ins[0]
+        elif m == "OBB":
+            result = obb(p, ins, legacy=spec.legacy_head, ne=a[1])
+            cur = ins[0]
+        elif m == "Classify":
+            raise NotImplementedError(
+                "Classify has no BN-folded route (nor in the JAX package): the classify "
+                "task runs the module tree in eval mode")
         else:
             raise unsupported(m)
         if node.index in spec.save:
             outputs[node.index] = cur
     if result is None:
-        raise ValueError("model yaml has no Detect node")
+        raise ValueError("model yaml has no head node")
     return result

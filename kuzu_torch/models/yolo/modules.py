@@ -1,6 +1,6 @@
-"""The YOLO detect zoo's building blocks as ``nn.Module``s (the detect
-modules of ``kuzu/models/yolo/modules.py``: yolov8, yolov9c, yolov10,
-yolo11 and yolov12).
+"""The YOLO zoo's building blocks as ``nn.Module``s (the modules of
+``kuzu/models/yolo/modules.py``: the detect zoo yolov8, yolov9c, yolov10,
+yolo11 and yolov12, and the Segment, Pose, OBB and Classify heads).
 
 Each module holds the parameters of its flax counterpart under the same
 names, so ``kuzu_torch.bridge`` maps a flax checkpoint one to one:
@@ -655,24 +655,139 @@ class V10Detect(nn.Module):
                 "one2one": self.one2one([f.detach() for f in feats])}
 
 
+class Proto(nn.Module):
+    """Mask prototypes over the P3 map: Conv 3x3 -> 2x upsample -> Conv 3x3
+    -> Conv 1x1 to ``nm`` channels (``cv1..cv3``)."""
+
+    def __init__(self, c1: int, npr: int = 256, nm: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, npr, 3)
+        self.cv2 = Conv(npr, npr, 3)
+        self.cv3 = Conv(npr, nm, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(upsample2x(self.cv1(x))))
+
+
+class _BranchHead(nn.Module):
+    """A Detect head (``detect``) plus a per-level branch ``{p}{i}_0, 1, 2``
+    of ``width`` channels over ``c4 = max(ch[0] // 4, width)``."""
+
+    prefix = ""
+
+    def __init__(self, nc: int, ch: list[int], width: int, reg_max: int, legacy: bool):
+        super().__init__()
+        c4 = max(ch[0] // 4, width)
+        for i, c in enumerate(ch):
+            self.add_module(f"{self.prefix}{i}_0", Conv(c, c4, 3))
+            self.add_module(f"{self.prefix}{i}_1", Conv(c4, c4, 3))
+            self.add_module(f"{self.prefix}{i}_2", nn.Conv2d(c4, width, 1))
+        self.detect = Detect(nc, ch, reg_max, legacy=legacy)
+        self.width = width
+
+    def branch(self, feats: list[torch.Tensor]) -> torch.Tensor:
+        """Each level's two 3x3 Convs and plain 1x1 conv, (B, H*W, width) in
+        NHWC order, concatenated over the levels to (B, A, width) in f32."""
+        g, p, out = self.get_submodule, self.prefix, []
+        for i, x in enumerate(feats):
+            m = plain_conv(g(f"{p}{i}_2"), g(f"{p}{i}_1")(g(f"{p}{i}_0")(x)))
+            out.append(m.permute(0, 2, 3, 1).reshape(m.shape[0], -1, self.width))
+        return torch.cat(out, 1).float()
+
+
+class Segment(_BranchHead):
+    """Instance segmentation: Detect plus per-level mask coefficients
+    (``m{i}_*``) and the Proto over P3. Returns ``{"det": maps, "coeffs":
+    (B, A, nm) f32, "protos": (B, Hp, Wp, nm) f32}``."""
+
+    prefix = "m"
+
+    def __init__(self, nc: int, ch: list[int], nm: int = 32, npr: int = 256,
+                 reg_max: int = 16, legacy: bool = True):
+        super().__init__(nc, ch, nm, reg_max, legacy)
+        self.proto = Proto(ch[0], npr, nm)
+
+    def forward(self, feats: list[torch.Tensor]) -> dict:
+        protos = self.proto(feats[0])
+        coeffs = self.branch(feats)
+        return {"det": self.detect(feats), "coeffs": coeffs,
+                "protos": protos.permute(0, 2, 3, 1).float()}
+
+
+class Pose(_BranchHead):
+    """Keypoints: Detect plus per-level ``K * D`` values an anchor
+    (``k{i}_*``). Returns ``{"det": maps, "kpts_raw": (B, A, K, D) f32}``;
+    :func:`kpts_decode` decodes them."""
+
+    prefix = "k"
+
+    def __init__(self, nc: int, ch: list[int], kpt_shape: tuple[int, int] = (17, 3),
+                 reg_max: int = 16, legacy: bool = True):
+        super().__init__(nc, ch, kpt_shape[0] * kpt_shape[1], reg_max, legacy)
+        self.kpt_shape = tuple(kpt_shape)
+
+    def forward(self, feats: list[torch.Tensor]) -> dict:
+        raw = self.branch(feats)
+        return {"det": self.detect(feats),
+                "kpts_raw": raw.reshape(raw.shape[0], raw.shape[1], *self.kpt_shape)}
+
+
+def kpts_decode(anchor_points: torch.Tensor, kpts_raw: torch.Tensor) -> torch.Tensor:
+    """Anchor-relative keypoints in grid units: xy 2 + anchor - 0.5; the
+    other values (visibility logits) pass through."""
+    xy = kpts_raw[..., :2] * 2.0 + (anchor_points[None, :, None, :] - 0.5)
+    return torch.cat([xy, kpts_raw[..., 2:]], dim=-1)
+
+
+class OBB(_BranchHead):
+    """Oriented boxes: Detect plus per-level angle logits (``a{i}_*``);
+    theta = (sigmoid - 0.25) pi in [-pi/4, 3 pi/4]. Returns ``{"det": maps,
+    "angle": (B, A, ne) f32}``."""
+
+    prefix = "a"
+
+    def __init__(self, nc: int, ch: list[int], ne: int = 1, reg_max: int = 16,
+                 legacy: bool = True):
+        super().__init__(nc, ch, ne, reg_max, legacy)
+
+    def forward(self, feats: list[torch.Tensor]) -> dict:
+        raw = self.branch(feats)
+        return {"det": self.detect(feats), "angle": (torch.sigmoid(raw) - 0.25) * math.pi}
+
+
+class Classify(nn.Module):
+    """Classification: Conv 1x1 to 1280 channels (``conv``), the spatial
+    mean, then ``linear`` in f32 whatever the weights' dtype (flax
+    ``nn.Dense(dtype=f32)``), logits (B, c2)."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv = Conv(c1, 1280, 1)
+        self.linear = nn.Linear(1280, c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x).mean(dim=(2, 3))
+        return F.linear(x.float(), self.linear.weight.float(), self.linear.bias.float())
+
+
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
     """flax's ``lecun_normal``: truncated normal (+-2 std) with variance
-    1/fan_in, fan_in = kh * kw * cin / groups."""
-    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+    1/fan_in, fan_in = kh * kw * cin / groups (a Dense's: its inputs)."""
+    fan_in = w[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 @torch.no_grad()
 def init_weights(root: nn.Module, generator: torch.Generator) -> None:
-    """The flax default init in distribution (not in bits): conv kernels
-    lecun_normal, BN scale 1 / bias 0 / mean 0 / var 1, Detect biases 1.0
+    """The flax default init in distribution (not in bits): conv and Dense
+    kernels lecun_normal, BN scale 1 / bias 0 / mean 0 / var 1, Detect biases 1.0
     (box) and -4.6 (cls) in every head (the legacy one, both of yolov10's),
     A2C2f gamma 0.01. The Detect biases are set after
     the walk: ``modules()`` visits a Detect before its convs, whose step
     zeroes every bias."""
     for m in root.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()

@@ -33,26 +33,38 @@ def anchors_in_gts(anc_points: torch.Tensor, gt_bboxes: torch.Tensor,
 @torch.no_grad()
 def task_aligned_assign(
     pd_scores: torch.Tensor,  # (B, A, nc) sigmoid probabilities
-    pd_bboxes: torch.Tensor,  # (B, A, 4) xyxy px
+    pd_bboxes: torch.Tensor,  # (B, A, 4) xyxy px, or (B, A, 5) xywhr (rotated)
     anc_points: torch.Tensor,  # (A, 2) px
     gt_labels: torch.Tensor,  # (B, M) int
-    gt_bboxes: torch.Tensor,  # (B, M, 4) px (zero rows for padding)
+    gt_bboxes: torch.Tensor,  # (B, M, 4|5) px (zero rows for padding)
     mask_gt: torch.Tensor,  # (B, M) bool
     topk: int = 10,
     num_classes: int = 80,
     alpha: float = 0.5,
     beta: float = 6.0,
+    rotated: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Dense padded targets: ``target_labels`` (B, A) (``nc`` for
     background), ``target_bboxes`` (B, A, 4), ``target_scores`` (B, A, nc),
-    ``fg_mask`` (B, A) and ``target_gt_idx`` (B, A)."""
+    ``fg_mask`` (B, A) and ``target_gt_idx`` (B, A).
+
+    ``rotated=True`` is the rotated assigner of the OBB loss: boxes are
+    (..., 5) xywhr, the overlaps probIoU, the candidate gate the anchor
+    centre inside the rotated box."""
     b, a, nc = pd_scores.shape
     m = gt_labels.shape[1]
     gt_labels = gt_labels.long()
     mask_gt = mask_gt.bool()
 
-    valid = anchors_in_gts(anc_points, gt_bboxes) & mask_gt[..., None]  # (B, M, A)
-    overlaps = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :], ciou=True)
+    if rotated:
+        from kuzu_torch.ops.obb import anchors_in_rboxes, probiou
+
+        in_gts = anchors_in_rboxes(anc_points, gt_bboxes)
+        overlaps = probiou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :])
+    else:
+        in_gts = anchors_in_gts(anc_points, gt_bboxes)
+        overlaps = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :], ciou=True)
+    valid = in_gts & mask_gt[..., None]  # (B, M, A)
     overlaps = overlaps.clamp_(min=0.0)
     # scores of each anchor at the GT's class
     cls_idx = gt_labels.clamp(0, nc - 1)
@@ -87,7 +99,8 @@ def task_aligned_assign(
     # one claiming GT per anchor now: its row (0 for background)
     target_gt_idx = mask_pos.to(torch.uint8).argmax(dim=1)  # (B, A)
     target_labels = torch.gather(gt_labels, 1, target_gt_idx)
-    target_bboxes = torch.gather(gt_bboxes, 1, target_gt_idx[..., None].expand(-1, -1, 4))
+    target_bboxes = torch.gather(gt_bboxes, 1, target_gt_idx[..., None].expand(
+        -1, -1, gt_bboxes.shape[-1]))
 
     # normalised target scores
     zero = torch.zeros((), dtype=align.dtype, device=align.device)

@@ -51,10 +51,13 @@ def detection_loss(
     cls_w: float = 0.5,
     dfl_w: float = 1.5,
     topk: int = 10,
+    return_assign: bool = False,
     reg_max: int = REG_MAX,
-) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+):
     """(total, metrics). Anchors come from the maps' own shapes; ``imgsz``
-    is kept for the JAX signature."""
+    is kept for the JAX signature. ``return_assign`` adds a third item, the
+    assignment with ``score_sum``, for the losses that pair each anchor with
+    its matched GT (segmentation, pose)."""
     b = feats[0].shape[0]
     cat = torch.cat([f.reshape(b, -1, f.shape[-1]) for f in feats], dim=1).float()
     pred_dist = cat[..., : 4 * reg_max]
@@ -95,6 +98,8 @@ def detection_loss(
         "dfl_loss": dfl_l.detach(),
         "num_fg": fg.sum().float() / b,
     }
+    if return_assign:
+        return total, metrics, {**assign, "score_sum": score_sum}
     return total, metrics
 
 

@@ -51,7 +51,25 @@ HYP_KEYS = ("mosaic", "fliplr", "flipud", "hsv_h", "hsv_s", "hsv_v", "degrees", 
             "scale", "shear", "perspective", "mixup", "copy_paste", "erasing")
 
 
+def spec_head_kind(spec) -> str:
+    """The head family of a parsed graph spec (classify, obb, pose, segment
+    or detect), as ``kuzu/tasks/detect.py::spec_head_kind`` routes tasks."""
+    if spec.classify:
+        return "classify"
+    if spec.obb:
+        return "obb"
+    if spec.kpt_shape:
+        return "pose"
+    if spec.seg_nm:
+        return "segment"
+    return "detect"
+
+
 class DetectTrainer(BaseTrainer):
+    # the head family the task's loss and validation expect: a model of
+    # another family fails in build_model with a message naming the fix
+    head_kind = "detect"
+
     def build_datasets(self):
         """(train, val) loaders over the ``cfg.data`` folder: the training
         split augmented (``augment``, the ``HYP_KEYS`` hyperparameters,
@@ -76,15 +94,19 @@ class DetectTrainer(BaseTrainer):
                                                max_boxes=max_boxes, augment=False, rect=rect)
         return self.make_loaders(self.train_ds, self.val_ds, spec["nc"], spec["names"])
 
-    def make_loaders(self, train_ds, val_ds, nc: int, names: dict | None = None):
+    def make_loaders(self, train_ds, val_ds, nc: int, names: dict | None = None,
+                     kpt_shape=None):
         """(train, val) loaders over datasets of the ``Dataset`` protocol
         (``image`` uint8 (H, W, 3), ``gt_boxes`` (M, 4) xyxy px,
-        ``gt_labels`` (M,), ``mask_gt`` (M,)), batched as the JAX trainer
-        batches its folder datasets: a dataset with ``rect`` set in batches
-        of its shape buckets (``batch_shape_key``)."""
+        ``gt_labels`` (M,), ``mask_gt`` (M,); the other heads' tasks add
+        their fields), batched as the JAX trainer batches its folder
+        datasets: a dataset with ``rect`` set in batches of its shape
+        buckets (``batch_shape_key``). A pose run records ``kpt_shape``."""
         cfg = self.cfg
         self.train_ds, self.val_ds = train_ds, val_ds
         self.data_spec = {"nc": int(nc), "names": names or {i: str(i) for i in range(nc)}}
+        if kpt_shape:
+            self.data_spec["kpt_shape"] = [int(v) for v in kpt_shape]
         with open(self.save_dir / DATA_SPEC, "w") as f:
             yaml.safe_dump(self.data_spec, f, sort_keys=False, allow_unicode=True)
         batch = int(cfg.get("batch", 16))
@@ -105,10 +127,17 @@ class DetectTrainer(BaseTrainer):
         dtype = torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
         self.imgsz = int(cfg.get("imgsz", 640))
         name = str(cfg.get("model") or "yolov12n")
-        path, scale = resolve_model_spec(name)
-        spec = parse_model_yaml(path, scale=scale, nc=self.data_spec["nc"])
+        spec = self._resolve_model(name)
         if cfg.get("reg_max"):
             spec.reg_max = int(cfg.get("reg_max"))
+        kind = spec_head_kind(spec)
+        if kind != self.head_kind:
+            base = name.split("-")[0]
+            hint = base if self.head_kind == "detect" else f"{base}-{self.head_kind}"
+            raise ValueError(
+                f"model '{name}' has a {kind} head but task "
+                f"'{cfg.get('task', self.head_kind)}' needs a {self.head_kind} "
+                f"head (e.g. model={hint})")
         graph = YoloGraph(spec, dtype=dtype, remat=bool(cfg.get("remat", False)))
         graph.reset_parameters(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
         pre = cfg.get("pretrained")
@@ -126,6 +155,12 @@ class DetectTrainer(BaseTrainer):
         # the validation executor: refilled and refolded from the EMA each time
         self._val_det = YoloDetector(spec, imgsz=self.imgsz, device=self.device)
         return graph.to(self.device)
+
+    def _resolve_model(self, name: str):
+        """The parsed spec of the model ``name`` at the data's ``nc`` (a hook:
+        the pose task takes ``kpt_shape`` from the dataset)."""
+        path, scale = resolve_model_spec(name)
+        return parse_model_yaml(path, scale=scale, nc=self.data_spec["nc"])
 
     def loss_fn(self, model: YoloGraph, batch: dict,
                 rng: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
@@ -235,7 +270,10 @@ def _load_data_spec(run_dir: Path, train_cfg: Config) -> dict:
     if isinstance(names, list):
         names = dict(enumerate(names))
     names = {int(k): v for k, v in names.items()}
-    return {"nc": int(d.get("nc", len(names) or 1)), "names": names}
+    out = {"nc": int(d.get("nc", len(names) or 1)), "names": names}
+    if d.get("kpt_shape"):
+        out["kpt_shape"] = list(d["kpt_shape"])
+    return out
 
 
 class DetectPredictor:
@@ -281,12 +319,17 @@ class DetectPredictor:
         spec = _load_data_spec(run_dir, train_cfg)
         self.names = spec["names"]
         self.detector = YoloDetector(
-            str(train_cfg.get("model") or "yolov12n"), nc=spec["nc"], imgsz=self.imgsz,
-            device=self.device,
+            self._resolve_arch(str(train_cfg.get("model") or "yolov12n"), spec),
+            nc=spec["nc"], imgsz=self.imgsz, device=self.device,
             reg_max=int(train_cfg.get("reg_max")) if train_cfg.get("reg_max") else None)
         self.detector.load_state_dict(
             load_inference_params(CheckpointManager(run_dir / "weights"), train_cfg=train_cfg))
         self.ready = True
+
+    def _resolve_arch(self, name: str, data_spec: dict):
+        """The architecture to build (a hook, as ``DetectTrainer.
+        _resolve_model``: the pose task patches ``kpt_shape``)."""
+        return name
 
     def __call__(self, source, max_frames: int | None = None) -> list[Results]:
         """Predict over any source of ``resolve_source``, ``cfg.batch`` frames

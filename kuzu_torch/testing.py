@@ -279,6 +279,108 @@ def write_yolo_folder(root, counts: dict, hw=(120, 160), n_boxes=(3, 12), size=(
     return root / "dataset.yaml"
 
 
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+
+
+def head_sample(rng: np.random.Generator, task: str, hw: tuple[int, int], n_inst: tuple[int, int],
+                nc: int = 1, kpt_shape: tuple[int, int] = (17, 3)) -> tuple[np.ndarray, list[str]]:
+    """One seeded page of (H, W) for the ``segment``, ``pose`` or ``obb``
+    task and its label rows (normalised): dark polygons of 3-8 vertices
+    about a centre (some concave; segment), glyph boxes with ``kpt_shape``
+    keypoints inside them, visibility 0-2 (pose), or rotated rectangles at
+    any angle (obb), each drawn with ``image_io.fill_poly``."""
+    from kuzu_torch.data.image_io import fill_poly
+
+    h, w = hw
+    img = rng.integers(215, 250, (h, w, 3), dtype=np.uint8)
+    k = int(rng.integers(n_inst[0], n_inst[1] + 1))
+    rows = []
+    for _ in range(k):
+        c = int(rng.integers(0, nc))
+        r = rng.uniform(0.06, 0.2) * min(h, w)
+        cx, cy = rng.uniform(r, w - r), rng.uniform(r, h - r)
+        if task == "obb":
+            bw, bh, th = 2 * r, rng.uniform(0.4, 1.0) * r, rng.uniform(-np.pi, np.pi)
+            u = np.array([np.cos(th), np.sin(th)]) * bw / 2
+            v = np.array([-np.sin(th), np.cos(th)]) * bh / 2
+            pts = np.stack([-u - v, u - v, u + v, -u + v]) + [cx, cy]
+        elif task == "segment":
+            n = int(rng.integers(3, 9))
+            ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+            rad = r * rng.uniform(0.4, 1.0, n)
+            pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
+        else:
+            pts = np.array([[cx - r, cy - r], [cx + r, cy - r], [cx + r, cy + r], [cx - r, cy + r]])
+        fill_poly(img[..., 0], [pts.astype(np.int32)], int(rng.integers(10, 90)))
+        img[..., 1] = np.minimum(img[..., 1], img[..., 0])
+        if task == "pose":
+            kk, d = kpt_shape
+            kp = np.stack([rng.uniform(cx - r, cx + r, kk) / w, rng.uniform(cy - r, cy + r, kk) / h],
+                          1)
+            vals = [f"{c} {cx / w:.6f} {cy / h:.6f} {2 * r / w:.6f} {2 * r / h:.6f}"]
+            for j in range(kk):
+                vals.append(f"{kp[j, 0]:.6f} {kp[j, 1]:.6f}"
+                            + (f" {int(rng.integers(0, 3))}" if d == 3 else ""))
+            rows.append(" ".join(vals))
+        else:
+            rows.append(f"{c} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in pts))
+    return img, rows
+
+
+def write_head_folder(root, task: str, counts: dict, hw=(120, 160), n_inst=(2, 6), nc: int = 1,
+                      seed: int = 0, kpt_shape: tuple[int, int] = (17, 3)):
+    """A seeded YOLO folder of :func:`head_sample` pages for ``task``
+    (``images/<split>/im{i:03d}.png``, ``labels/<split>/im{i:03d}.txt``,
+    ``dataset.yaml``; a pose folder's yaml carries ``kpt_shape`` and
+    ``flip_idx``). Returns the yaml's path."""
+    from pathlib import Path
+
+    import yaml
+
+    from kuzu_torch.data.image_io import write_png
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, n in counts.items():
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img, rows = head_sample(rng, task, hw, n_inst, nc, kpt_shape)
+            write_png(root / "images" / split / f"im{i:03d}.png", img)
+            (root / "labels" / split / f"im{i:03d}.txt").write_text("\n".join(rows) + "\n")
+    spec = {"path": ".", "train": "images/train", "val": "images/val",
+            "names": {i: f"c{i}" for i in range(nc)}, "nc": nc}
+    if task == "pose":
+        kk = kpt_shape[0]
+        spec["kpt_shape"] = list(kpt_shape)
+        spec["flip_idx"] = COCO_FLIP_IDX if kk == 17 else list(range(kk))[::-1]
+    (root / "dataset.yaml").write_text(yaml.safe_dump(spec))
+    return root / "dataset.yaml"
+
+
+def write_glyph_folder(root, splits: dict, n_classes: int = 4, hw=(40, 52), seed: int = 0):
+    """A seeded glyph folder, ``root/<split>/c{j}/g{i:03d}.png`` (``splits``
+    maps a split to its images a class), each class a dark block at its own
+    place and gray on a light page, so that a classifier can learn them."""
+    from pathlib import Path
+
+    from kuzu_torch.data.image_io import write_png
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    for split, n in splits.items():
+        for j in range(n_classes):
+            d = root / split / f"c{j}"
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                img = rng.integers(200, 250, (h, w, 3), dtype=np.uint8)
+                y0 = (j * h // (2 * n_classes) + int(rng.integers(0, 3))) % (h // 2)
+                img[y0:y0 + h // 2, w // 4:3 * w // 4] = 20 + 40 * (j % 4)
+                write_png(d / f"g{i:03d}.png", img)
+    return root
+
+
 def line_crop(rng: np.random.Generator, text_ids, hw: tuple[int, int]) -> np.ndarray:
     """A light column crop of (H, W) with one dark block per character id,
     top to bottom (the gray level and width from the id)."""

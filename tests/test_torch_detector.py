@@ -37,9 +37,12 @@ def slice_run(models):
 
     jdet, variables, tdet = models
     imgs = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
-    jmaps = run_graph(jdet.spec, variables, jnp.asarray(imgs), interpret=True)
-    jpred = jdet.decode(jmaps)
-    jdets = j_nms(jpred, conf_thres=CONF)
+    def jax_slice(v, x):  # one compile of the whole JAX side
+        maps = run_graph(jdet.spec, v, x, interpret=True)
+        pred = jdet.decode(maps)
+        return maps, pred, j_nms(pred, conf_thres=CONF)
+
+    jmaps, jpred, jdets = jax.jit(jax_slice)(variables, jnp.asarray(imgs))
 
     counters = (t_fa.area_attention, t_fb.fused_ablock, t_nk.batched_suppress)
     for c in counters:
@@ -53,27 +56,34 @@ def slice_run(models):
 
 
 def test_bridge_consumes_every_leaf(models):
+    """The flax graph's own init tree (its shapes from ``eval_shape``, seeded
+    values) loads into a fresh port graph, each leaf in its layout; a stray
+    leaf or a missing one raises."""
     from kuzu_torch.bridge import from_flax
     from kuzu_torch.models.yolo.graph import YoloGraph
 
     jdet, variables, tdet = models
-    tree = numpy_tree(variables)
-    n_leaves = len(jax.tree.leaves(variables))
+    shapes = jax.eval_shape(lambda: jdet.module.init(
+        jax.random.key(0), jnp.zeros((1, 128, 128, 3)), train=False))
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    n_leaves = len(jax.tree.leaves(tree))
     n_port = sum(1 for _ in tdet.graph.parameters()) + 2 * sum(
         1 for m in tdet.graph.modules() if isinstance(m, torch.nn.BatchNorm2d))
-    assert n_leaves == n_port
-    extra = numpy_tree(variables)
+    assert n_leaves == n_port == len(jax.tree.leaves(variables))
+    extra = numpy_tree(tree)
     extra["params"]["n0_Conv"]["stray"] = np.zeros(3, np.float32)
     with pytest.raises(ValueError, match="stray"):
         from_flax(YoloGraph(tdet.spec), extra)
-    short = numpy_tree(variables)
+    short = numpy_tree(tree)
     del short["batch_stats"]["n2_C3k2"]["cv1"]["bn"]["var"]
     with pytest.raises(ValueError, match="n2_C3k2/cv1/bn/var"):
         from_flax(YoloGraph(tdet.spec), short)
     # the loaded weights are the flax ones, transposed HWIO -> OIHW
+    graph = from_flax(YoloGraph(tdet.spec), numpy_tree(tree))
     k = tree["params"]["n1_Conv"]["conv"]["kernel"]
-    np.testing.assert_array_equal(
-        tdet.graph.n1_Conv.conv.weight.detach().numpy(), k.transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(graph.n1_Conv.conv.weight.detach().numpy(),
+                                  k.transpose(3, 2, 0, 1))
 
 
 @pytest.mark.parametrize("name", ["yolov12n", "yolov12s", "yolov12-p2n"])

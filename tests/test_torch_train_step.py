@@ -211,6 +211,12 @@ def check_loss(pair: dict,
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
 
 
+def flax_layout(kernel: np.ndarray) -> np.ndarray:
+    """A port kernel in flax's layout: a conv's OIHW as HWIO, a Dense's
+    (out, in) as (in, out)."""
+    return kernel.transpose(2, 3, 1, 0) if kernel.ndim == 4 else kernel.T
+
+
 def gradient_leaves(pair: dict, jtree):
     """(path, the port's gradient leaf in the flax layout, ``jtree``'s leaf)
     for every parameter."""
@@ -220,8 +226,31 @@ def gradient_leaves(pair: dict, jtree):
             continue
         got = tg[names[id(tensor)]].numpy()
         if is_kernel:
-            got = got.transpose(2, 3, 1, 0)
+            got = flax_layout(got)
         yield path, got, _leaf(jtree, path[1:])
+
+
+_EXACT: dict = {}  # arch -> the jitted f64 loss and gradient, compiled once a process
+
+
+def _exact_step(arch: str, strides: tuple):
+    """The f64 ``value_and_grad`` of ``arch``'s loss as a jitted function of
+    (params, batch_stats, images, labels, boxes, mask): the weights and the
+    batch are its arguments, so every pair of a process shares one compile."""
+    from kuzu.models.yolo.detector import YoloDetector as JaxDetector
+    from kuzu.ops.detect_loss import detection_loss, e2e_detection_loss
+
+    if arch not in _EXACT:
+        jdet = JaxDetector(arch, nc=3, dtype=jnp.float64, imgsz=128)
+        j_loss = e2e_detection_loss if jdet.spec.end2end else detection_loss
+
+        def loss(params, stats, images, labels, boxes, mask):
+            feats, _ = jdet.apply({"params": params, "batch_stats": stats}, images, train=True,
+                                  mutable=["batch_stats"])
+            return j_loss(feats, labels, boxes, mask, nc=3, imgsz=128, strides=strides)
+
+        _EXACT[arch] = jax.jit(jax.value_and_grad(loss, has_aux=True))
+    return _EXACT[arch]
 
 
 def exact_gradients(pair: dict, with_metrics: bool = False):
@@ -229,24 +258,13 @@ def exact_gradients(pair: dict, with_metrics: bool = False):
     call alone), from the pair's initial weights and batch: the exact
     function both f32 sides approximate; ``with_metrics``: (its loss terms
     as floats, the gradients)."""
-    from kuzu.models.yolo.detector import YoloDetector as JaxDetector
-    from kuzu.ops.detect_loss import detection_loss, e2e_detection_loss
-
     b = pair["batch"]
     with jax.enable_x64(True):
         f64 = lambda t: jax.tree.map(lambda a: jnp.asarray(np.asarray(a), jnp.float64), t)
         variables = f64(pair["variables"])
-        jdet = JaxDetector(pair["arch"], nc=3, dtype=jnp.float64, imgsz=128)
-        j_loss = e2e_detection_loss if jdet.spec.end2end else detection_loss
-
-        def loss(params):
-            feats, _ = jdet.apply({"params": params, "batch_stats": variables["batch_stats"]},
-                                  jnp.asarray(b["image"]), train=True, mutable=["batch_stats"])
-            return j_loss(feats, jnp.asarray(b["gt_labels"]), f64(b["gt_boxes"]),
-                          jnp.asarray(b["mask_gt"]), nc=3, imgsz=128, strides=pair["strides"])
-
-        (total, metrics), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-            variables["params"])
+        (total, metrics), grads = _exact_step(pair["arch"], pair["strides"])(
+            variables["params"], variables["batch_stats"], jnp.asarray(b["image"]),
+            jnp.asarray(b["gt_labels"]), f64(b["gt_boxes"]), jnp.asarray(b["mask_gt"]))
         grads = numpy_tree(grads)
         metrics = {"loss": float(total), **{k: float(v) for k, v in metrics.items()}}
         return (metrics, grads) if with_metrics else grads
@@ -306,7 +324,7 @@ def check_update(pair: dict, which: str) -> None:
             continue
         got = (tensor if which == "params" else tstate.ema[names[id(tensor)]]).detach().numpy()
         if is_kernel:
-            got = got.transpose(2, 3, 1, 0)
+            got = flax_layout(got)
         np.testing.assert_allclose(got, _leaf(jtree, path[1:]), rtol=1e-5, atol=1e-6,
                                    err_msg="/".join(path))
 

@@ -69,16 +69,15 @@ def flax_variables(model, sd: dict | None = None,
 
 def jax_and_port_detector(name: str, nc: int = 3, imgsz: int = 128, seed: int = 0):
     """(JAX YoloDetector, its variables, port YoloDetector on the CPU with the
-    same weights)."""
+    same weights): the port's seeded weights, handed to JAX through
+    :func:`flax_variables` (no JAX init to compile)."""
     from kuzu.models.yolo.detector import YoloDetector as JaxDetector
 
     from kuzu_torch.models.yolo.detector import YoloDetector
 
     jdet = JaxDetector(name, nc=nc, dtype=jnp.bfloat16, imgsz=imgsz)
-    variables = jdet.init(jax.random.key(seed), imgsz=imgsz)
-    tdet = YoloDetector(name, nc=nc, imgsz=imgsz, device="cpu")
-    tdet.load_flax(numpy_tree(variables))
-    return jdet, variables, tdet
+    tdet = YoloDetector(name, nc=nc, imgsz=imgsz, device="cpu").init(seed)
+    return jdet, flax_variables(tdet.graph), tdet
 
 
 def assert_maps_close(ref, out) -> None:
