@@ -149,8 +149,9 @@ Phases, each raising on failure:
    (characters inside each column crop, the CRNN on [1024, 64] crops) and
    ``process_pages`` over 4 pages of two shapes (the host path): launches,
    times, a profiled call's stages, card against CPU by phase 8a's criteria
-   (the detectors' f32 and f64 forwards, 8 columns a page, the character
-   detector at depth 0.33 to keep the CPU's runs short); (d) ``pack_yc`` /
+   (the detectors' f32 forwards, and f64 for ``process_page``; 8 columns a
+   page, the character detector at depth 0.33 to keep the CPU's runs
+   short; the f32 runs also reported against the card's f64 run); (d) ``pack_yc`` /
    ``unpack_yc`` card against CPU on 8b's 16 pages and the ``yc``
    cascade's columns and texts beside the RGB cascade's; (e) the ship-once
    route against the host path on 4 of those pages (reported, not held);
@@ -193,8 +194,28 @@ Phases, each raising on failure:
    step, peak memory, finite losses, the run dir's predictor equal to the
    EMA weights. ``python3 chip_smoke.py 16`` runs the build and phase 16
    alone (no result line);
-17. the ``kernels`` JSON line, then the card's name and power limit;
-18. last line: ``{"ok": true, "device": {...}}``.
+17. (after 16) YOLO-NAS, the TrOCR's other encoders, SimpleViT and the
+   open ends: (a) YOLO-NAS-L (channels 64-768, nc 80, seeded): f32 maps
+   card against CPU at 320 b2 at torch's default TF32 setting, the card's
+   fused forward against its unfused one, the NMS of one decoded tensor
+   on both devices; ``NASPredictor`` at 640 b8 f32 (the re-parameterised
+   forward, decode, NMS on K1): ms/img, device ms, idle share, K1's share,
+   peak memory; ``NASTrainer`` at 640 b8 in the config's dtype (bf16) on
+   synthetic pages: launches, finite losses, ms/step, a profiled step,
+   peak memory, the validation through K1; (b) the TrOCR with the
+   ``unet`` and the ``csa`` encoder at the production widths on 8 crops
+   of [1024, 64], f32: the memory card against CPU, the greedy tokens
+   identical, encode and greedy ms; (c) SimpleViT at 128 px b64, one
+   channel, 4,783 classes, f32 through ``ClassifyPredictor.probs``:
+   logits card against CPU, top-1, ms/img, idle share; (d) ``nms_padded``
+   (K1) and ``letterbox`` / ``resize_keep_aspect`` card against CPU.
+   ``python3 chip_smoke.py 17`` runs the build and phase 17 alone;
+18. the ``kernels`` JSON line, then the card's name and power limit;
+19. last line: ``{"ok": true, "device": {...}}``.
+
+Phase 3's plain references run with TF32 off for cuBLAS and cuDNN
+(``full_f32_references``); every later phase runs at torch's defaults,
+the setting a user of the library gets.
 
 It exits non-zero, printing no result, where CUDA is unavailable.
 """
@@ -407,15 +428,33 @@ def nms_cases(dev) -> dict:
     return cases
 
 
+@contextlib.contextmanager
+def full_f32_references():
+    """TF32 off for cuBLAS and cuDNN inside the block, the previous settings
+    restored after it: phase 3's plain references in full f32. Every later
+    phase runs at torch's defaults, the setting a user of the library gets
+    (its f32 models switch TF32 off themselves, ``f32_products``)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def kernel_phase(dev) -> dict:
+    """Phase 3 inside :func:`full_f32_references`."""
+    with full_f32_references():
+        print("phase 3's plain references run with allow_tf32=False for matmul and cuDNN "
+              "(full f32 products); later phases at torch's defaults")
+        return _kernel_checks(dev)
+
+
+def _kernel_checks(dev) -> dict:
     from kuzu_torch.ops.flash_attention import area_attention, area_attention_plain
     from kuzu_torch.ops.nms_kernel import batched_suppress, suppress_reference
     from kuzu_torch.testing import ATTN_TOL, attention_over
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("plain references run with allow_tf32=False for matmul and cuDNN "
-          "(full f32 products)")
     res = {}
 
     # K1: greedy NMS, B=8, K=2048 (the kernels line), then the cases that
@@ -2397,7 +2436,8 @@ TROCR_TOL = 1e-4
 
 
 def seeded_trocr(dev, vocab: int, image_size=CROP, enc_depth: int = 6, dec_depth: int = 4,
-                 max_len: int = 128, seed: int = 4, decoding: bool = False):
+                 max_len: int = 128, seed: int = 4, decoding: bool = False,
+                 encoder_type: str = "vit"):
     """The production TrOCR (encoder 384 wide, 6 heads; decoder 256 wide,
     8 heads; patch 16) at the depths given, seeded (``flax_init_``, drawn on
     the CPU). With ``decoding``, the weights the parity tests shape for
@@ -2408,7 +2448,8 @@ def seeded_trocr(dev, vocab: int, image_size=CROP, enc_depth: int = 6, dec_depth
     from kuzu_torch.models.trocr import TrOCR
 
     model = flax_init_(TrOCR(vocab, image_size, enc_depth=enc_depth, dec_depth=dec_depth,
-                             max_len=max_len), torch.Generator().manual_seed(seed))
+                             max_len=max_len, encoder_type=encoder_type),
+                       torch.Generator().manual_seed(seed))
     if decoding:
         dec = model.decoder
         with torch.no_grad():
@@ -4308,18 +4349,20 @@ def _reference_pipeline(d, col, char, crnn, tok, dtype, col_max_det: int):
 
 
 def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.double() - b).abs().max() / b.abs().max())
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
 
 
 def _map_error(p32, p64, image) -> dict:
-    """Each detector's raw maps in f32 against f64 on one device: max |d| /
-    max |f64| over the maps, the column detector on the page's 1280
-    letterbox (and at the output of each of its graph's nodes, where the
-    two part), the character detector on its first 640 tile."""
+    """Each detector's raw maps in f32 (on ``p32``'s device) against f64
+    (on ``p64``'s): max |d| / max |f64| over the maps, the column detector
+    on the page's 1280 letterbox (and at the output of each of its graph's
+    nodes, where the two part), the character detector on its first 640
+    tile."""
     from kuzu_torch.data.yolo_dataset import letterbox_np
     from kuzu_torch.pipeline.tiling import tile_image
 
-    page = torch.from_numpy(image).to(p32.device)
+    page = torch.from_numpy(image)
     inputs = dict(columns=letterbox_np(page, PAGE)[0][None],
                   characters=tile_image(page, grid=2, overlap=0.15, tile_size=CHAR_IMGSZ)[0][:1])
     nodes: dict[str, dict] = {}
@@ -4333,7 +4376,8 @@ def _map_error(p32, p64, image) -> dict:
         for key, a, b in (("columns", p32.column_det, p64.column_det),
                           ("characters", p32.char_det, p64.char_det)):
             with torch.no_grad():
-                m32, m64 = a.detector.infer(inputs[key]), b.detector.infer(inputs[key])
+                m32 = a.detector.infer(inputs[key].to(p32.device))
+                m64 = b.detector.infer(inputs[key].to(p64.device))
             out[key] = max(_rel_err(x, y) for x, y in zip(m32, m64))
     finally:
         for h in hooks:
@@ -4355,12 +4399,14 @@ def flat_cascade(dev, root, col, char, crnn, tok, launches: dict) -> dict:
     Card against CPU by phase 8a's criteria (equal column counts, columns
     matched >= 0.9 both ways, texts of matched columns >= 0.95, end to end)
     on the same weights, with the detectors' unfolded graphs (eval mode)
-    and the CRNN in f32, as phase 8 compares, and in f64 on both devices:
-    ``process_page`` with ``CPU_COL_MAX_DET`` columns, and the host path on
-    2 pages of the two shapes with ``col_refine`` on (the default) and
-    ``COL_MAX_DET`` columns. Each device's f32 run is also reported against
-    the CPU's f64 run, with each device's f32 map error (per node for the
-    column detector): near-equal candidates in NMS and the snapping of
+    and the CRNN in f32, as phase 8 compares: ``process_page`` with
+    ``CPU_COL_MAX_DET`` columns in f32 and in f64 on both devices, and the
+    host path on 2 pages of the two shapes with ``col_refine`` on (the
+    default) and ``COL_MAX_DET`` columns in f32 (its f64 run on the card
+    alone: the CPU's f64 host path, the longest of its runs, is cut). Each device's
+    f32 host-path run is also reported against the card's f64 run, with
+    each device's f32 map error against the card's f64 maps (per node for
+    the column detector): near-equal candidates in NMS and the snapping of
     columns to their characters turn rounding into moved columns, so these
     say how far f32 is from the exact answer on each side."""
     from kuzu_torch.data.image_io import imread_rgb
@@ -4458,8 +4504,8 @@ def flat_cascade(dev, root, col, char, crnn, tok, launches: dict) -> dict:
         flat_cmp[name] = _compare_results(one[dev], one["cpu"],
                                           f"process_page (tile_grid=0), {name} forwards")
     del flat
-    host = {(d, name): _reference_pipeline(d, col, char, crnn, tok, dt, COL_MAX_DET)
-            for d in (dev, "cpu") for name, dt in dtypes.items()}
+    host = {(d, name): _reference_pipeline(d, col, char, crnn, tok, dtypes[name], COL_MAX_DET)
+            for d, name in ((dev, "f64"), (dev, "f32"), ("cpu", "f32"))}
     two = {}
     for key, p in host.items():
         p.tile_grid = 2
@@ -4467,16 +4513,16 @@ def flat_cascade(dev, root, col, char, crnn, tok, launches: dict) -> dict:
                          lambda p=p: p.process_pages(mixed[:2]))
     print("  13c card-vs-CPU runs, seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()))
-    host_cmp = {name: _compare_results(
-        two[dev, name], two["cpu", name],
-        f"process_pages host path (col_refine on), 2 shapes, {name} forwards") for name in dtypes}
-    host_cmp["f32 against the CPU's f64 run"] = {
-        side: _agreement(two["cpu", "f64"], two[d, "f32"]) for side, d in (("card", dev),
-                                                                         ("CPU", "cpu"))}
-    for side, a in host_cmp["f32 against the CPU's f64 run"].items():
-        print(f"    {side} f32 against the CPU's f64 run (reported): {_agreement_line(a)}")
+    host_cmp = {"f32": _compare_results(
+        two[dev, "f32"], two["cpu", "f32"],
+        "process_pages host path (col_refine on), 2 shapes, f32 forwards")}
+    host_cmp["f32 against the card's f64 run"] = {
+        side: _agreement(two[dev, "f64"], two[d, "f32"]) for side, d in (("card", dev),
+                                                                       ("CPU", "cpu"))}
+    for side, a in host_cmp["f32 against the card's f64 run"].items():
+        print(f"    {side} f32 against the card's f64 run (reported): {_agreement_line(a)}")
     image = imread_rgb(mixed[0])
-    map_err = {side: _map_error(host[d, "f32"], host[d, "f64"], image)
+    map_err = {side: _map_error(host[d, "f32"], host[dev, "f64"], image)
                for side, d in (("card", dev), ("CPU", "cpu"))}
     print(f"    detector maps f32 against f64 on each device, max |d| / max |f64|: columns "
           f"card {map_err['card']['columns']:.3e}, CPU {map_err['CPU']['columns']:.3e}; "
@@ -5059,6 +5105,7 @@ def heads_full_width(dev, launches: dict) -> dict:
     classify: ``ClassifyPredictor.probs`` of the module tree): launches,
     finite outputs, ms/img (median of 10), device ms, idle share and K1's
     device ms of one profiled call, peak memory."""
+    from kuzu_torch.core.config import Config
     from kuzu_torch.models.yolo.detector import YoloDetector
     from kuzu_torch.tasks.classify import ClassifyPredictor, build_classifier
     from kuzu_torch.tasks.obb import OBBPredictor
@@ -5071,7 +5118,7 @@ def heads_full_width(dev, launches: dict) -> dict:
             0, 256, (n, sz, sz, 3), dtype=np.uint8)).to(dev)
         if task == "classify":
             pred = ClassifyPredictor.__new__(ClassifyPredictor)
-            pred.model = build_classifier(name, 1000)
+            pred.model = build_classifier(Config(model=name), 1000)
             pred.model.reset_parameters(torch.Generator().manual_seed(0))
             pred.model.to(dev).eval()
             pred.ready, pred.device = True, dev
@@ -5147,7 +5194,7 @@ def heads_train_run(dev, task: str, name: str, sz: int, n: int, root, launches: 
     peak memory; the run dir in its predictor against the EMA weights in
     memory: equal outputs."""
     from kuzu_torch.api.model import Model
-    from kuzu_torch.core.config import load_config
+    from kuzu_torch.core.config import Config, load_config
     from kuzu_torch.models.yolo.detector import YoloDetector
     from kuzu_torch.tasks.classify import ClassifyPredictor, build_classifier
     from kuzu_torch.tasks.obb import OBBPredictor
@@ -5198,7 +5245,7 @@ def heads_train_run(dev, task: str, name: str, sz: int, n: int, root, launches: 
     cfg = load_config(overrides={"model": str(run_dir), "conf": CONF})
     if task == "classify":  # the predictor runs f32, as JAX's
         loaded = ClassifyPredictor(cfg, device=dev)
-        mem = build_classifier(name, trainer.train_ds.num_classes).to(dev).eval()
+        mem = build_classifier(Config(model=name), trainer.train_ds.num_classes).to(dev).eval()
         mem.load_state_dict(trainer.state.ema_state_dict())
         with torch.no_grad():
             a, b = loaded.probs(imgs), torch.softmax(mem(imgs), -1)
@@ -5234,6 +5281,321 @@ def heads_phase(dev, launches: dict) -> dict:
                            for task, name, sz, n in HEADS_FULL}
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 16: {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------------ phase 17
+
+NAS_FULL = ("yolo_nas_l", 640, 8)  # 17a: the full width (SIZES["l"], channels 64-768)
+NAS_CMP = (320, 2)  # 17a's card-vs-CPU batch (size, images): the CPU runs the f32 forwards
+NAS_NC = 80  # the COCO classes of the reference's pretrained NAS models
+NAS_WARM, NAS_TIMED = 2, 4  # 17a's training steps
+NAS_F32_TOL = 1e-4  # 17a: f32 maps card vs CPU and fused vs unfused, relative to the largest
+ENC_CROPS = 8  # 17b's crops at the production size CROP
+ENC_TOL = 1e-4  # 17b: f32 encoder memory card vs CPU, relative to the largest
+VIT_BATCH = 64  # 17c: glyphs at 128 px, one channel, VOCAB classes
+VIT_TOL = 1e-4  # 17c: f32 logits card vs CPU, relative to the largest
+LETTERBOX_TOL = 1e-6  # 17d: canvases card vs CPU (pixels in [0, 1])
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|, on the CPU."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def nas_card_vs_cpu(dev, det_gpu, launches: dict) -> dict:
+    """17a, first part: YOLO-NAS-L's seeded weights at NAS_CMP on the card and
+    on the CPU, f32 at torch's default TF32 setting (the model's forward
+    runs inside ``f32_products``): the fused maps within NAS_F32_TOL, the
+    card's fused forward against its unfused one within NAS_F32_TOL, and the
+    selection of one decoded tensor (the CPU's) identical on both devices
+    (K1 against the plain sweep)."""
+    from kuzu_torch.models.nas import NASDetector
+
+    cpu = NASDetector(NAS_FULL[0], nc=NAS_NC, imgsz=NAS_FULL[1], device="cpu")
+    cpu.load_state_dict(det_gpu.graph.state_dict())
+    sz, n = NAS_CMP
+    x = torch.from_numpy(np.random.default_rng(17).integers(0, 256, (n, sz, sz, 3),
+                                                            dtype=np.uint8))
+    tf32 = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    zero_counts()
+    g = det_gpu.infer(x)
+    torch.cuda.synchronize()
+    require(launch_counts() == want(), "17a: the NAS forward launches no kernel")
+    t0 = time.perf_counter()
+    c = cpu.infer(x)
+    cpu_s = time.perf_counter() - t0
+    err = max(_rel(a, b) for a, b in zip(g, c))
+    fuse_err = max(_rel(a, b) for a, b in zip(g, det_gpu.apply(x)))
+    pred = cpu.decode(c)
+    zero_counts()
+    sg = det_gpu.select(pred.to(dev), CONF, 0.7, 300)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    sc = cpu.select(pred, CONF, 0.7, 300)
+    same = all(torch.equal(sg[k].cpu(), sc[k]) for k in sc)
+    nvalid = sc["valid"].sum(1).tolist()
+    print(f"17a {NAS_FULL[0]}@{sz} b{n} f32 card vs CPU (cuDNN allow_tf32 {tf32[0]}, matmul "
+          f"precision {tf32[1]}: torch's defaults; CPU forward {cpu_s:.1f} s): fused maps max "
+          f"|d| / max |CPU| {err:.2e} (<= {NAS_F32_TOL}); card fused vs unfused {fuse_err:.2e} "
+          f"(<= {NAS_F32_TOL}); NMS of the CPU's decode: keeps identical {same}, valid "
+          f"{nvalid}, launches {counts}")
+    require(err <= NAS_F32_TOL and fuse_err <= NAS_F32_TOL, "17a NAS maps card vs CPU, fused")
+    require(same and min(nvalid) > 0 and counts == want(nms=1), "17a NAS keeps card vs CPU")
+    for k, v in counts.items():
+        launches[k] += v
+    return dict(map_err=err, fused_vs_unfused=fuse_err, keeps_equal=same, valid=nvalid,
+                cpu_s=cpu_s, default_tf32=list(tf32))
+
+
+def nas_full_width(dev, det, launches: dict) -> dict:
+    """17a: ``NASPredictor`` over the seeded YOLO-NAS-L at 640, batch 8, f32
+    (the predictor's, as JAX's): the re-parameterised forward, the decode
+    and NMS on K1; launches, finite detections, ms/img, device ms, idle
+    share, K1's device ms, peak memory."""
+    from kuzu_torch.tasks.nas import NASPredictor
+
+    name, sz, n = NAS_FULL
+    pred = NASPredictor.from_detector(det, conf=CONF, iou=0.7, max_det=300)
+    imgs = torch.from_numpy(np.random.default_rng(18).integers(
+        0, 256, (n, sz, sz, 3), dtype=np.uint8)).to(dev)
+    run = lambda: pred._fwd(imgs)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    zero_counts()
+    res = run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(counts == want(nms=1), f"17a {name} launch counts {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    valid = res["valid"].sum(1).tolist()
+    require(min(valid) > 0 and bool(torch.isfinite(res["boxes"]).all()),
+            "17a: finite detections in every image")
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(run, reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"17a {name}@{sz} b{n} f32 NASPredictor: {det.param_count()} params, launches "
+          f"{counts}; valid per image {valid}; {ms:.3f} ms/batch = {ms / n:.4f} ms/img "
+          f"(median of 10), peak memory {peak:.2f} GiB")
+    bd = device_breakdown(run)
+    k1_ms = bd["groups_ms"].get("K1 nms", 0.0)
+    print(f"  K1: {k1_ms:.4f} ms of {bd['busy_ms']:.3f} ms device")
+    return dict(ms_per_img=ms / n, ms_per_batch=ms, device_ms=bd["busy_ms"],
+                idle_share=bd["idle_share"], k1_device_ms=k1_ms, peak_gib=peak,
+                params=det.param_count(), breakdown=bd)
+
+
+def nas_train_run(dev, launches: dict) -> dict:
+    """17a: ``NASTrainer`` at 640, batch 8, in the trainer's default dtype
+    (the config's bfloat16), NAS_NC classes, over the synthetic character
+    pages: NAS_WARM + NAS_TIMED steps and one validation batch (the
+    re-parameterised forward and NMS on K1); launches per step (none) and
+    in the validation (K1 once), finite losses, ms/step, a profiled step,
+    peak memory."""
+    import tempfile
+
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.tasks.detect import trainer_for
+    from kuzu_torch.tasks.nas import NASTrainer
+    from kuzu_torch.testing import SyntheticDetectionDataset
+
+    name, sz, n = NAS_FULL
+    steps = NAS_WARM + NAS_TIMED
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(overrides=dict(model=name, task="nas", imgsz=sz, batch=n, epochs=1,
+                                         workers=2, project=tmp, name="nas", exist_ok=True))
+        train_ds = SyntheticDetectionDataset(n * steps, sz, nc=NAS_NC, seed=0)
+        val_ds = SyntheticDetectionDataset(n, sz, nc=NAS_NC, seed=1)
+        trainer = trainer_for((train_ds, val_ds, NAS_NC), cls=NASTrainer)(cfg, device=dev)
+        rec = StepRecorder()
+        for ev, fn in (("on_train_start", rec.start), ("on_step_end", rec.step),
+                       ("on_val_start", rec.val_start), ("on_val_end", rec.val_end)):
+            trainer.callbacks.add(ev, fn)
+        final = trainer.train()
+        require(len(rec.counts) == steps and all(c == want() for c in rec.counts),
+                f"17a NAS per-step launches {rec.counts}")
+        require(rec.val_counts == want(nms=1), f"17a NAS validation launches {rec.val_counts}")
+        for k, v in rec.val_counts.items():
+            launches[k] += v
+        losses = [float(m["loss"]) for m in rec.metrics]
+        require(all(np.isfinite(losses)), f"17a NAS finite losses {losses}")
+        times = [a.elapsed_time(b) for a, b in zip(rec.events[:-1], rec.events[1:])]
+        ms = statistics.median(times[NAS_WARM:])
+        dtype = str(cfg.get("dtype"))
+        print(f"17a {name}@{sz} b{n} {dtype} NASTrainer: losses "
+              f"{[round(x, 3) for x in losses]}; {ms:.3f} ms/step (median of {NAS_TIMED} after "
+              f"{NAS_WARM}; steps {[round(t, 2) for t in times]}), peak memory "
+              f"{rec.peak / 2**30:.2f} GiB; validation launches {rec.val_counts}, final {final}")
+        r = dict(dtype=dtype, ms_per_step=ms, step_ms=times, losses=losses,
+                 peak_gib=rec.peak / 2**30, val_launches=rec.val_counts)
+        r["breakdown"] = train_step_breakdown(trainer, train_ds, n)
+        r["device_ms"], r["idle_share"] = r["breakdown"]["busy_ms"], r["breakdown"]["idle_share"]
+        del trainer
+    torch.cuda.empty_cache()
+    return r
+
+
+def block_crops(n: int, hw=CROP, seed: int = 0) -> torch.Tensor:
+    """(n, H, W, 3) uint8 crops: a light page with 8-24 dark blocks of random
+    place, size and colour, so that the encoders' memories and the decoded
+    tokens depend on the crop."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    out = np.full((n, h, w, 3), 235, np.uint8)
+    for i in range(n):
+        for _ in range(rng.integers(8, 25)):
+            y, bh = rng.integers(0, h - 16), rng.integers(12, 80)
+            x, bw = rng.integers(0, w - 8), rng.integers(8, 48)
+            out[i, y:y + bh, x:x + bw] = rng.integers(0, 90, 3)
+    return torch.from_numpy(out)
+
+
+def encoders_card_vs_cpu(dev, launches: dict) -> dict:
+    """17b: the TrOCR with the ``unet`` and the ``csa`` encoder at the
+    production widths (enc_dim 384, 6 layers, 6 heads; decoder 256 wide, 4
+    layers) on ENC_CROPS crops of CROP, VOCAB tokens, seeded with
+    ``seeded_trocr``'s decoding weights, f32 (the predictor's): the encoder
+    memory card vs CPU within ENC_TOL, the greedy tokens (max_len 128)
+    identical; no kernel launches (the einsum attention, as JAX's); encode
+    and greedy ms on the card."""
+    from kuzu_torch.models.trocr import greedy_generate
+
+    crops = block_crops(ENC_CROPS)
+    out = {}
+    for enc in ("unet", "csa"):
+        gpu = seeded_trocr(dev, VOCAB, encoder_type=enc, decoding=True)
+        cpu = seeded_trocr("cpu", VOCAB, encoder_type=enc, decoding=True)
+        x = crops.to(dev)
+        zero_counts()
+        with torch.no_grad():
+            mg = gpu.encode(x)
+        tg = greedy_generate(gpu, x, max_len=128)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        with torch.no_grad():
+            mc = cpu.encode(crops)
+        tc = greedy_generate(cpu, crops, max_len=128)
+        err = _rel(mg, mc)
+        same = bool(torch.equal(tg.cpu(), tc))
+        distinct = len({tuple(r) for r in tc.tolist()})
+        enc_ms = time_ms(lambda: gpu.encode(x), reps=10, warmup=2)
+        dec_ms = time_ms(lambda: greedy_generate(gpu, x, max_len=128), reps=3, warmup=1)
+        print(f"17b TrOCR encoder {enc} {tuple(crops.shape[1:3])} x{ENC_CROPS} f32: memory "
+              f"{tuple(mg.shape)} card vs CPU {err:.2e} (<= {ENC_TOL}); greedy tokens identical "
+              f"{same} ({distinct} distinct rows, {greedy_generate.steps} steps); launches "
+              f"{counts}; encode {enc_ms:.3f} ms, greedy {dec_ms:.3f} ms (card)")
+        require(err <= ENC_TOL and same and distinct > 1 and counts == want(),
+                f"17b {enc} card vs CPU")
+        out[enc] = dict(memory_err=err, tokens_equal=same, distinct_rows=distinct,
+                        encode_ms=enc_ms, greedy_ms=dec_ms)
+        del gpu, cpu
+    return out
+
+
+def simple_vit_card_vs_cpu(dev, launches: dict) -> dict:
+    """17c: SimpleViT at the classify task's defaults (128 px, one channel,
+    patch 16, dim 256, depth 6, heads 8), VOCAB classes, seeded, f32 (the
+    predictor's), batch VIT_BATCH through ``ClassifyPredictor.probs``: the
+    logits card vs CPU within VIT_TOL with identical top-1, no kernel
+    launches, ms/img, device ms, idle share, peak memory."""
+    import copy
+
+    from kuzu_torch.models.layers import flax_init_
+    from kuzu_torch.models.simple_vit import SimpleViT
+    from kuzu_torch.tasks.classify import ClassifyPredictor
+
+    cpu = flax_init_(SimpleViT(VOCAB, channels=1), torch.Generator().manual_seed(0)).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    imgs = torch.from_numpy(np.random.default_rng(19).integers(
+        0, 256, (VIT_BATCH, 128, 128, 1), dtype=np.uint8))
+    x = imgs.to(dev)
+    zero_counts()
+    with torch.no_grad():
+        lg = gpu(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with torch.no_grad():
+        lc = cpu(imgs)
+    err, top1 = _rel(lg, lc), bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)))
+    pred = ClassifyPredictor.__new__(ClassifyPredictor)
+    pred.model, pred.ready, pred.device = gpu, True, dev
+    run = lambda: pred.probs(x)  # noqa: E731
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(run, reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"17c SimpleViT@128 b{VIT_BATCH} f32, {VOCAB} classes, "
+          f"{sum(p.numel() for p in gpu.parameters())} params: logits card vs CPU {err:.2e} "
+          f"(<= {VIT_TOL}), top-1 identical {top1}; launches {counts}; {ms:.3f} ms/batch = "
+          f"{ms / VIT_BATCH:.4f} ms/img (median of 10), peak memory {peak:.2f} GiB")
+    require(err <= VIT_TOL and top1 and counts == want(), "17c SimpleViT card vs CPU")
+    bd = device_breakdown(run)
+    return dict(logit_err=err, top1_equal=top1, ms_per_img=ms / VIT_BATCH, ms_per_batch=ms,
+                device_ms=bd["busy_ms"], idle_share=bd["idle_share"], peak_gib=peak,
+                breakdown=bd)
+
+
+def open_ends_card_vs_cpu(dev, launches: dict) -> dict:
+    """17d: ``nms_padded`` over a page's worth of candidates (4000 boxes, 3
+    classes, max_nms 2048) on the card (K1) and on the CPU (the plain
+    sweep): every output identical; ``letterbox`` (bilinear and nearest,
+    centred) and ``resize_keep_aspect`` of a 1000 x 700 f32 image: gain and
+    pad identical, canvases within LETTERBOX_TOL."""
+    from kuzu_torch.ops import letterbox, nms_padded, resize_keep_aspect
+
+    rng = np.random.default_rng(20)
+    n = 4000
+    xy = rng.uniform(0, 1200, (n, 2)).astype(np.float32)
+    cand = [torch.from_numpy(np.concatenate([xy, xy + rng.uniform(8, 80, (n, 2)).astype(
+        np.float32)], 1)), torch.from_numpy(rng.random(n).astype(np.float32)),
+        torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)),
+        torch.from_numpy(rng.random(n) < 0.95)]
+    kw = dict(iou_threshold=0.5, score_threshold=0.05, max_det=300, max_nms=2048)
+    zero_counts()
+    got = nms_padded(*(t.to(dev) for t in cand), **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ref = nms_padded(*cand, **kw)
+    same = all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+    require(same and counts == want(nms=1) and int(ref[3].sum()) > 0,
+            f"17d nms_padded card vs CPU (launches {counts})")
+    for k, v in counts.items():
+        launches[k] += v
+    image = torch.from_numpy(rng.random((1000, 700, 3)).astype(np.float32))
+    errs = {}
+    for label, fn in (("bilinear", lambda im: letterbox(im, 640, 640)),
+                      ("nearest", lambda im: letterbox(im, 640, 640, method="nearest")),
+                      ("keep_aspect", lambda im: (*resize_keep_aspect(im, 1024, 64), None))):
+        g, c = fn(image.to(dev)), fn(image)
+        geometry = all(torch.equal(a.cpu(), b) for a, b in zip(g[1:], c[1:]) if b is not None)
+        errs[label] = float((g[0].cpu() - c[0]).abs().max())
+        require(geometry and errs[label] <= LETTERBOX_TOL, f"17d letterbox {label} card vs CPU")
+    print(f"17d nms_padded (K={kw['max_nms']} of {n}): outputs identical {same}, "
+          f"{int(ref[3].sum())} kept, launches {counts}; letterbox canvases max |d| card vs "
+          f"CPU {errs} (<= {LETTERBOX_TOL}), gain and pad identical")
+    return dict(nms_equal=same, kept=int(ref[3].sum()), letterbox_err=errs)
+
+
+def nas_phase(dev, launches: dict) -> dict:
+    """Phase 17: 17a (YOLO-NAS-L: card vs CPU, inference, training), 17b,
+    17c, 17d."""
+    from kuzu_torch.models.nas import NASDetector
+
+    t0 = time.perf_counter()
+    name, sz, _ = NAS_FULL
+    det = NASDetector(name, nc=NAS_NC, imgsz=sz, device=dev).init(0)
+    out = dict(nas_card_vs_cpu=nas_card_vs_cpu(dev, det, launches),
+               nas_inference=nas_full_width(dev, det, launches))
+    del det
+    torch.cuda.empty_cache()
+    out["nas_training"] = nas_train_run(dev, launches)
+    out["encoders"] = encoders_card_vs_cpu(dev, launches)
+    out["simple_vit"] = simple_vit_card_vs_cpu(dev, launches)
+    out["open_ends"] = open_ends_card_vs_cpu(dev, launches)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17: {out['seconds']:.1f} s")
     return out
 
 
@@ -5275,10 +5637,13 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     _check_smem_formulas()
     if sys.argv[1:] == ["16"]:
-        # the whole script's setting (kernel_phase): the plain references in full f32
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         heads = heads_phase(dev, dict.fromkeys(COUNTERS, 0))
         print(json.dumps({"heads": heads, "card": card}, default=str))
+        print(card)
+        return 0
+    if sys.argv[1:] == ["17"]:
+        nas = nas_phase(dev, dict.fromkeys(COUNTERS, 0))
+        print(json.dumps({"nas_encoders_simple_vit": nas, "card": card}, default=str))
         print(card)
         return 0
     if sys.argv[1:] == ["10"]:
@@ -5313,6 +5678,7 @@ def main() -> int:
     train["remat"] = remat_full_width(dev, launches)
     zoo = zoo_phase(dev, launches)
     heads = heads_phase(dev, launches)
+    nas = nas_phase(dev, launches)
     files = recognizer_training["image_file_training"]["detector"]
     print(f"p2x@640 b8 bf16 training: from the PNG folder (14b) {files['ms_per_step']:.3f} "
           f"ms/step, {files['images_per_s']:.2f} images/s; on synthetic tensors (10) "
@@ -5337,6 +5703,7 @@ def main() -> int:
     print(json.dumps({"recognizer_training": recognizer_training, "card": card}, default=str))
     print(json.dumps({"yolo_zoo": zoo, "card": card}, default=str))
     print(json.dumps({"heads": heads, "card": card}, default=str))
+    print(json.dumps({"nas_encoders_simple_vit": nas, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

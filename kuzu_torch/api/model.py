@@ -3,7 +3,7 @@
 
 A task name maps to its trainer, validator and predictor classes; the port's
 task modules (``detect``, ``segment``, ``pose``, ``obb``, ``classify``,
-``ctc``, ``recognize``, ``lm``) register themselves on import through
+``ctc``, ``recognize``, ``lm``, ``nas``) register themselves on import through
 :func:`register_task`. As in JAX, a name guesses its task by markers only
 (``yolov8n-seg`` guesses detect): pass ``task`` for the other heads. Every component runs on
 ``device`` (the card when None).
@@ -34,6 +34,7 @@ def task_map() -> dict[str, dict[str, Callable]]:
     import kuzu_torch.tasks.ctc  # noqa: F401
     import kuzu_torch.tasks.detect  # noqa: F401
     import kuzu_torch.tasks.lm  # noqa: F401
+    import kuzu_torch.tasks.nas  # noqa: F401
     import kuzu_torch.tasks.obb  # noqa: F401
     import kuzu_torch.tasks.pose  # noqa: F401
     import kuzu_torch.tasks.recognize  # noqa: F401

@@ -10,8 +10,12 @@ The flax tree comes as nested dicts of numpy arrays. Names map one to one:
 - ``params .../bn/scale|bias`` -> ``....bn.weight|bias``;
   ``batch_stats .../bn/mean|var`` -> ``....bn.running_mean|running_var``;
 - ``params .../gamma`` (and any other bare parameter, e.g. a decoder's
-  ``pos_embed``) -> ``....gamma`` as is;
-- ``params .../norm1/scale|bias`` (a ``LayerNorm``) -> ``....norm1.weight|bias``;
+  ``pos_embed``) -> ``....gamma`` as is, or in the layout the module's
+  ``flax_layouts`` names (QARepVGG's ``w3`` / ``w1``: HWIO -> OIHW); the
+  buffers a module lists in ``flax_batch_stats`` (QARepVGG's hand-written
+  BatchNorm statistics) <- ``batch_stats .../<name>``;
+- ``params .../norm1/scale|bias`` (a ``LayerNorm`` or ``GroupNorm``) ->
+  ``....norm1.weight|bias``;
 - ``params .../embed/embedding`` (an ``Embed``) -> ``....embed.weight``.
 
 The CRNN's BiLSTM (:func:`crnn_from_flax`) maps many to one: flax's two
@@ -65,7 +69,7 @@ def _targets(root: nn.Module):
                 "conv" if isinstance(m, nn.Conv2d) else "dense")
             if m.bias is not None:
                 yield ("params", *path, "bias"), m.bias, None
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             yield ("params", *path, "scale"), m.weight, None
             yield ("params", *path, "bias"), m.bias, None
         elif isinstance(m, nn.Embedding):
@@ -75,9 +79,12 @@ def _targets(root: nn.Module):
             yield ("params", *path, "bias"), m.bias, None
             yield ("batch_stats", *path, "mean"), m.running_mean, None
             yield ("batch_stats", *path, "var"), m.running_var, None
+        layouts = getattr(m, "flax_layouts", {})  # e.g. QARepVGG's HWIO w3 / w1
         for pname, p in m.named_parameters(recurse=False):
             if pname not in ("weight", "bias"):  # e.g. A2C2f.gamma
-                yield ("params", *path, pname), p, None
+                yield ("params", *path, pname), p, layouts.get(pname)
+        for bname in getattr(m, "flax_batch_stats", ()):  # hand-written BatchNorm statistics
+            yield ("batch_stats", *path, bname), getattr(m, bname), None
 
 
 def _to_port(arr: np.ndarray, layout: str | None) -> np.ndarray:

@@ -73,6 +73,12 @@ def f32_products():
         torch.set_float32_matmul_precision(old)
 
 
+def dtype_products(dtype: torch.dtype):
+    """:func:`f32_products` for a model computing in f32; a bf16 model's
+    forward leaves the settings as they are."""
+    return f32_products() if dtype == torch.float32 else contextlib.nullcontext()
+
+
 def sincos_2d_pos_embed(dim: int, grid_h: int, grid_w: int) -> np.ndarray:
     """2D sin-cos position embedding for a (grid_h, grid_w) patch grid, a
     copy of the reference's numpy: half the channels encode the y

@@ -22,7 +22,9 @@ input. A beam's hypotheses share their row's memory keys and values
 instead of K copies of them. Nothing else of the loop's arithmetic
 changes.
 
-Not ported: the ``unet`` and ``csa`` encoders (ROADMAP section 1 item 15).
+The ``unet`` and ``csa`` encoders (``models/unet_transformer.py``,
+``models/csa_vit.py``) run the einsum attention, as JAX's: the reference
+routes them to no kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from kuzu_torch.models.csa_vit import CSAViTEncoder
 from kuzu_torch.models.layers import (
     NEG,
     DecoderBlock,
@@ -45,6 +48,7 @@ from kuzu_torch.models.layers import (
     layer_norm,
     sincos_2d_pos_embed,
 )
+from kuzu_torch.models.unet_transformer import UNetTransformerEncoder
 from kuzu_torch.ops.images import from_uint8
 
 
@@ -147,7 +151,10 @@ class ARDecoder(nn.Module):
 class TrOCR(nn.Module):
     """Encoder + decoder; with ``ctc_head`` the auxiliary CTC projection
     over the encoder memory that checkpoints trained with ``ctc_weight > 0``
-    carry (f32, as the reference's)."""
+    carry (f32, as the reference's). ``encoder_type`` is ``"vit"`` (the
+    kernel route of ``attn_impl``), ``"unet"`` (``UNetTransformerEncoder``)
+    or ``"csa"`` (``CSAViTEncoder``, its default structure and context
+    layers); the last two take JAX's einsum attention."""
 
     def __init__(self, vocab_size: int, image_size=(1024, 64), patch_size=(16, 16),
                  enc_dim: int = 384, enc_depth: int = 6, enc_heads: int = 6,
@@ -156,14 +163,18 @@ class TrOCR(nn.Module):
                  attn_impl: str = "auto", dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if encoder_type != "vit":
-            raise NotImplementedError(
-                f"encoder_type={encoder_type!r}: the unet and csa encoders are not ported "
-                "(ROADMAP section 1 item 15)")
         self.image_size, self.patch_size = tuple(image_size), tuple(patch_size)
         self.max_len, self.dec_dim = max_len, dec_dim
-        self.encoder = ViTEncoder(image_size, patch_size, enc_dim, enc_depth, enc_heads,
-                                  attn_impl=attn_impl, dropout=dropout, dtype=dtype)
+        if encoder_type == "unet":
+            self.encoder = UNetTransformerEncoder(image_size, out_dim=enc_dim, depth=enc_depth,
+                                                  num_heads=enc_heads, dropout=dropout,
+                                                  dtype=dtype)
+        elif encoder_type == "csa":
+            self.encoder = CSAViTEncoder(image_size, patch_size, enc_dim, enc_depth, enc_heads,
+                                         dropout=dropout, dtype=dtype)
+        else:  # "vit", and any other name, as JAX's
+            self.encoder = ViTEncoder(image_size, patch_size, enc_dim, enc_depth, enc_heads,
+                                      attn_impl=attn_impl, dropout=dropout, dtype=dtype)
         self.decoder = ARDecoder(vocab_size, max_len, dec_dim, dec_depth, dec_heads,
                                  enc_dim=enc_dim, dropout=dropout, dtype=dtype)
         self.ctc_proj = Dense(enc_dim, vocab_size) if ctc_head else None

@@ -52,8 +52,7 @@ class YoloDetector:
         if isinstance(model, GraphSpec):
             self.spec = model
         else:
-            path, scale = resolve_model_spec(str(model))
-            self.spec = parse_model_yaml(path, scale=scale, nc=nc)
+            self.spec = self.resolve_spec(str(model), nc=nc)
         if reg_max is not None:  # a run's override of the DFL range
             self.spec.reg_max = int(reg_max)
         self.graph = YoloGraph(self.spec)
@@ -62,6 +61,25 @@ class YoloDetector:
         self.strides = list(self.spec.strides)
         self.nc = self.spec.nc
         self.folded: dict | None = None
+
+    # ------------------------------------- the detect task's construction hooks
+    @staticmethod
+    def resolve_spec(name: str, nc: int | None = None) -> GraphSpec:
+        """The parsed spec of the model name ``name`` at ``nc`` classes."""
+        path, scale = resolve_model_spec(name)
+        return parse_model_yaml(path, scale=scale, nc=nc)
+
+    @staticmethod
+    def training_graph(spec: GraphSpec, dtype: torch.dtype, remat: bool = False) -> YoloGraph:
+        """The module tree the trainer trains, in ``dtype``."""
+        return YoloGraph(spec, dtype=dtype, remat=remat)
+
+    @classmethod
+    def for_validation(cls, spec: GraphSpec, dtype: torch.dtype, imgsz: int,
+                       device: torch.device) -> "YoloDetector":
+        """The trainer's validation detector: the BN-folded executor (bf16,
+        whatever the training dtype)."""
+        return cls(spec, imgsz=imgsz, device=device)
 
     # ------------------------------------------------------------ lifecycle
     def init(self, seed: int = 0) -> "YoloDetector":

@@ -23,6 +23,7 @@ import yaml
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from kuzu_torch.models.layers import dtype_products
 from kuzu_torch.models.yolo import modules as M
 from kuzu_torch.ops.images import from_uint8
 
@@ -265,9 +266,10 @@ def resolve_model_spec(name: str) -> tuple[Path, str | None]:
 SUPPORTED = ("Conv", "DWConv", "C2f", "C3k2", "A2C2f", "C2PSA", "RepNCSPELAN4", "ADown",
              "SPPELAN", "C2fCIB", "SCDown", "PSA", "SPPF", "Upsample", "Concat", "Detect",
              "v10Detect", "Segment", "Pose", "OBB", "Classify")
-# What the port does not build yet, with its ROADMAP.md section 1 item.
-LATER = ("YOLO-NAS (item 13.2), the TPU layout options (s2d convolutions, the "
-         "packed stem: item 13.3) and SimpleViT (item 15) are later slices of the port")
+# What the port does not build from a yaml, with its ROADMAP.md section 1 item.
+LATER = ("YOLO-NAS is built by the nas task (models/nas.py), not from a yaml; the TPU "
+         "layout options (s2d convolutions, the packed stem: item 13.3) are a later slice "
+         "of the port")
 # The block modules the flax graph wraps in nn.remat (``_block``); plain
 # convs, the pools' blocks, Concat, Upsample and the heads are not wrapped.
 REMAT_BLOCKS = ("C2f", "C3k2", "A2C2f", "C2PSA", "RepNCSPELAN4", "C2fCIB", "PSA")
@@ -373,7 +375,13 @@ class YoloGraph(nn.Module):
         ``{"det", "coeffs", "protos"}``, Pose ``{"det", "kpts_raw"}``, OBB
         ``{"det", "angle"}`` and Classify the (B, nc) f32 logits. Pixels become
         f32 ``x / 255`` and then ``dtype``, as the flax graph's first conv
-        casts them; activations are NCHW in ``channels_last``."""
+        casts them; activations are NCHW in ``channels_last``. An f32 graph
+        runs with TF32 off (``f32_products``: torch's default lets cuDNN
+        take TF32 convolutions); a bf16 graph leaves the settings alone."""
+        with dtype_products(self.dtype):
+            return self._forward(images)
+
+    def _forward(self, images: torch.Tensor) -> list[torch.Tensor] | dict:
         x = from_uint8(images).to(self.dtype).permute(0, 3, 1, 2)
         cur = x.contiguous(memory_format=torch.channels_last)
         outputs: dict[int, torch.Tensor] = {}

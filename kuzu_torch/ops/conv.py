@@ -10,6 +10,12 @@ f32 over its bf16 operands and rounds the output once to bf16. Elsewhere it
 stays torch's own bf16 kernel, which matches XLA's at least as closely
 (both part from the f32-then-round result in a few ties of a 1e5 outputs,
 summed in another order). The card's route (cuDNN) is never changed.
+
+A second CPU repair: torch 2.13's CPU backward of a strided, unpadded 1 x 1
+convolution over a ``channels_last`` input corrupts the heap (a YOLO-NAS
+QARepVGG's 1 x 1 branch at stride 2 over 128 x 128 RGB aborts the process).
+Such a convolution reads every ``stride``-th pixel, so on the CPU it runs at
+stride 1 over the input sliced to those pixels: the same products.
 """
 
 from __future__ import annotations
@@ -39,6 +45,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, s
            padding=0, dilation=1, groups: int = 1) -> torch.Tensor:
     """``F.conv2d`` in x's dtype; a bf16 call that :func:`cpu_bf16_faulty`
     names computes in f32 over the bf16 operands, rounded once."""
+    if (x.device.type == "cpu" and tuple(w.shape[2:]) == (1, 1) and _pair(padding) == (0, 0)
+            and _pair(stride) != (1, 1)):
+        s = _pair(stride)
+        x, stride = x[:, :, ::s[0], ::s[1]], 1
     if cpu_bf16_faulty(x, w, stride, padding, dilation):
         y = F.conv2d(x.float(), w.float(), None if bias is None else bias.float(), stride,
                      padding, dilation, groups)

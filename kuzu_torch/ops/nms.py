@@ -157,3 +157,35 @@ def nms_free_select(
         classes = torch.nn.functional.pad(classes, (0, pad))
         valid = torch.nn.functional.pad(valid, (0, pad))
     return {"boxes": out_boxes, "scores": vals, "classes": classes, "valid": valid}
+
+
+BACKENDS = ("auto", "pallas")  # JAX's names of its routes; the port's one route is K1
+
+
+def nms_padded(
+    boxes: torch.Tensor,  # (N, 4) xyxy
+    scores: torch.Tensor,  # (N,)
+    classes: torch.Tensor,  # (N,) int
+    valid: torch.Tensor,  # (N,) bool
+    iou_threshold: float = 0.45,
+    score_threshold: float = 0.25,
+    max_det: int = 300,
+    max_nms: int = 2048,
+    agnostic: bool = False,
+    max_wh: int = 7680,
+    backend: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-image NMS on padded candidates (:func:`nms_padded_batch` over
+    a batch of one): (boxes (max_det, 4), scores, classes, valid).
+
+    ``backend`` keeps JAX's signature: ``"auto"`` and ``"pallas"`` both take
+    the keep-mask from the K1 kernel on a CUDA tensor (its plain version on
+    a CPU one); JAX's scan route has no counterpart, so any other name
+    raises."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: the port's NMS runs K1 (one of {BACKENDS})")
+    ob, os_, oc, ov = nms_padded_batch(
+        boxes[None], scores[None], classes[None], valid[None],
+        iou_threshold=iou_threshold, score_threshold=score_threshold, max_det=max_det,
+        max_nms=max_nms, agnostic=agnostic, max_wh=max_wh)
+    return ob[0], os_[0], oc[0], ov[0]

@@ -1,16 +1,16 @@
-"""Glyph classification task on the YOLO-cls route (counterpart of
-``kuzu/tasks/classify.py``): a ``-cls`` model yaml (a YOLO backbone and the
-``Classify`` head) over a glyph folder (``root/<class>/*.png``), the
-label-smoothed softmax cross-entropy as optax computes it, BatchNorm
-statistics moving in the model, top-1 accuracy as the fitness, EMA weights
-for validation.
+"""Glyph classification task (counterpart of ``kuzu/tasks/classify.py``):
+over a glyph folder (``root/<class>/*.png``), the label-smoothed softmax
+cross-entropy as optax computes it, top-1 accuracy as the fitness, EMA
+weights for validation. Two routes, as JAX's:
 
-There is no BN-folded route for Classify (nor in JAX): validation and
-prediction run the module tree in eval mode (running statistics).
-
-The JAX task's other route, SimpleViT, needs ``kuzu/models/simple_vit.py``
-(ROADMAP.md section 1 item 15): a model name without ``-cls`` raises
-``NotImplementedError`` naming that item.
+- a model name with ``-cls``: the YOLO-cls module tree (a YOLO backbone and
+  the ``Classify`` head) on RGB, BatchNorm statistics moving in the model;
+  no BN-folded route (nor in JAX): validation and prediction run the
+  module tree in eval mode (running statistics);
+- any other name: ``models/simple_vit.py::SimpleViT`` (the default) on
+  ``channels`` (1) at the config's ``imgsz`` (128), ``patch`` (16), ``dim``
+  (256), ``depth`` (6), ``heads`` (8) and ``dropout``, its dropout drawing
+  from the step's generator.
 """
 
 from __future__ import annotations
@@ -28,12 +28,11 @@ from kuzu_torch.core.config import Config, load_config, rebase_on_run_config
 from kuzu_torch.core.train import TrainState, build_optimizer
 from kuzu_torch.data.folder_dataset import GlyphFolderDataset, load_glyph
 from kuzu_torch.data.loader import DataLoader, next_bucket
+from kuzu_torch.models.layers import flax_init_
+from kuzu_torch.models.simple_vit import SimpleViT
 from kuzu_torch.models.yolo.detector import resolve_device
 from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
 from kuzu_torch.tasks.base import BaseTrainer
-
-SIMPLEVIT = ("the SimpleViT classifier (kuzu/models/simple_vit.py) is not ported: ROADMAP.md "
-             "section 1 item 15; the port classifies with a YOLO -cls model (model=yolov8n-cls)")
 
 
 def is_yolo(name) -> bool:
@@ -41,13 +40,20 @@ def is_yolo(name) -> bool:
     return bool(name) and ("-cls" in str(name))
 
 
-def build_classifier(name: str, nc: int, dtype: torch.dtype = torch.float32) -> YoloGraph:
-    """The YOLO-cls module tree of ``name`` with ``nc`` classes (SimpleViT
-    raises, see the module docstring)."""
-    if not is_yolo(name):
-        raise NotImplementedError(f"model '{name}': {SIMPLEVIT}")
-    path, scale = resolve_model_spec(str(name))
-    return YoloGraph(parse_model_yaml(path, scale=scale, nc=nc), dtype=dtype)
+def build_classifier(cfg, nc: int, dtype: torch.dtype = torch.float32,
+                     dropout: float = 0.0) -> torch.nn.Module:
+    """The classifier of config ``cfg`` with ``nc`` classes: the YOLO-cls
+    module tree of a ``-cls`` model name, else a SimpleViT at the config's
+    widths (``dropout`` is the trainer's; predictors build it without)."""
+    name = cfg.get("model")
+    if is_yolo(name):
+        path, scale = resolve_model_spec(str(name))
+        return YoloGraph(parse_model_yaml(path, scale=scale, nc=nc), dtype=dtype)
+    return SimpleViT(
+        nc, image_size=(int(cfg.get("imgsz", 128)),) * 2,
+        patch_size=(int(cfg.get("patch", 16)),) * 2, dim=int(cfg.get("dim", 256)),
+        depth=int(cfg.get("depth", 6)), num_heads=int(cfg.get("heads", 8)), dropout=dropout,
+        channels=int(cfg.get("channels", 1)), dtype=dtype)
 
 
 def smoothed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -87,20 +93,28 @@ class ClassifyTrainer(BaseTrainer):
                            num_workers=workers),
                 DataLoader(val_ds, batch, shuffle=False, pad_last=True, num_workers=workers))
 
-    def build_model(self) -> YoloGraph:
+    def build_model(self) -> torch.nn.Module:
         cfg = self.cfg
         dtype = torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
-        graph = build_classifier(cfg.get("model"), self.train_ds.num_classes, dtype)
-        graph.reset_parameters(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
-        self.spec = graph.spec
+        nc = self.train_ds.num_classes
+        gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+        model = build_classifier(cfg, nc, dtype, float(cfg.get("dropout", 0.0)))
+        if isinstance(model, YoloGraph):
+            model.reset_parameters(gen)
+            self.spec = model.spec
+        else:
+            flax_init_(model, gen)
         # the validation copy: refilled from the EMA each time, eval mode
-        self._val_model = YoloGraph(graph.spec, dtype=dtype).to(self.device).eval()
-        return graph.to(self.device)
+        self._val_model = build_classifier(cfg, nc, dtype).to(self.device).eval()
+        return model.to(self.device)
 
     def loss_fn(self, model, batch: dict, rng: torch.Generator | None = None):
         """The label-smoothed (``label_smoothing``, default 0) softmax
-        cross-entropy of the training forward, and the batch accuracy."""
-        logits = model(batch["image"])
+        cross-entropy of the training forward (SimpleViT's dropout drawing
+        from ``rng``), and the batch accuracy."""
+        images = batch["image"]
+        logits = (model(images, train=True, rng=rng) if isinstance(model, SimpleViT)
+                  else model(images))
         labels = batch["label"].long()
         loss = smoothed_cross_entropy(logits, labels, float(self.cfg.get("label_smoothing", 0.0)))
         acc = (logits.argmax(-1) == labels).float().mean()
@@ -158,8 +172,8 @@ class ClassifyValidator:
 
 class ClassifyPredictor:
     """A trained run's class predictions for glyph image files: each image
-    read as the trainer reads it (PIL's RGB convert and BILINEAR resize, in
-    the port's ``image_io``), the batch padded to ``next_bucket``, softmax
+    read as the trainer reads it (PIL's RGB or L convert and BILINEAR
+    resize, in the port's ``image_io``), the batch padded to ``next_bucket``, softmax
     probabilities of the module tree in eval mode. Each result holds
     ``path``, ``class``, ``name``, ``confidence`` (JAX's keys) and
     ``top5``, the five best classes in order."""
@@ -178,8 +192,8 @@ class ClassifyPredictor:
         class_map = json.loads((run_dir / "class_map.json").read_text())
         self.idx_to_name = {int(v): k for k, v in class_map.items()}
         self.imgsz = int(train_cfg.get("imgsz", 128))
-        self.channels = 3
-        self.model = build_classifier(str(train_cfg.get("model") or ""), len(class_map))
+        self.channels = 3 if is_yolo(train_cfg.get("model")) else int(train_cfg.get("channels", 1))
+        self.model = build_classifier(train_cfg, len(class_map))
         self.model.load_state_dict(load_inference_params(CheckpointManager(run_dir / "weights"),
                                                          train_cfg=train_cfg))
         self.model.to(self.device).eval()
@@ -187,7 +201,7 @@ class ClassifyPredictor:
 
     @torch.no_grad()
     def probs(self, images) -> torch.Tensor:
-        """(N, S, S, 3) uint8 (an ndarray or a tensor) -> (N, nc) softmax
+        """(N, S, S, C) uint8 (an ndarray or a tensor) -> (N, nc) softmax
         probabilities."""
         if not self.ready:
             self._setup()

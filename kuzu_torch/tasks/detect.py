@@ -39,7 +39,6 @@ from kuzu_torch.data.loader import DataLoader, next_bucket
 from kuzu_torch.data.sources import Frame, batched_frames, resolve_source
 from kuzu_torch.data.yolo_dataset import YoloDetectionDataset, letterbox_np, load_dataset_yaml
 from kuzu_torch.models.yolo.detector import YoloDetector, resolve_device
-from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
 from kuzu_torch.ops.detect_loss import detection_loss, e2e_detection_loss
 from kuzu_torch.tasks import base
 from kuzu_torch.tasks.base import BaseTrainer, resolve_val_batches
@@ -69,6 +68,10 @@ class DetectTrainer(BaseTrainer):
     # the head family the task's loss and validation expect: a model of
     # another family fails in build_model with a message naming the fix
     head_kind = "detect"
+    # the model-construction hook: a class of the YoloDetector protocol
+    # (resolve_spec, training_graph, for_validation; the nas task swaps in
+    # models/nas.py::NASDetector)
+    detector_cls = YoloDetector
 
     def build_datasets(self):
         """(train, val) loaders over the ``cfg.data`` folder: the training
@@ -122,7 +125,7 @@ class DetectTrainer(BaseTrainer):
                                 num_workers=workers, group_fn=groups(val_ds))
         return train_loader, val_loader
 
-    def build_model(self) -> YoloGraph:
+    def build_model(self) -> torch.nn.Module:
         cfg = self.cfg
         dtype = torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
         self.imgsz = int(cfg.get("imgsz", 640))
@@ -138,7 +141,7 @@ class DetectTrainer(BaseTrainer):
                 f"model '{name}' has a {kind} head but task "
                 f"'{cfg.get('task', self.head_kind)}' needs a {self.head_kind} "
                 f"head (e.g. model={hint})")
-        graph = YoloGraph(spec, dtype=dtype, remat=bool(cfg.get("remat", False)))
+        graph = self.detector_cls.training_graph(spec, dtype, bool(cfg.get("remat", False)))
         graph.reset_parameters(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
         pre = cfg.get("pretrained")
         if isinstance(pre, str) and Path(pre).exists():
@@ -153,16 +156,15 @@ class DetectTrainer(BaseTrainer):
             LOGGER.info(f"pretrained graft: {n}/{total} tensors from {pre}")
         self.spec, self.nc, self.strides = spec, spec.nc, list(spec.strides)
         # the validation executor: refilled and refolded from the EMA each time
-        self._val_det = YoloDetector(spec, imgsz=self.imgsz, device=self.device)
+        self._val_det = self.detector_cls.for_validation(spec, dtype, self.imgsz, self.device)
         return graph.to(self.device)
 
     def _resolve_model(self, name: str):
         """The parsed spec of the model ``name`` at the data's ``nc`` (a hook:
         the pose task takes ``kpt_shape`` from the dataset)."""
-        path, scale = resolve_model_spec(name)
-        return parse_model_yaml(path, scale=scale, nc=self.data_spec["nc"])
+        return self.detector_cls.resolve_spec(name, nc=self.data_spec["nc"])
 
-    def loss_fn(self, model: YoloGraph, batch: dict,
+    def loss_fn(self, model: torch.nn.Module, batch: dict,
                 rng: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
         """The v8 loss of the training forward (yolov10: the E2E loss of its
         two heads); it draws nothing (``rng`` unused, as the JAX trainer's)."""
@@ -292,6 +294,7 @@ class DetectPredictor:
     ``cfg.batch``, and returns a ``Results`` per frame."""
 
     min_bucket = 1  # the bucket floor; the port has no data-parallel mesh (dp)
+    detector_cls = YoloDetector  # the model-construction hook, as DetectTrainer's
 
     def __init__(self, cfg: Config, device: torch.device | str | None = None):
         self.cfg = cfg
@@ -318,7 +321,7 @@ class DetectPredictor:
         self.imgsz = int(train_cfg.get("imgsz", 640))
         spec = _load_data_spec(run_dir, train_cfg)
         self.names = spec["names"]
-        self.detector = YoloDetector(
+        self.detector = self.detector_cls(
             self._resolve_arch(str(train_cfg.get("model") or "yolov12n"), spec),
             nc=spec["nc"], imgsz=self.imgsz, device=self.device,
             reg_max=int(train_cfg.get("reg_max")) if train_cfg.get("reg_max") else None)

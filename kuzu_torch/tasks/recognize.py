@@ -309,4 +309,23 @@ class RecognizePredictor:
                         length_penalty=length_penalty)
 
 
-register_task("recognize", trainer=RecognizeTrainer, predictor=RecognizePredictor)
+class RecognizeValidator:
+    """The standalone CER evaluation of a trained recognize run on a data
+    split (``kuzu/tasks/recognize.py::RecognizeValidator``): ``model``,
+    ``data``, ``split`` (default ``val``) and ``max_samples`` from the
+    config, through ``tools/evaluation.py::evaluate_recognizer``."""
+
+    def __init__(self, cfg: Config, device: torch.device | str | None = None):
+        self.cfg, self.device = cfg, device
+
+    def run(self) -> dict:
+        from kuzu_torch.tools.evaluation import evaluate_recognizer
+
+        return evaluate_recognizer(
+            str(self.cfg.get("model")), str(self.cfg.get("data")),
+            split=str(self.cfg.get("split", "val")), max_samples=self.cfg.get("max_samples"),
+            device=self.device)
+
+
+register_task("recognize", trainer=RecognizeTrainer, predictor=RecognizePredictor,
+              validator=RecognizeValidator)

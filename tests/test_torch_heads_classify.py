@@ -13,7 +13,7 @@ and the ``Model`` facade over the four new tasks.
 - data: PIL's ``convert("L")`` byte for byte, ``GlyphFolderDataset`` sample
   for sample against JAX's (grayscale and RGB);
 - facade: the task a name guesses (JAX's), one training step of each task
-  through ``Model(..., task=...)``, SimpleViT refused naming its item.
+  through ``Model(..., task=...)``, and the SimpleViT route training.
 """
 
 import jax
@@ -253,11 +253,16 @@ def test_model_trains_each_head(task, tmp_path):
 
 
 def test_simplevit_classify_names_its_item(glyphs, tmp_path):
-    """The SimpleViT route of the classify task is not ported: the trainer
-    raises naming ROADMAP.md's item 15."""
+    """The SimpleViT route of the classify task is ported (the item it named
+    is done): a name without ``-cls`` trains a SimpleViT on the glyph
+    folder's grayscale images (held against JAX in
+    ``test_torch_encoders.py``)."""
     from kuzu_torch.api.model import Model
+    from kuzu_torch.models.simple_vit import SimpleViT
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Model("simplevit", task="classify", device="cpu").train(
-            data=str(glyphs), imgsz=32, batch=4, epochs=1, workers=0,
-            project=str(tmp_path), name="v", exist_ok=True)
+    m = Model("simplevit", task="classify", device="cpu")
+    final = m.train(data=str(glyphs), imgsz=32, patch=8, dim=32, depth=1, heads=2, batch=4,
+                    epochs=1, workers=0, project=str(tmp_path), name="v", exist_ok=True,
+                    verbose=False)
+    assert np.isfinite(final["loss"])
+    assert isinstance(m._trainer.state.model, SimpleViT)

@@ -179,11 +179,16 @@ def test_top_k_keeps_jax_order_among_ties():
 
 
 def test_unported_encoders_refuse():
-    from kuzu_torch.models.trocr import TrOCR
+    """The refusal is retired: ``unet`` and ``csa`` build their encoders
+    (held against JAX in ``test_torch_encoders.py``), and any other name
+    builds the ViT, as JAX's ``TrOCR.setup`` does."""
+    from kuzu_torch.models.csa_vit import CSAViTEncoder
+    from kuzu_torch.models.trocr import TrOCR, ViTEncoder
+    from kuzu_torch.models.unet_transformer import UNetTransformerEncoder
 
-    for kind in ("unet", "csa"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            TrOCR(**TROCR_KW, encoder_type=kind)
+    for kind, cls in (("unet", UNetTransformerEncoder), ("csa", CSAViTEncoder),
+                      ("vit", ViTEncoder), ("swin", ViTEncoder)):
+        assert type(TrOCR(**TROCR_KW, encoder_type=kind).encoder) is cls
 
 
 @pytest.mark.parametrize("g,n,c,heads", [(3, 16, 64, 2), (2, 80, 128, 2), (1, 256, 384, 6)])
