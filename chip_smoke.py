@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py 10   # the build and phase 10 alone, no result line
+                               # (likewise 16, 17 and 18)
 
 The second form times the training step of one checkout on its own, so
 that two commits can be compared in one call on one card.
@@ -149,9 +150,9 @@ Phases, each raising on failure:
    (characters inside each column crop, the CRNN on [1024, 64] crops) and
    ``process_pages`` over 4 pages of two shapes (the host path): launches,
    times, a profiled call's stages, card against CPU by phase 8a's criteria
-   (the detectors' f32 forwards, and f64 for ``process_page``; 8 columns a
-   page, the character detector at depth 0.33 to keep the CPU's runs
-   short; the f32 runs also reported against the card's f64 run); (d) ``pack_yc`` /
+   (the detectors' f32 forwards; 8 columns a page, the character detector
+   at depth 0.33 to keep the CPU's runs short; the f32 runs also reported
+   against the card's f64 runs); (d) ``pack_yc`` /
    ``unpack_yc`` card against CPU on 8b's 16 pages and the ``yc``
    cascade's columns and texts beside the RGB cascade's; (e) the ship-once
    route against the host path on 4 of those pages (reported, not held);
@@ -210,8 +211,28 @@ Phases, each raising on failure:
    logits card against CPU, top-1, ms/img, idle share; (d) ``nms_padded``
    (K1) and ``letterbox`` / ``resize_keep_aspect`` card against CPU.
    ``python3 chip_smoke.py 17`` runs the build and phase 17 alone;
-18. the ``kernels`` JSON line, then the card's name and power limit;
-19. last line: ``{"ok": true, "device": {...}}``.
+18. (after 17) the TPU layout options as math options and the SAM family:
+   (a) yolov12x@640 b8 bf16 with the plain, ``stem_s2d`` and
+   ``stem_packed`` stems (K2 and K1 on the path): maps against the plain
+   stem's (relative 0.02), decoded class argmax and boxes, NMS keeps that
+   differ, ms/img of each; yolov12n@320 b2 card against CPU with each
+   stem; one f32 yolov12n@128 training step with ``conv_impl="s2d"``
+   against native (loss and gradients within 1e-4); (b) SAM at JAX's
+   defaults (256 px, dim 256, 6 layers, 8 heads, 3 masks) b8, seeded: f32
+   card against CPU, ``attn_impl="flash"`` (K3 f32 and bf16) and
+   ``"flash_train"`` (K3 with its statistics and K4) against einsum, every
+   kernel call held against its plain version on the path's inputs;
+   ``Model(task="sam").train`` (f32, einsum, AdamW) on PNG pages written
+   here: ms/step, a profiled step, peak memory, the validation's mIoU; (c)
+   the TinyViT SAM card against CPU and its encode ms; (d)
+   ``SAMPredictor`` point, box and ``everything`` prompts card against CPU,
+   encode and ``everything`` ms; (e) FastSAM over yolov8n-seg@128 card
+   against CPU (the selections of one set of outputs identical), and
+   FastSAM-x (yolov8x-seg, nc 1) at 1024: everything mode (K1), box and
+   point prompts, ms/img. ``python3 chip_smoke.py 18`` runs the build and
+   phase 18 alone;
+19. the ``kernels`` JSON line, then the card's name and power limit;
+20. last line: ``{"ok": true, "device": {...}}``.
 
 Phase 3's plain references run with TF32 off for cuBLAS and cuDNN
 (``full_f32_references``); every later phase runs at torch's defaults,
@@ -224,6 +245,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -4055,7 +4077,7 @@ def image_file_training_phase(dev, root, ctc_run: dict, launches: dict) -> dict:
 PAGE_HW = (3868, 2422)  # the real page's size (data/real_page/sample_gt.json)
 A4_HW = (3508, 2480)  # an A4 scan at 300 dpi
 N_FILES = 8  # pages of 13b
-CPU_COL_MAX_DET = 8  # columns of 13c's process_page held card vs CPU (a p2x@640 forward each in f64 on the CPU)
+CPU_COL_MAX_DET = 8  # columns of 13c's process_page held card vs CPU (a p2x@640 forward each on the CPU)
 CMP_DEPTH = 0.33  # 13c's card-vs-CPU character detector: the 'n' scales' depth multiple
 COL_MODEL, CHAR_MODEL, CHAR_IMGSZ = "yolov12s", "yolov12-p2x", 640  # 8b's detectors
 
@@ -4400,11 +4422,11 @@ def flat_cascade(dev, root, col, char, crnn, tok, launches: dict) -> dict:
     matched >= 0.9 both ways, texts of matched columns >= 0.95, end to end)
     on the same weights, with the detectors' unfolded graphs (eval mode)
     and the CRNN in f32, as phase 8 compares: ``process_page`` with
-    ``CPU_COL_MAX_DET`` columns in f32 and in f64 on both devices, and the
-    host path on 2 pages of the two shapes with ``col_refine`` on (the
-    default) and ``COL_MAX_DET`` columns in f32 (its f64 run on the card
-    alone: the CPU's f64 host path, the longest of its runs, is cut). Each device's
-    f32 host-path run is also reported against the card's f64 run, with
+    ``CPU_COL_MAX_DET`` columns in f32, and the host path on 2 pages of the
+    two shapes with ``col_refine`` on (the default) and ``COL_MAX_DET``
+    columns in f32; the f64 runs of both on the card alone (the CPU's f64
+    runs, the longest of its runs, are cut). Each device's f32 run is also
+    reported against the card's f64 run, with
     each device's f32 map error against the card's f64 maps (per node for
     the column detector): near-equal candidates in NMS and the snapping of
     columns to their characters turn rounding into moved columns, so these
@@ -4496,13 +4518,22 @@ def flat_cascade(dev, root, col, char, crnn, tok, launches: dict) -> dict:
         seconds[key] = time.perf_counter() - t
         return r
 
-    for name, dt in dtypes.items():
-        flat = {d: _reference_pipeline(d, col, char, crnn, tok, dt, CPU_COL_MAX_DET)
-                for d in (dev, "cpu")}
-        one = {d: [timed(f"process_page {name} {torch.device(d).type}",
-                         lambda p=p: p.process_page(page))] for d, p in flat.items()}
-        flat_cmp[name] = _compare_results(one[dev], one["cpu"],
-                                          f"process_page (tile_grid=0), {name} forwards")
+    # process_page card vs CPU in f32; its f64 run on the card alone, each
+    # device's f32 run reported against it (the CPU's f64 run is cut, as
+    # the host path's is below)
+    flat = {(d, name): _reference_pipeline(d, col, char, crnn, tok, dtypes[name],
+                                           CPU_COL_MAX_DET)
+            for d, name in ((dev, "f64"), (dev, "f32"), ("cpu", "f32"))}
+    one = {key: [timed(f"process_page {key[1]} {torch.device(key[0]).type}",
+                       lambda p=p: p.process_page(page))] for key, p in flat.items()}
+    flat_cmp["f32"] = _compare_results(one[dev, "f32"], one["cpu", "f32"],
+                                       "process_page (tile_grid=0), f32 forwards")
+    flat_cmp["f32 against the card's f64 run"] = {
+        side: _agreement(one[dev, "f64"], one[d, "f32"]) for side, d in (("card", dev),
+                                                                       ("CPU", "cpu"))}
+    for side, a in flat_cmp["f32 against the card's f64 run"].items():
+        print(f"    process_page {side} f32 against the card's f64 run (reported): "
+              f"{_agreement_line(a)}")
     del flat
     host = {(d, name): _reference_pipeline(d, col, char, crnn, tok, dtypes[name], COL_MAX_DET)
             for d, name in ((dev, "f64"), (dev, "f32"), ("cpu", "f32"))}
@@ -5185,6 +5216,25 @@ def head_folder(root, task: str, sz: int, n: int):
                              seed=16)
 
 
+def train_recorded(model, rec: "StepRecorder", **kw):
+    """``model.train(**kw)`` (a ``Model`` facade) with ``rec``'s callbacks
+    on its trainer: (the trainer, the final metrics)."""
+    trainer_cls = model._component("trainer")
+    seen = []
+
+    class Recorded(trainer_cls):
+        def train(self):
+            for ev, fn in (("on_train_start", rec.start), ("on_step_end", rec.step),
+                           ("on_val_start", rec.val_start), ("on_val_end", rec.val_end)):
+                self.callbacks.add(ev, fn)
+            seen.append(self)
+            return super().train()
+
+    model._component = lambda kind: Recorded if kind == "trainer" else trainer_cls
+    final = model.train(**kw)
+    return seen[0], final
+
+
 def heads_train_run(dev, task: str, name: str, sz: int, n: int, root, launches: dict) -> dict:
     """16c for one head: ``Model(name, task=...).train`` over PNG files
     written in the phase (the port's own datasets decode them), bf16, one
@@ -5206,20 +5256,10 @@ def heads_train_run(dev, task: str, name: str, sz: int, n: int, root, launches: 
     write_s = time.perf_counter() - t0
     model = Model(name, task=task, device=dev)
     rec = StepRecorder()
-    trainer_cls = model._component("trainer")
-
-    class Recorded(trainer_cls):
-        def train(self):
-            for ev, fn in (("on_train_start", rec.start), ("on_step_end", rec.step),
-                           ("on_val_start", rec.val_start), ("on_val_end", rec.val_end)):
-                self.callbacks.add(ev, fn)
-            model.recorded = self
-            return super().train()
-
-    model._component = lambda kind: Recorded if kind == "trainer" else trainer_cls
-    model.train(data=str(data), imgsz=sz, batch=n, dtype="bfloat16", epochs=1, workers=4,
-                project=str(root / "runs"), name=task, exist_ok=True, verbose=False)
-    trainer = model.recorded
+    trainer, _ = train_recorded(model, rec, data=str(data), imgsz=sz, batch=n,
+                                dtype="bfloat16", epochs=1, workers=4,
+                                project=str(root / "runs"), name=task, exist_ok=True,
+                                verbose=False)
     steps = HEADS_WARM + HEADS_TIMED
     k1 = 1 if task in ("segment", "pose") else 0
     require(len(rec.counts) == steps and all(c == want() for c in rec.counts),
@@ -5599,6 +5639,745 @@ def nas_phase(dev, launches: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 18
+
+LAYOUT_FULL = ("yolov12x", 640, 8)  # 18a: the main path's detector, size and batch
+LAYOUT_CMP = ("yolov12n", 640, 2)  # 18a: each stem card against CPU (phase 4's slice)
+STEMS = {"plain": {}, "s2d": dict(stem_s2d=True), "packed": dict(stem_packed=True)}
+STEM_REL = 0.02  # 18a: a stem option's maps against the plain stem's (tests/test_yolo_infer.py)
+STEM_BOX_PX = 0.5  # 18a: decoded boxes, a stem option against the plain stem
+S2D_STEP = ("yolov12n", 128, 2)  # 18a: the f32 training step, conv_impl="s2d" against native
+S2D_LOSS_TOL = 1e-4  # 18a: the s2d step's loss, relative (tests/test_conv_s2d.py's graph 1e-4)
+# 18a: its gradients by cosine, phase 9's f32 card-vs-CPU criteria (the same
+# arithmetic summed in another order) ten times tighter: the whole vector,
+# and every leaf whose norm is above 1e-3 of the largest
+S2D_GRAD_COS = (0.99999, 0.9999)
+SAM_KW = dict(img_size=256, dim=256, enc_depth=6, enc_heads=8, num_masks=3)  # JAX's defaults
+SAM_BATCH = 8  # 18b / 18c
+SAM_F32_TOL = 1e-4  # 18b-d: f32 outputs card vs CPU and kernel route vs einsum, relative
+SAM_WARM, SAM_TIMED = 2, 4  # 18b's SAMTrainer steps
+SAM_GRID = 8  # 18d: everything()'s point lattice, 64 prompts in one decode
+FASTSAM = ("yolov8x-seg", 1024, 2)  # 18e: FastSAM-x's architecture (nc 1) at FastSAM's size
+FASTSAM_CMP = ("yolov8n-seg", 128, 2)  # 18e: card against CPU
+
+
+def _stem_rel(ref: torch.Tensor, out: torch.Tensor) -> float:
+    """max |ref - out| / max(|ref|, 1), the bound of tests/test_yolo_infer.py."""
+    r, o = ref.float().cpu(), out.float().cpu()
+    return float(((r - o).abs() / r.abs().clamp(min=1.0)).max())
+
+
+def _kept(pred: torch.Tensor) -> list[set]:
+    """The anchors NMS keeps in each image of a decoded tensor."""
+    from kuzu_torch.ops.nms import non_max_suppression
+
+    sel = non_max_suppression(pred, conf_thres=CONF, return_indices=True)
+    return [set(i[v].tolist()) for i, v in zip(sel["indices"].cpu(), sel["valid"].cpu())]
+
+
+@contextlib.contextmanager
+def stem_routes(calls: list):
+    """The executor's stem rewrites taken inside the block, recorded by name
+    (``"s2d"``, ``"packed"``)."""
+    from kuzu_torch.models.yolo import infer
+
+    saved = infer.stem_conv_s2d, infer.stem_pair_packed
+
+    def rec(name, fn):
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    infer.stem_conv_s2d, infer.stem_pair_packed = rec("s2d", saved[0]), rec("packed", saved[1])
+    try:
+        yield
+    finally:
+        infer.stem_conv_s2d, infer.stem_pair_packed = saved
+
+
+@torch.no_grad()
+def stem_entries_differing(det, imgs) -> dict:
+    """(entries that differ, entries) of the stem rewrites' outputs against
+    the plain convolutions' on the same images: node 0 by ``stem_s2d``,
+    node 1 by ``stem_packed``."""
+    from kuzu_torch.models.yolo import infer
+    from kuzu_torch.ops.images import from_uint8
+
+    x = from_uint8(imgs, dtype=torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    a = det.spec.nodes[1].args
+    p0, p1 = infer._P(det.folded, "n0_Conv"), infer._P(det.folded, "n1_Conv")
+    y0 = infer.conv(p0, x, s=2)
+    y1 = infer.conv(p1, y0, s=2, g=a[4] if len(a) > 4 else 1)
+    z0 = infer.stem_conv_s2d(p0, x)
+    z1 = infer.stem_pair_packed(p0, p1, x, g1=a[4] if len(a) > 4 else 1)
+    return {"s2d node 0": (int((y0 != z0).sum()), y0.numel()),
+            "packed node 1": (int((y1 != z1).sum()), y1.numel())}
+
+
+def layout_stems(dev, launches: dict) -> dict:
+    """18a, inference: yolov12x@640 b8 bf16 through ``run_graph`` with the
+    plain, ``stem_s2d`` and ``stem_packed`` stems (infer -> decode -> NMS;
+    K2 16 and K1 once a batch): each option's maps against the plain stem's
+    within STEM_REL, its decode's class argmax identical wherever the top
+    class leads the runner-up by more than the two runs' largest score
+    difference (the other flips counted), its boxes within STEM_BOX_PX, the
+    NMS keeps that differ counted; ms/img for each stem (two rounds, in
+    turn). Then phase 4's slice, yolov12n@640 b2, card against CPU with
+    each stem (phase 4's criteria on the maps, K3 4 and K2 4 launches; NMS
+    of the CPU's decode identical)."""
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.ops.nms import non_max_suppression
+    from kuzu_torch.testing import maps_agreement, maps_match
+
+    name, sz, n = LAYOUT_FULL
+    det = YoloDetector(name, nc=80, imgsz=sz, device=dev).init(0)
+    imgs = torch.from_numpy(np.random.default_rng(18).integers(
+        0, 256, (n, sz, sz, 3), dtype=np.uint8)).to(dev)
+
+    def use(d, stem):
+        d.stem_s2d = STEMS[stem].get("stem_s2d", False)
+        d.stem_packed = STEMS[stem].get("stem_packed", False)
+
+    runs = {}
+    for stem in STEMS:
+        use(det, stem)
+        pipeline(det, imgs)
+        torch.cuda.synchronize()
+        routes = []
+        with stem_routes(routes):
+            zero_counts()
+            maps, pred, _ = pipeline(det, imgs)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        require(routes == ([] if stem == "plain" else [stem]), f"18a {stem}: stem routes {routes}")
+        require(counts == want(nms=1, fused_ablock=16), f"18a {stem} stem launch counts {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        runs[stem] = (maps, pred)
+    out = {}
+    stem_diff = stem_entries_differing(det, imgs)
+    print(f"18a {name}@{sz} b{n}: stem outputs differing from the plain stem's (bf16 entries): "
+          + ", ".join(f"{k} {v[0]} of {v[1]}" for k, v in stem_diff.items()))
+    for stem in ("s2d", "packed"):
+        rel = max(_stem_rel(r, o) for r, o in zip(runs["plain"][0], runs[stem][0]))
+        pr, po = runs["plain"][1], runs[stem][1]
+        dscore = float((pr[:, 4:] - po[:, 4:]).abs().max())
+        top2 = pr[:, 4:].topk(2, dim=1).values
+        decided = (top2[:, 0] - top2[:, 1]) > dscore
+        flips = pr[:, 4:].argmax(1) != po[:, 4:].argmax(1)
+        dbox = float((pr[:, :4] - po[:, :4]).abs().max())
+        kp, ko = _kept(pr), _kept(po)
+        keep_diff = sum(len(a ^ b) for a, b in zip(kp, ko))
+        print(f"18a {name}@{sz} b{n} stem {stem} against plain: maps max rel {rel:.2e} "
+              f"(< {STEM_REL}); decode: class argmax flips {int(flips.sum())} of "
+              f"{flips.numel()} anchors, {int((flips & decided).sum())} where decided (top "
+              f"class ahead by > the largest score difference {dscore:.2e}); boxes max |d| "
+              f"{dbox:.4f} px (<= {STEM_BOX_PX}); NMS keeps differing {keep_diff} of "
+              f"{sum(len(a) for a in kp)}")
+        require(rel < STEM_REL and not bool((flips & decided).any()) and dbox <= STEM_BOX_PX,
+                f"18a {stem} stem against the plain stem")
+        out[stem] = dict(maps_rel=rel, argmax_flips=int(flips.sum()), score_diff=dscore,
+                         box_px=dbox, keeps_differing=keep_diff, stem_entries_differing=(
+                             stem_diff["s2d node 0" if stem == "s2d" else "packed node 1"]))
+    times: dict[str, list] = {s: [] for s in STEMS}
+    for order in (list(STEMS), list(STEMS)[::-1]):
+        for stem in order:
+            use(det, stem)
+            times[stem].append(time_ms(lambda: pipeline(det, imgs), reps=10, warmup=2))
+    for stem, ts in times.items():
+        out.setdefault(stem, {})["ms_per_img"] = [t / n for t in ts]
+    print(f"18a {name}@{sz} b{n} bf16 end to end, ms/img (two rounds, median of 10 each): "
+          + ", ".join(f"{s} {ts[0] / n:.4f} / {ts[1] / n:.4f}" for s, ts in times.items()))
+    del det, imgs, runs
+    torch.cuda.empty_cache()
+
+    name, sz, n = LAYOUT_CMP
+    gpu = YoloDetector(name, nc=80, imgsz=sz, device=dev).init(0)
+    cpu = YoloDetector(name, nc=80, imgsz=sz, device="cpu").init(0)
+    x = torch.from_numpy(np.random.default_rng(19).integers(0, 256, (n, sz, sz, 3),
+                                                            dtype=np.uint8))
+    cmp = {}
+    for stem in STEMS:
+        use(gpu, stem)
+        use(cpu, stem)
+        zero_counts()
+        gmaps = gpu.infer(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        cmaps = cpu.infer(x)
+        worst = max(maps_agreement(c, g)[0] for c, g in zip(cmaps, gmaps))
+        require(all(maps_match(c, g) for c, g in zip(cmaps, gmaps)),
+                f"18a {name} stem {stem}: maps card vs CPU")
+        cpred = cpu.decode(cmaps)
+        zero_counts()
+        same = non_max_suppression(cpred.to(dev), conf_thres=CONF)
+        torch.cuda.synchronize()
+        nms_counts = launch_counts()
+        ref = non_max_suppression(cpred, conf_thres=CONF)
+        equal = all(torch.equal(same[k].cpu(), ref[k]) for k in ref)
+        require(equal and counts == want(area_attention=4, fused_ablock=4)
+                and nms_counts == want(nms=1), f"18a {name} stem {stem}: NMS, launches")
+        for c in (counts, nms_counts):
+            for k, v in c.items():
+                launches[k] += v
+        cmp[stem] = dict(maps_rel=worst, nms_equal=equal, launches=counts)
+    print(f"18a {name}@{sz} b{n} card vs CPU by stem: maps worst rel "
+          + ", ".join(f"{s} {c['maps_rel']:.4f}" for s, c in cmp.items())
+          + f" (< 0.05, share > 0.999); NMS of the CPU's decode on the card identical; "
+          f"forward launches {cmp['plain']['launches']} with every stem")
+    out["card_vs_cpu"] = cmp
+    return out
+
+
+def s2d_train_step(dev, launches: dict) -> dict:
+    """18a, training: one f32 step of yolov12n@128 b2 with ``conv_impl="s2d"``
+    against the native convolutions on the card, the same seeded weights
+    and batch (detection loss, SGD, no clipping): the loss within
+    S2D_LOSS_TOL relative, the gradients' cosines within S2D_GRAD_COS; the
+    largest difference against the largest gradient entry reported."""
+    from kuzu_torch.core.config import load_config
+    from kuzu_torch.core.train import TrainState, build_optimizer, make_train_step
+    from kuzu_torch.data.loader import default_collate
+    from kuzu_torch.models.yolo.graph import YoloGraph, parse_model_yaml, resolve_model_spec
+    from kuzu_torch.ops.detect_loss import detection_loss
+    from kuzu_torch.testing import SyntheticDetectionDataset
+
+    name, sz, n = S2D_STEP
+    path, scale = resolve_model_spec(name)
+    spec = parse_model_yaml(path, scale=scale, nc=3)
+    ds = SyntheticDetectionDataset(n, sz, max_boxes=24, nc=3, seed=5)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in default_collate([ds[i] for i in range(n)]).items()}
+    cfg = load_config(overrides=dict(warmup_epochs=0, epochs=1, grad_clip=0))
+    res = {}
+    for impl in ("native", "s2d"):
+        graph = YoloGraph(spec, dtype=torch.float32, conv_impl=impl)
+        graph.reset_parameters(torch.Generator().manual_seed(0))
+        graph.to(dev)
+        tx = build_optimizer(cfg, graph, 1)
+        grads, update = {}, tx.step
+
+        def snapshot_then_step(count, grad_norm, graph=graph, grads=grads, update=update):
+            grads.update({k: p.grad.detach().double().cpu() for k, p in
+                          graph.named_parameters()})
+            update(count, grad_norm)
+
+        tx.step = snapshot_then_step
+
+        def loss_fn(model, b):
+            return detection_loss(model(b["image"]), b["gt_labels"], b["gt_boxes"],
+                                  b["mask_gt"], nc=3, imgsz=sz, strides=spec.strides,
+                                  reg_max=spec.reg_max)
+
+        zero_counts()
+        metrics = make_train_step(loss_fn, tx)(TrainState(graph, tx), batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        res[impl] = (float(metrics["loss"]), grads, counts)
+    (l0, g0, c0), (l1, g1, c1) = res["native"], res["s2d"]
+    rel = abs(l1 - l0) / abs(l0)
+    top = max(float(t.abs().max()) for t in g0.values())
+    worst = max(float((g1[k] - t).abs().max()) for k, t in g0.items()) / top
+    cos, leaf = _grad_cos(g1, g0)
+    print(f"18a {name}@{sz} b{n} f32 train step, conv_impl s2d against native on the card: "
+          f"loss {l1:.6f} vs {l0:.6f} (rel {rel:.2e} <= {S2D_LOSS_TOL}); gradients: whole "
+          f"cosine {cos:.8f} (>= {S2D_GRAD_COS[0]}), worst leaf {leaf:.7f} (>= "
+          f"{S2D_GRAD_COS[1]}), max |d| / max |g| {worst:.2e} (max |g| {top:.3e}); launches "
+          f"{c1} (native {c0})")
+    require(rel <= S2D_LOSS_TOL and cos >= S2D_GRAD_COS[0] and leaf >= S2D_GRAD_COS[1]
+            and c0 == c1, "18a conv_impl s2d train step against native")
+    return dict(loss_rel=rel, grad_cos=cos, grad_leaf_cos=leaf, grad_rel=worst, grad_max=top)
+
+
+def sam_inputs(n: int, seed: int = 21):
+    """(images (n, 256, 256, 3) uint8: light pages with dark blocks, points
+    (n, 4, 2) in [0, 1], labels: a foreground point with a box in even rows,
+    a foreground and a background point in odd rows)."""
+    from kuzu_torch.models.sam import BG, BOX_BR, BOX_TL, FG, PAD
+
+    rng = np.random.default_rng(seed)
+    s = SAM_KW["img_size"]
+    imgs = np.full((n, s, s, 3), 230, np.uint8)
+    for i in range(n):
+        for _ in range(rng.integers(6, 14)):
+            y, x = rng.integers(0, s - 24, 2)
+            h, w = rng.integers(12, 90, 2)
+            imgs[i, y:y + h, x:x + w] = rng.integers(0, 120, 3)
+    pts = rng.uniform(0.1, 0.9, (n, 4, 2)).astype(np.float32)
+    lbl = np.array([[FG, BOX_TL, BOX_BR, PAD] if i % 2 == 0 else [FG, BG, PAD, PAD]
+                    for i in range(n)], np.int32)
+    return torch.from_numpy(imgs), torch.from_numpy(pts), torch.from_numpy(lbl)
+
+
+def seeded_sam(dev, dtype=torch.float32, attn_impl: str = "einsum", kind: str = "vit",
+               seed: int = 0):
+    """SAM at JAX's defaults (SAM_KW), seeded (``init_sam_``, drawn on the
+    CPU: every device and dtype gets the same weights), eval mode."""
+    from kuzu_torch.models.sam import SAM, init_sam_
+
+    m = init_sam_(SAM(**SAM_KW, encoder_kind=kind), torch.Generator().manual_seed(seed))
+    out = SAM(**SAM_KW, dtype=dtype, attn_impl=attn_impl, encoder_kind=kind)
+    out.load_state_dict(m.state_dict())
+    return out.to(dev).eval()
+
+
+@contextlib.contextmanager
+def attention_spy(calls: list):
+    """Every K3 and K4 call of the block recorded as (kind, args, kwargs,
+    result): K3 through ``models.layers.area_attention`` (the eval route)
+    and ``ops.flash_attention.area_attention`` (the training route's
+    forward), K4 through ``ops.flash_attention._bwd``."""
+    import importlib
+
+    layers = importlib.import_module("kuzu_torch.models.layers")
+    fa = importlib.import_module("kuzu_torch.ops.flash_attention")
+    saved = (layers.area_attention, fa.area_attention, fa._bwd)
+
+    def rec(kind, fn):
+        def wrapped(*args, **kw):
+            r = fn(*args, **kw)
+            calls.append((kind, args, kw, r))
+            return r
+        return wrapped
+
+    layers.area_attention = rec("K3", saved[0])
+    fa.area_attention = rec("K3", saved[1])
+    fa._bwd = rec("K4", saved[2])
+    try:
+        yield
+    finally:
+        layers.area_attention, fa.area_attention, fa._bwd = saved
+
+
+def attention_calls_against_plain(calls: list) -> dict:
+    """Each recorded K3 / K4 call held against its plain version on the
+    same inputs (copied to the CPU): K3's output within ``ATTN_F32_TOL`` /
+    ``ATTN_TOL`` (f32 / bf16) and its row statistics within
+    ``ATTN_F32_TOL``; K4's dq, dk, dv within ``BWD_F32_TOL`` / ``BWD_TOL``.
+    Returns the largest error of each kind."""
+    import importlib
+
+    from kuzu_torch.testing import attention_f32_over, attention_over, bwd_f32_over, bwd_over
+
+    fa = importlib.import_module("kuzu_torch.ops.flash_attention")
+
+    def cpu(t):
+        return t.detach().cpu() if torch.is_tensor(t) else t
+
+    def cpus(items):
+        return tuple(tuple(cpu(u) for u in t) if isinstance(t, tuple) else cpu(t)
+                     for t in items)
+
+    worst = {}
+    for kind, args, kw, got in calls:
+        f32 = args[0].dtype == torch.float32
+        if kind == "K3":
+            ref = fa.area_attention_plain(*cpus(args[:3]), args[3], 1.0 / (
+                args[0].shape[2] // args[3]) ** 0.5, kw.get("return_lse", False))
+            pairs = [(got, ref)] if torch.is_tensor(got) else [(got[0], ref[0]), (got[1], ref[1])]
+            for i, (g, r) in enumerate(pairs):
+                over = attention_f32_over if (f32 or i == 1) else attention_over
+                err, n_over, _ = over(g.detach().cpu(), r)
+                require(n_over == 0, f"{kind} call against its plain version: {n_over} over")
+                key = f"K3 {'f32' if f32 else 'bf16'}{' lse' if i else ''}"
+                worst[key] = max(worst.get(key, 0.0), err)
+        else:
+            q, k, v, do, heads, stats = args[:6]
+            want_qk = kw.get("want_qk", args[6] if len(args) > 6 else False)
+            ref = fa.area_attention_bwd_plain(*cpus((q, k, v, do)), heads,
+                                              1.0 / (q.shape[2] // heads) ** 0.5,
+                                              *cpus(stats or ()))
+            parts = (got[0][..., :q.shape[2]], got[0][..., q.shape[2]:], got[1]) if want_qk \
+                else got
+            for g, r in zip(parts, ref):
+                err, n_over = (bwd_f32_over if f32 else bwd_over)(g.detach().cpu(), r)
+                require(n_over == 0, f"K4 call against its plain version: {n_over} over")
+                key = f"K4 {'f32' if f32 else 'bf16'}"
+                worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def _grads(model) -> dict:
+    return {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _grad_cos(a: dict, b: dict) -> tuple[float, float]:
+    """(whole-gradient cosine, the worst leaf cosine over leaves whose norm
+    is above 1e-3 of the largest: an attention key bias's gradient is zero
+    but for rounding)."""
+    names = list(b)
+    top = max(float(b[k].norm()) for k in names)
+    whole = _cos(torch.cat([a[k].flatten() for k in names]),
+                 torch.cat([b[k].flatten() for k in names]))
+    leaf = min(_cos(a[k], b[k]) for k in names if float(b[k].norm()) > 1e-3 * top)
+    return whole, leaf
+
+
+def sam_card_vs_cpu(dev, launches: dict) -> dict:
+    """18b: SAM at JAX's defaults, batch SAM_BATCH, seeded: (1) f32 einsum
+    card against CPU (mask logits, IoU within SAM_F32_TOL); (2)
+    ``attn_impl="flash"`` against einsum on the card in f32 (K3 f32) and
+    bf16 (K3): 6 launches a forward, every launch held against its plain
+    version on the path's inputs; the model's outputs in f32 within
+    SAM_F32_TOL, in bf16 no farther from the f32 einsum outputs than the
+    bf16 einsum outputs are (x1.5 + 1e-3 of the largest); (3) a forward
+    and backward under ``"flash_train"`` against einsum (K3 with its
+    statistics and K4, 6 + 6 launches, each held against its plain
+    version): f32 gradients by cosine (whole >= 0.99999, every leaf above
+    1e-3 of the largest norm >= 0.9999), bf16 no farther from the f32
+    einsum gradients than bf16 einsum's (cosine, less 0.01)."""
+    x, pts, lbl = sam_inputs(SAM_BATCH)
+    cpu = seeded_sam("cpu")
+    gpu = seeded_sam(dev)
+    xd, pd, ld = x.to(dev), pts.to(dev), lbl.to(dev)
+    zero_counts()
+    with torch.no_grad():
+        gm, gi = gpu(xd, pd, ld)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cm, ci = cpu(x, pts, lbl)
+    cpu_s = time.perf_counter() - t0
+    err = max(_rel(gm, cm), _rel(gi, ci))
+    print(f"18b SAM {SAM_KW} b{SAM_BATCH} f32 einsum: masks {tuple(gm.shape)}, card vs CPU "
+          f"{err:.2e} (<= {SAM_F32_TOL}; mask logits max {float(cm.abs().max()):.3e}); launches "
+          f"{counts}; CPU forward {cpu_s:.1f} s")
+    require(err <= SAM_F32_TOL and counts == want() and bool(torch.isfinite(gm).all()),
+            "18b SAM card vs CPU")
+    out = dict(card_vs_cpu=err)
+    ref32 = (gm, gi)
+
+    def err_to(a, b):
+        return max(_rel(a[0], b[0]), _rel(a[1], b[1]))
+
+    for dt, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        ein = seeded_sam(dev, dt)
+        fl = seeded_sam(dev, dt, "flash")
+        with torch.no_grad():
+            e_out = ein(xd, pd, ld)
+            calls = []
+            with attention_spy(calls):
+                zero_counts()
+                f_out = fl(xd, pd, ld)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+        k3 = "area_attention_f32" if dt == torch.float32 else "area_attention"
+        require(counts == want(**{k3: SAM_KW["enc_depth"]}), f"18b flash {label} launches {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        worst = attention_calls_against_plain(calls)
+        if dt == torch.float32:
+            e = err_to(f_out, e_out)
+            ok, line = e <= SAM_F32_TOL, f"flash vs einsum {e:.2e} (<= {SAM_F32_TOL})"
+        else:
+            ef, ee = err_to(f_out, ref32), err_to(e_out, ref32)
+            ok = ef <= 1.5 * ee + 1e-3
+            line = (f"against the f32 einsum outputs: flash {ef:.2e}, einsum {ee:.2e} (flash <= "
+                    f"1.5 x einsum + 1e-3)")
+        print(f"18b SAM flash {label}: launches {counts}; {len(calls)} K3 calls against the "
+              f"plain version: max abs err {worst}; {line}")
+        require(ok, f"18b SAM flash {label} against einsum")
+        out[f"flash_{label}"] = dict(kernel_err=worst, launches=counts[k3])
+        del ein, fl
+
+    grads32 = None
+    w = None
+    for dt, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        res = {}
+        for impl in ("einsum", "flash_train"):
+            m = seeded_sam(dev, dt, impl).train()
+            calls = []
+            with attention_spy(calls):
+                zero_counts()
+                mask, iou = m(xd, pd, ld, train=True)
+                if w is None:
+                    w = torch.cos(torch.arange(mask.numel(), device=dev).float()).reshape(
+                        mask.shape)
+                ((mask * w).mean() + iou.square().sum()).backward()
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            res[impl] = (_grads(m), counts, calls)
+        ge, ce, _ = res["einsum"]
+        gf, cf, calls = res["flash_train"]
+        k3, k4 = (("area_attention_f32", "area_attention_bwd_f32") if dt == torch.float32
+                  else ("area_attention", "area_attention_bwd"))
+        depth = SAM_KW["enc_depth"]
+        require(ce == want() and cf == want(**{k3: depth, k4: depth}),
+                f"18b flash_train {label} launches {cf}")
+        for k, v in cf.items():
+            launches[k] += v
+        worst = attention_calls_against_plain(calls)
+        if dt == torch.float32:
+            grads32 = ge
+            whole, leaf = _grad_cos(gf, ge)
+            ok = whole >= 0.99999 and leaf >= 0.9999
+            line = (f"gradients against einsum: whole cosine {whole:.8f} (>= 0.99999), worst "
+                    f"leaf {leaf:.6f} (>= 0.9999)")
+        else:
+            cf32, ce32 = _grad_cos(gf, grads32)[0], _grad_cos(ge, grads32)[0]
+            ok = cf32 >= ce32 - 0.01
+            line = (f"whole-gradient cosine against the f32 einsum gradients: flash_train "
+                    f"{cf32:.6f}, einsum {ce32:.6f} (flash_train >= einsum - 0.01)")
+        print(f"18b SAM flash_train {label} forward + backward: launches {cf}; {len(calls)} K3 / "
+              f"K4 calls against the plain versions: max abs err {worst}; {line}")
+        require(ok, f"18b SAM flash_train {label} gradients")
+        out[f"flash_train_{label}"] = dict(kernel_err=worst)
+        del res
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def sam_train_run(dev, root, launches: dict) -> dict:
+    """18b: ``Model(task="sam").train`` at the task's model defaults (SAM_KW,
+    f32, einsum attention, AdamW) on YOLO-seg PNG pages and polygons written
+    here, batch SAM_BATCH, SAM_WARM + SAM_TIMED steps and one validation
+    (``miou`` on the EMA weights): launches (none: einsum), finite losses,
+    ms/step, a profiled step (device ms, idle share), peak memory."""
+    from kuzu_torch.api.model import Model
+    from kuzu_torch.data.loader import default_collate
+    from kuzu_torch.testing import write_head_folder
+
+    n, steps = SAM_BATCH, SAM_WARM + SAM_TIMED
+    data = write_head_folder(root / "sam_data", "segment", {"train": n * steps, "val": n},
+                             hw=(192, 256), n_inst=(3, 8), nc=1, seed=22)
+    model = Model("sam", task="sam", device=dev)
+    rec = StepRecorder()
+    trainer, final = train_recorded(model, rec, data=str(data), imgsz=SAM_KW["img_size"],
+                                    batch=n, dtype="float32", epochs=1, workers=4,
+                                    project=str(root / "runs"), name="sam", exist_ok=True,
+                                    verbose=False)
+    require(len(rec.counts) == steps and all(c == want() for c in rec.counts)
+            and rec.val_counts == want(), f"18b SAMTrainer launches {rec.counts}")
+    losses = [float(m["loss"]) for m in rec.metrics]
+    require(all(np.isfinite(losses)) and np.isfinite(final["miou"]),
+            f"18b SAMTrainer finite losses {losses}")
+    times = [a.elapsed_time(b) for a, b in zip(rec.events[:-1], rec.events[1:])]
+    ms = statistics.median(times[SAM_WARM:])
+    params = sum(p.numel() for p in trainer.state.model.parameters())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             default_collate([trainer.train_ds[i] for i in range(n)]).items()}
+    step = trainer._step
+    bd = device_breakdown(lambda: step(trainer.state, batch, trainer.step_rng(0)))
+    print(f"18b SAMTrainer {SAM_KW} b{n} f32 (einsum, AdamW) from PNG files: {params} params; "
+          f"losses {[round(x, 4) for x in losses]}; {ms:.3f} ms/step (median of {SAM_TIMED} "
+          f"after {SAM_WARM}; steps {[round(t, 2) for t in times]}), peak memory "
+          f"{rec.peak / 2**30:.2f} GiB; validation {rec.val_metrics}")
+    r = dict(ms_per_step=ms, step_ms=times, losses=losses, peak_gib=rec.peak / 2**30,
+             params=params, miou=final["miou"], device_ms=bd["busy_ms"],
+             idle_share=bd["idle_share"], breakdown=bd, run_dir=str(trainer.save_dir))
+    del trainer, model
+    torch.cuda.empty_cache()
+    return r
+
+
+def tiny_sam_card_vs_cpu(dev) -> dict:
+    """18c: SAM with the TinyViT encoder (``encoder="tiny"``, JAX's defaults),
+    seeded, f32, batch SAM_BATCH: the memory and the outputs card vs CPU
+    within SAM_F32_TOL; the encode's ms on the card."""
+    x, pts, lbl = sam_inputs(SAM_BATCH, seed=23)
+    cpu, gpu = seeded_sam("cpu", kind="tiny"), seeded_sam(dev, kind="tiny")
+    xd = x.to(dev)
+    with torch.no_grad():
+        gmem, (gm, gi) = gpu.encode(xd), gpu(xd, pts.to(dev), lbl.to(dev))
+        cmem, (cm, ci) = cpu.encode(x), cpu(x, pts, lbl)
+    err = max(_rel(gmem, cmem), _rel(gm, cm), _rel(gi, ci))
+    ms = time_ms(lambda: gpu.encode(xd), reps=10, warmup=2)
+    params = sum(p.numel() for p in gpu.encoder.parameters())
+    print(f"18c TinyViT SAM b{SAM_BATCH} f32: encoder {params} params, memory "
+          f"{tuple(gmem.shape)}; memory, masks and IoU card vs CPU {err:.2e} (<= {SAM_F32_TOL}); "
+          f"encode {ms:.3f} ms a batch (median of 10)")
+    require(err <= SAM_F32_TOL, "18c TinyViT SAM card vs CPU")
+    return dict(err=err, encode_ms=ms, encoder_params=params)
+
+
+def sam_predictor_card_vs_cpu(dev, image_path) -> dict:
+    """18d: ``SAMPredictor`` over the seeded f32 SAM on both devices, one
+    PNG page: ``__call__`` with point (foreground and background) and box
+    prompts, and ``everything(grid=SAM_GRID)`` (64 prompts in one decode;
+    no quality floor: seeded IoU predictions lie far below the default
+    0.7): IoU predictions within SAM_F32_TOL of the largest, masks identical
+    but at pixels whose logit lies within the two devices' largest logit
+    difference of 0 (counted); encode and ``everything`` ms on the card."""
+    from kuzu_torch.tasks.sam import SAMPredictor
+
+    preds = {d: SAMPredictor.from_model(seeded_sam(d)) for d in (dev, "cpu")}
+    seen = {d: [] for d in preds}
+    for d, p in preds.items():
+        decode = p.decode
+
+        def recording(*a, decode=decode, log=seen[d]):
+            logits, iou = decode(*a)
+            log.append(logits[np.arange(len(iou)), iou.argmax(1)])
+            return logits, iou
+
+        p.decode = recording
+    calls = [dict(points=[[60, 50], [180, 120]], labels=[1, 0]), dict(bboxes=[[20, 30, 200, 160]]),
+             dict(points=[[128, 96]], bboxes=[[10, 10, 240, 180]])]
+    flips = iou_err = logit_diff = 0.0
+    for kw in calls:
+        (gm, gi), (cm, ci) = preds[dev](image_path, **kw), preds["cpu"](image_path, **kw)
+        lg, lc = seen[dev][-1], seen["cpu"][-1]
+        diff = float(np.abs(lg - lc).max())
+        iou_err = max(iou_err, float(np.abs(gi - ci).max() / np.abs(ci).max()))
+        bad = (gm != cm) & (np.abs(lc) > diff)
+        require(not bad.any() and gm.any(), f"18d SAMPredictor masks {kw}")
+        flips += int((gm != cm).sum())
+        logit_diff = max(logit_diff, diff / float(np.abs(lc).max()))
+    ev = {d: p.everything(image_path, grid=SAM_GRID, iou_thresh=-np.inf) for d, p in preds.items()}
+    (gm, gq), (cm, cq) = ev[dev], ev["cpu"]
+    lg, lc = seen[dev][-1], seen["cpu"][-1]
+    diff = float(np.abs(lg - lc).max())
+    require(gm.shape == cm.shape and len(cm) > 1, f"18d everything: {gm.shape} vs {cm.shape}")
+    iou_err = max(iou_err, float(np.abs(gq - cq).max() / np.abs(cq).max()))
+    near = np.abs(lc).min(0) <= diff  # a pixel some prompt's mask could flip
+    require(not ((gm != cm) & ~near[None]).any(), "18d everything masks")
+    flips += int((gm != cm).sum())
+    logit_diff = max(logit_diff, diff / float(np.abs(lc).max()))
+    require(iou_err <= SAM_F32_TOL and logit_diff <= SAM_F32_TOL, "18d SAMPredictor IoU, logits")
+    p = preds[dev]
+    canvas, _ = p._load(image_path)
+    enc_ms = time_ms(lambda: p.encode(canvas), reps=10, warmup=2)
+    ev_ms = time_ms(lambda: p.everything(image_path, grid=SAM_GRID, iou_thresh=-np.inf),
+                    reps=5, warmup=1)
+    print(f"18d SAMPredictor f32 on {image_path.name}: prompts {len(calls)} calls, everything "
+          f"{len(cm)} masks of {SAM_GRID * SAM_GRID} prompts; IoU card vs CPU {iou_err:.2e}, "
+          f"logits {logit_diff:.2e} (<= {SAM_F32_TOL}); mask pixels differing {int(flips)} (each "
+          f"within the largest logit difference of 0); encode {enc_ms:.3f} ms, everything "
+          f"{ev_ms:.3f} ms (card)")
+    return dict(iou_err=iou_err, logit_err=logit_diff, mask_pixels_differing=int(flips),
+                everything_masks=len(cm), encode_ms=enc_ms, everything_ms=ev_ms)
+
+
+def fastsam_card_vs_cpu(dev, launches: dict) -> dict:
+    """18e, first part: ``FastSAMPredictor`` over yolov8n-seg (nc 1) at 128
+    b2 on both devices from one set of outputs: the CPU's forward (mask
+    coefficients scaled as 16a's), its decoded tensor selected on each
+    device (K1 on the card), masks composed on each; then the same box and
+    point prompts: the selected instances identical."""
+    from kuzu_torch.models.fastsam import FastSAMPredictor
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.tasks.segment import SegmentPredictor, compose_masks
+    from kuzu_torch.testing import head_sample
+
+    name, sz, n = FASTSAM_CMP
+    rng = np.random.default_rng(24)
+    imgs = [head_sample(rng, "segment", (sz, sz), (3, 6))[0] for _ in range(n)]
+    cdet = YoloDetector(name, nc=1, imgsz=sz, device="cpu").init(0)
+    cout = scaled_coefficients(cdet.infer(torch.from_numpy(np.stack(imgs))))
+    cpred = cdet.decode(cout)
+    prompts = [dict(bboxes=[[10, 10, 70, 90], [60, 20, 120, 110]]),
+               dict(points=[[30, 40], [90, 60]], labels=[1, 0]),
+               dict(points=[[64, 64]], labels=[0])]
+    res = {}
+    for d in (dev, "cpu"):
+        det = YoloDetector(name, nc=1, imgsz=sz, device=d).init(0)
+        seg = SegmentPredictor.from_detector(det, conf=CONF, iou=0.9, max_det=300)
+
+        def fwd(images, det=det, d=d):
+            o = {k: [t.to(d) for t in v] if isinstance(v, list) else v.to(d)
+                 for k, v in cout.items()}
+            sel = det.select(cpred.to(d), CONF, 0.9, 300, return_indices=True)
+            sel["masks"] = compose_masks(o, sel, sz)
+            return sel
+
+        seg._fwd = fwd
+        fs = FastSAMPredictor.from_segment_predictor(seg)
+        zero_counts()
+        res[d] = [fs(imgs, **kw) for kw in prompts]
+        if d == dev:
+            torch.cuda.synchronize()
+            counts = launch_counts()
+    require(counts == want(nms=len(prompts)), f"18e FastSAM card launches {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    picked = 0
+    for g, c in zip(res[dev], res["cpu"]):
+        for rg, rc in zip(g, c):
+            require(np.array_equal(rg.boxes.xyxy, rc.boxes.xyxy), "18e FastSAM selections")
+            picked += len(rc)
+    require(picked > 0, "18e FastSAM: prompts select instances")
+    print(f"18e FastSAM {name}@{sz} b{n} card vs CPU (one set of outputs): {picked} instances "
+          f"selected by {len(prompts)} prompts, identical; launches {counts}")
+    return dict(selected=picked, equal=True)
+
+
+def fastsam_full_width(dev, launches: dict) -> dict:
+    """18e: FastSAM-x (yolov8x-seg, nc 1, seeded; its mask coefficients'
+    leaves scaled by MASK_COEFF_SCALE, as 16a scales them, so that masks
+    depend on the page) at 1024, b2 pages of polygons: everything mode
+    (``conf`` CONF: seeded scores lie near 0.01, under FastSAM's default
+    0.25; IoU 0.9, 300 detections; NMS on K1), then a box and point prompt;
+    launches, instances, ms/img of everything mode and of the prompts'
+    selection."""
+    from kuzu_torch.models.fastsam import FastSAMPredictor
+    from kuzu_torch.models.yolo.detector import YoloDetector
+    from kuzu_torch.tasks.segment import SegmentPredictor
+    from kuzu_torch.testing import head_sample
+
+    name, sz, n = FASTSAM
+    rng = np.random.default_rng(25)
+    imgs = [head_sample(rng, "segment", (sz, sz), (8, 20))[0] for _ in range(n)]
+    det = YoloDetector(name, nc=1, imgsz=sz, device=dev).init(0)
+    for key, (w, b) in list(det.folded.items()):  # the mask coefficients' leaves, as 16a
+        if re.search(r"_Segment\.m\d+_2$", key):
+            det.folded[key] = (w * MASK_COEFF_SCALE, b * MASK_COEFF_SCALE)
+    fs = FastSAMPredictor.from_segment_predictor(
+        SegmentPredictor.from_detector(det, conf=CONF, iou=0.9, max_det=300))
+    fs(imgs)
+    torch.cuda.synchronize()
+    zero_counts()
+    every = fs(imgs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(counts == want(nms=1) and all(len(r) > 0 for r in every),
+            f"18e FastSAM-x everything: launches {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    t0 = time.perf_counter()
+    boxed = fs.prompt(every, bboxes=[[sz // 5, sz // 5, sz * 7 // 10, sz * 4 // 5]])
+    pointed = fs.prompt(every, points=[[sz // 2, sz // 2], [sz // 10, sz * 9 // 10]],
+                        labels=[1, 0])
+    sel_ms = (time.perf_counter() - t0) * 1e3 / n
+    require([len(r) for r in boxed] == [1] * n, "18e FastSAM-x box prompt selects one")
+    ms = time_ms(lambda: fs(imgs), reps=5, warmup=1)
+    print(f"18e FastSAM-x ({name}, nc 1, {det.param_count()} params)@{sz} b{n}: everything "
+          f"{[len(r) for r in every]} instances, launches {counts}; box prompt "
+          f"{[len(r) for r in boxed]}, points {[len(r) for r in pointed]}; everything "
+          f"{ms / n:.3f} ms/img (median of 5, host letterbox and mask readback included), "
+          f"prompt selection {sel_ms:.1f} ms/img (host numpy over full-frame masks)")
+    return dict(ms_per_img=ms / n, select_ms_per_img=sel_ms,
+                instances=[len(r) for r in every], params=det.param_count())
+
+
+def sam_phase(dev, launches: dict) -> dict:
+    """Phase 18: 18a (the layout options), 18b (SAM, its kernel routes and
+    trainer), 18c (TinyViT SAM), 18d (``SAMPredictor``), 18e (FastSAM)."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    out = dict(stems=layout_stems(dev, launches), s2d_step=s2d_train_step(dev, launches),
+               sam=sam_card_vs_cpu(dev, launches))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        out["sam_training"] = sam_train_run(dev, root, launches)
+        out["tiny_sam"] = tiny_sam_card_vs_cpu(dev)
+        page = sorted((root / "sam_data" / "images" / "val").glob("*.png"))[0]
+        out["sam_predictor"] = sam_predictor_card_vs_cpu(dev, page)
+    out["fastsam_card_vs_cpu"] = fastsam_card_vs_cpu(dev, launches)
+    out["fastsam"] = fastsam_full_width(dev, launches)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18: {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 KERNELS = {
@@ -5646,6 +6425,11 @@ def main() -> int:
         print(json.dumps({"nas_encoders_simple_vit": nas, "card": card}, default=str))
         print(card)
         return 0
+    if sys.argv[1:] == ["18"]:
+        sam = sam_phase(dev, dict.fromkeys(COUNTERS, 0))
+        print(json.dumps({"layout_options_sam": sam, "card": card}, default=str))
+        print(card)
+        return 0
     if sys.argv[1:] == ["10"]:
         train = train_full_width(dev, dict.fromkeys(COUNTERS, 0))
         train["remat"] = remat_full_width(dev, dict.fromkeys(COUNTERS, 0))
@@ -5679,6 +6463,7 @@ def main() -> int:
     zoo = zoo_phase(dev, launches)
     heads = heads_phase(dev, launches)
     nas = nas_phase(dev, launches)
+    sam = sam_phase(dev, launches)
     files = recognizer_training["image_file_training"]["detector"]
     print(f"p2x@640 b8 bf16 training: from the PNG folder (14b) {files['ms_per_step']:.3f} "
           f"ms/step, {files['images_per_s']:.2f} images/s; on synthetic tensors (10) "
@@ -5704,6 +6489,7 @@ def main() -> int:
     print(json.dumps({"yolo_zoo": zoo, "card": card}, default=str))
     print(json.dumps({"heads": heads, "card": card}, default=str))
     print(json.dumps({"nas_encoders_simple_vit": nas, "card": card}, default=str))
+    print(json.dumps({"layout_options_sam": sam, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 
 A task name maps to its trainer, validator and predictor classes; the port's
 task modules (``detect``, ``segment``, ``pose``, ``obb``, ``classify``,
-``ctc``, ``recognize``, ``lm``, ``nas``) register themselves on import through
+``ctc``, ``recognize``, ``lm``, ``nas``, ``sam``, and ``fastsam`` from
+``models/fastsam.py``) register themselves on import through
 :func:`register_task`. As in JAX, a name guesses its task by markers only
 (``yolov8n-seg`` guesses detect): pass ``task`` for the other heads. Every component runs on
 ``device`` (the card when None).
@@ -39,6 +40,8 @@ def task_map() -> dict[str, dict[str, Callable]]:
     import kuzu_torch.tasks.pose  # noqa: F401
     import kuzu_torch.tasks.recognize  # noqa: F401
     import kuzu_torch.tasks.segment  # noqa: F401
+    import kuzu_torch.models.fastsam  # noqa: F401  (registers 'fastsam')
+    import kuzu_torch.tasks.sam  # noqa: F401
 
     return _TASK_REGISTRY
 

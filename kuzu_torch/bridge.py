@@ -5,6 +5,11 @@ The flax tree comes as nested dicts of numpy arrays. Names map one to one:
 - ``params .../conv/kernel`` (HWIO, grouped ``(kh, kw, cin/g, cout)``) ->
   ``....conv.weight`` (OIHW ``(cout, cin/g, kh, kw)``); a bare Detect leaf
   ``params .../box0_2/kernel|bias`` -> ``....box0_2.weight|bias``;
+- ``params .../up1/kernel`` of a flax ``ConvTranspose`` (``(kh, kw, cin,
+  cout)``) -> ``....up1.weight`` of an ``nn.ConvTranspose2d`` (``(cin,
+  cout, kh, kw)``) with both spatial axes flipped: flax does not flip the
+  kernel (``transpose_kernel=False``), so its output pixel ``2i + t``
+  takes tap ``1 - t`` of a 2 x 2 stride-2 kernel where torch's takes ``t``;
 - ``params .../head/kernel|bias`` (a ``Dense``, kernel ``(in, out)``) ->
   ``....head.weight`` (``(out, in)``, transposed) ``|bias``;
 - ``params .../bn/scale|bias`` -> ``....bn.weight|bias``;
@@ -58,15 +63,17 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
 
 def _targets(root: nn.Module):
     """(flax path, port tensor, layout) for every tensor the port holds but
-    an LSTM's; layout "conv" is an HWIO kernel, "dense" an (in, out) one,
-    None a leaf taken as is."""
+    an LSTM's; layout "conv" is an HWIO kernel, "conv_transpose" a flax
+    ``ConvTranspose`` kernel, "dense" an (in, out) one, None a leaf taken
+    as is."""
     for name, m in root.named_modules():
         path = tuple(name.split(".")) if name else ()
         if isinstance(m, nn.LSTM):
             continue
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             yield ("params", *path, "kernel"), m.weight, (
-                "conv" if isinstance(m, nn.Conv2d) else "dense")
+                "conv" if isinstance(m, nn.Conv2d) else
+                "conv_transpose" if isinstance(m, nn.ConvTranspose2d) else "dense")
             if m.bias is not None:
                 yield ("params", *path, "bias"), m.bias, None
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
@@ -91,6 +98,8 @@ def _to_port(arr: np.ndarray, layout: str | None) -> np.ndarray:
     """A flax leaf in the port's layout."""
     if layout == "conv":
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if layout == "conv_transpose":  # (kh, kw, in, out), unflipped -> (in, out, kh, kw)
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     if layout == "dense":
         return arr.T
     return arr
@@ -126,11 +135,13 @@ class Slot:
     parameter's name; ``rows``, the row block of it (a gate of a stacked
     LSTM weight) or None for the whole tensor; ``transpose``, whether the
     flax leaf lands transposed (a Dense or LSTM kernel, ``(in, out)``);
-    ``shape``, the flax leaf's shape."""
+    ``shape``, the flax leaf's shape; ``layout``, the bridge's layout of
+    the leaf (``"conv"``, ``"conv_transpose"``, ``"dense"``, or None)."""
     param: str
     rows: tuple[int, int] | None
     transpose: bool
     shape: tuple[int, ...]
+    layout: str | None = None
 
 
 def param_slots(root: nn.Module, lstm_cells: dict | None = None) -> dict[tuple, Slot]:
@@ -146,9 +157,11 @@ def param_slots(root: nn.Module, lstm_cells: dict | None = None) -> dict[tuple, 
         shape = tuple(tensor.shape)
         if layout == "conv":
             shape = (shape[2], shape[3], shape[1], shape[0])
+        elif layout == "conv_transpose":
+            shape = (shape[2], shape[3], shape[0], shape[1])
         elif layout == "dense":
             shape = shape[::-1]
-        out[path[1:]] = Slot(names[id(tensor)], None, layout == "dense", shape)
+        out[path[1:]] = Slot(names[id(tensor)], None, layout == "dense", shape, layout)
     cells = lstm_cells if lstm_cells is not None else getattr(root, "flax_lstm_cells", None)
     for name, pair in (cells or {}).items():
         lstm = root.get_submodule(name)

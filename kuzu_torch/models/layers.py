@@ -40,6 +40,11 @@ NEG = -1e30  # masked scores and dead beams, as the reference's where(mask, s, -
 KERNEL_IMPLS = ("flash", "flash_train", "flash_interpret")
 TRAIN_KERNEL_IMPLS = ("flash_train", "flash_interpret")  # the kernel route in train mode too
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu`` (the tanh approximation)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             rng: torch.Generator | None) -> torch.Tensor:
     """flax's ``nn.Dropout``: with ``train`` and ``rate > 0``, each entry
@@ -197,7 +202,7 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: torch.Generator | None = None) -> torch.Tensor:
-        x = dropout(F.gelu(self.fc1(x), approximate="tanh"), self.dropout, train, rng)
+        x = dropout(gelu(self.fc1(x)), self.dropout, train, rng)
         return dropout(self.fc2(x), self.dropout, train, rng)
 
 

@@ -45,7 +45,14 @@ class YoloDetector:
         imgsz: int = 640,
         device: torch.device | str | None = None,
         reg_max: int | None = None,
+        conv_impl: str = "native",
+        stem_s2d: bool = False,
+        stem_packed: bool = False,
     ):
+        """``conv_impl`` is the module tree's (``YoloGraph``); ``stem_s2d``
+        and ``stem_packed`` are the folded executor's stem rewrites
+        (``infer.run_graph``). All three are math options, off by default:
+        JAX's detector passes ``stem_s2d`` on a TPU only."""
         if dtype != torch.bfloat16:
             raise NotImplementedError("the folded executor runs in bf16 only")
         self.device = resolve_device(device)
@@ -55,7 +62,8 @@ class YoloDetector:
             self.spec = self.resolve_spec(str(model), nc=nc)
         if reg_max is not None:  # a run's override of the DFL range
             self.spec.reg_max = int(reg_max)
-        self.graph = YoloGraph(self.spec)
+        self.graph = YoloGraph(self.spec, conv_impl=conv_impl)
+        self.stem_s2d, self.stem_packed = stem_s2d, stem_packed
         self.dtype = dtype
         self.imgsz = imgsz
         self.strides = list(self.spec.strides)
@@ -110,7 +118,8 @@ class YoloDetector:
         """BN-folded forward of (B, H, W, 3) images on the detector's device."""
         if self.folded is None:
             raise RuntimeError("call init() or load_flax() first")
-        return run_graph(self.spec, self.folded, images.to(self.device))
+        return run_graph(self.spec, self.folded, images.to(self.device),
+                         stem_s2d=self.stem_s2d, stem_packed=self.stem_packed)
 
     # ------------------------------------------------------------- helpers
     def feat_shapes(self, imgsz: int) -> list[tuple[int, int]]:

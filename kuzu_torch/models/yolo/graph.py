@@ -266,10 +266,8 @@ def resolve_model_spec(name: str) -> tuple[Path, str | None]:
 SUPPORTED = ("Conv", "DWConv", "C2f", "C3k2", "A2C2f", "C2PSA", "RepNCSPELAN4", "ADown",
              "SPPELAN", "C2fCIB", "SCDown", "PSA", "SPPF", "Upsample", "Concat", "Detect",
              "v10Detect", "Segment", "Pose", "OBB", "Classify")
-# What the port does not build from a yaml, with its ROADMAP.md section 1 item.
-LATER = ("YOLO-NAS is built by the nas task (models/nas.py), not from a yaml; the TPU "
-         "layout options (s2d convolutions, the packed stem: item 13.3) are a later slice "
-         "of the port")
+# What the port does not build from a yaml.
+LATER = "YOLO-NAS is built by the nas task (models/nas.py), not from a yaml"
 # The block modules the flax graph wraps in nn.remat (``_block``); plain
 # convs, the pools' blocks, Concat, Upsample and the heads are not wrapped.
 REMAT_BLOCKS = ("C2f", "C3k2", "A2C2f", "C2PSA", "RepNCSPELAN4", "C2fCIB", "PSA")
@@ -289,12 +287,14 @@ def unsupported(module: str) -> NotImplementedError:
                                f"YOLO zoo's modules; {LATER}")
 
 
-def build_node(node: NodeSpec, spec: GraphSpec, c1: int) -> nn.Module:
-    """The module of one parsed node, as the flax graph builds it."""
+def build_node(node: NodeSpec, spec: GraphSpec, c1: int, conv_impl: str = "native") -> nn.Module:
+    """The module of one parsed node, as the flax graph builds it;
+    ``conv_impl`` reaches the graph's ``Conv`` nodes only, as in JAX."""
     m, a, n = node.module, node.args, node.repeats
     if m == "Conv":
         return M.Conv(c1, a[0], k=a[1] if len(a) > 1 else 1, s=a[2] if len(a) > 2 else 1,
-                      g=a[4] if len(a) > 4 else 1, act=a[5] if len(a) > 5 else True)
+                      g=a[4] if len(a) > 4 else 1, act=a[5] if len(a) > 5 else True,
+                      impl=conv_impl)
     if m == "DWConv":
         return M.DWConv(c1, a[0], k=a[1] if len(a) > 1 else 3, s=a[2] if len(a) > 2 else 1)
     if m == "C2f":
@@ -351,10 +351,15 @@ class YoloGraph(nn.Module):
     (``torch.utils.checkpoint``, non-reentrant), the counterpart of the flax
     graph's ``nn.remat`` on its blocks (``REMAT_BLOCKS``): less memory for a
     second forward of each block. Values, gradients and BatchNorm statistics
-    are unchanged."""
+    are unchanged.
+
+    ``conv_impl="s2d"`` computes each eligible ``Conv`` node (k3, s2, even
+    H and W) as a dense k2 convolution over a space-to-depth packing
+    (``modules.Conv``), the same math up to summation order, with the same
+    parameters."""
 
     def __init__(self, spec: GraphSpec, dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, conv_impl: str = "native"):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
@@ -365,7 +370,8 @@ class YoloGraph(nn.Module):
                 raise unsupported(node.module)
             if node.module not in ("Upsample", "Concat"):
                 self.add_module(f"n{node.index}_{node.module}",
-                                build_node(node, spec, ch[node.frm[0]] if ch else 3))
+                                build_node(node, spec, ch[node.frm[0]] if ch else 3,
+                                           conv_impl))
             ch.append(node.c_out)
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor] | dict:

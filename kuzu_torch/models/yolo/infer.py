@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 from functools import partial
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -42,6 +43,7 @@ from kuzu_torch.ops.fused_ablock import (
     fused_ablock_fits,
 )
 from kuzu_torch.ops.images import from_uint8
+from kuzu_torch.ops.s2d import dense_k2, s2d_kernel, space_to_depth
 
 
 @torch.no_grad()
@@ -83,6 +85,109 @@ def conv(p: _P, x: torch.Tensor, s: int = 1, g: int = 1, act: bool = True):
     y = conv2d(x, w, None, s, w.shape[-1] // 2, 1, g)
     y = y + b.to(y.dtype).view(1, -1, 1, 1)
     return F.silu(y) if act else y
+
+
+def stem_conv_s2d(p: _P, x: torch.Tensor) -> torch.Tensor:
+    """The stem Conv(3 -> C, k3, s2) as a dense k2 convolution over the
+    2 x 2 space-to-depth packing of the image (``kuzu/models/yolo/infer.py::
+    stem_conv_s2d``): the same products as :func:`conv`, summed in another
+    order. The folded kernel is gathered (exactly) in bf16."""
+    w, b = p.get()
+    if tuple(w.shape[1:]) != (3, 3, 3):
+        raise ValueError(f"stem_conv_s2d takes an RGB 3 x 3 stem, got {tuple(w.shape)}")
+    y = dense_k2(space_to_depth(x), s2d_kernel(w).to(x.dtype))
+    return F.silu(y + b.to(y.dtype).view(1, -1, 1, 1))
+
+
+def _gather_taps(w: torch.Tensor, rows: np.ndarray, cols: np.ndarray, ok_r: np.ndarray,
+                 ok_c: np.ndarray) -> torch.Tensor:
+    """``w_hwio[rows, cols] * (ok_r & ok_c)`` with numpy index arrays that
+    broadcast, the kernel ``w`` given OIHW: a gather of the 3 x 3 taps,
+    zero where a tap falls outside the kernel."""
+    dev = w.device
+    w_hwio = w.permute(2, 3, 1, 0)
+    out = w_hwio[torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)]
+    ok = torch.from_numpy(ok_r & ok_c).to(dev)
+    return out * ok[..., None, None].to(out.dtype)
+
+
+def stem_pair_packed(p0: _P, p1: _P, x: torch.Tensor, g1: int = 1) -> torch.Tensor:
+    """Nodes 0 and 1 (both k3 s2 convolutions) as two dense k2 convolutions
+    on a 4 x 4 space-to-depth packing (``kuzu/models/yolo/infer.py::
+    stem_pair_packed``), the same math up to summation order:
+
+    - stage A: X4 = s2d(x, 4) (B, 16 cin, H / 4, W / 4); node 0 becomes a k2
+      s1 convolution over X4 whose output Y packs node 0's 2 x 2 output
+      pixels into channels in o-major order (o * 4 + a * 2 + b), so that
+      groups stay contiguous: y[2p + a, 2q + b] reads x rows 4p + 2a + di,
+      i.e. packed rows {p - 1, p}, taps (k, u) with di = 4k - 4 + u - 2a,
+      zero where |di| > 1;
+    - stage B: node 1 becomes a k2 s1 convolution over Y: z[m] reads y rows
+      2m + di = Y rows {m - 1, m}, taps (k, a) with di = 2(k - 1) + a, zero
+      at (k, a) = (0, 0). A grouped node 1 (yolov12's node 1 has g = 2)
+      slices each group's packed channels.
+
+    Kernels are gathered from the folded bf16 weights (exact) in JAX's
+    order; the biases are added in the activation dtype and SiLU follows."""
+    w0, b0 = p0.get()
+    w1, b1 = p1.get()
+    cin, c0, c1 = w0.shape[1], w0.shape[0], w1.shape[0]
+    dt = x.dtype
+    xp = space_to_depth(x, 4)
+
+    # stage A: HWIO (2, 2, (u, v, c) = 16 cin, (o, a, b) = 4 c0)
+    k, u, a = np.meshgrid(np.arange(2), np.arange(4), np.arange(2), indexing="ij")
+    di = 4 * k - 4 + u - 2 * a  # (2, 4, 2)
+    ok = (di >= -1) & (di <= 1)
+    idx = np.clip(di + 1, 0, 2)
+    wa = _gather_taps(w0, idx[:, :, None, None, :, None], idx[None, None, :, :, None, :],
+                      ok[:, :, None, None, :, None], ok[None, None, :, :, None, :])
+    wa = wa.permute(0, 2, 1, 3, 6, 7, 4, 5).reshape(2, 2, 16 * cin, 4 * c0)
+    y = dense_k2(xp, wa.permute(3, 2, 0, 1).to(dt))
+    y = F.silu(y + b0.repeat_interleave(4).to(y.dtype).view(1, -1, 1, 1))
+
+    # stage B: HWIO (2, 2, (o, a, b) = 4 c0g, c1); a grouped kernel is
+    # group-local on its input axis already
+    c0g = w1.shape[1]
+    k, a = np.meshgrid(np.arange(2), np.arange(2), indexing="ij")
+    di = 2 * (k - 1) + a  # (2, 2) in {-2 .. 1}
+    ok = di >= -1
+    idx = np.clip(di + 1, 0, 2)
+    wb = _gather_taps(w1, idx[:, :, None, None], idx[None, None, :, :],
+                      ok[:, :, None, None], ok[None, None])
+    wb = wb.permute(0, 2, 4, 1, 3, 5).reshape(2, 2, 4 * c0g, c1).permute(3, 2, 0, 1).to(dt)
+    if g1 > 1:
+        cgp, og = 4 * c0g, c1 // g1
+        z = torch.cat([dense_k2(y[:, gi * cgp:(gi + 1) * cgp], wb[gi * og:(gi + 1) * og])
+                       for gi in range(g1)], dim=1)
+    else:
+        z = dense_k2(y, wb)
+    return F.silu(z + b1.to(z.dtype).view(1, -1, 1, 1))
+
+
+def stem_fusable(spec, table: dict, x: torch.Tensor) -> bool:
+    """``stem_packed``'s preconditions (JAX's ``_stem_fusable``): nodes 0
+    and 1 are both k3 s2 Convs with SiLU, node 0 ungrouped from RGB, node 1
+    reads only node 0, nothing else reads node 0, and the image tiles by
+    4. Like JAX's it does not check the convolutions' padding."""
+    if len(spec.nodes) < 2 or x.shape[2] % 4 or x.shape[3] % 4:
+        return False
+    n0, n1 = spec.nodes[0], spec.nodes[1]
+    if any(0 in nd.frm for nd in spec.nodes[2:]):
+        return False
+    for nd, need_g1 in ((n0, True), (n1, False)):
+        if nd.module != "Conv":
+            return False
+        a = nd.args
+        if (a[2] if len(a) > 2 else 1) != 2:
+            return False
+        if need_g1 and (a[4] if len(a) > 4 else 1) != 1:
+            return False
+        if not (a[5] if len(a) > 5 else True):
+            return False
+        if tuple(table[f"n{nd.index}_Conv"][0].shape[2:]) != (3, 3):
+            return False
+    return x.shape[1] == 3 and list(n1.frm) == [0]
 
 
 def plain_conv(p: _P, x: torch.Tensor):
@@ -324,26 +429,43 @@ def obb(p: _P, feats: list, legacy: bool, ne: int) -> dict:
 
 
 @torch.no_grad()
-def run_graph(spec, table: dict, images: torch.Tensor) -> list[torch.Tensor] | dict:
+def run_graph(spec, table: dict, images: torch.Tensor, stem_s2d: bool = False,
+              stem_packed: bool = False) -> list[torch.Tensor] | dict:
     """Execute the parsed GraphSpec on (B, H, W, 3) images (uint8, or float
     already in [0, 1]); returns the per-level raw maps (B, H, W, 4*reg_max+nc)
     as NHWC views; for yolov10's dual head ``{"one2one": maps}``, the head
     that inference decodes (JAX's returns one2many's maps too, which its
     jitted callers discard unread); Segment ``{"det", "coeffs",
     "protos"}``, Pose ``{"det", "kpts_raw"}``, OBB ``{"det", "angle"}``.
-    The stem is the plain strided conv."""
+
+    The stem is the plain strided conv unless a math option asks for a
+    rewrite (both off by default, as JAX's): ``stem_s2d`` computes an RGB
+    k3 s2 node 0 by :func:`stem_conv_s2d`; ``stem_packed``, where
+    :func:`stem_fusable` holds, nodes 0 and 1 by :func:`stem_pair_packed`
+    (it wins over ``stem_s2d`` there)."""
     x = from_uint8(images, dtype=torch.bfloat16).permute(0, 3, 1, 2)
     x = x.contiguous(memory_format=torch.channels_last)
     outputs: dict[int, torch.Tensor] = {}
     cur = x
     result = None
+    fuse_stem = stem_packed and stem_fusable(spec, table, x)
     for node in spec.nodes:
+        if fuse_stem and node.index == 0:
+            continue  # computed with node 1
         ins = [cur if f == node.index - 1 else outputs[f] for f in node.frm]
         m, a = node.module, node.args
         p = _P(table, f"n{node.index}_{m}")
-        if m == "Conv":
-            cur = conv(p, ins[0], s=a[2] if len(a) > 2 else 1,
-                       g=a[4] if len(a) > 4 else 1, act=a[5] if len(a) > 5 else True)
+        if fuse_stem and node.index == 1:
+            cur = stem_pair_packed(_P(table, "n0_Conv"), p, x, g1=a[4] if len(a) > 4 else 1)
+        elif m == "Conv":
+            s, g, act = a[2] if len(a) > 2 else 1, a[4] if len(a) > 4 else 1, (
+                a[5] if len(a) > 5 else True)
+            if (stem_s2d and node.index == 0 and s == 2 and g == 1 and act
+                    and ins[0].shape[1] == 3 and ins[0].shape[2] % 2 == 0
+                    and ins[0].shape[3] % 2 == 0 and tuple(p.get()[0].shape[2:]) == (3, 3)):
+                cur = stem_conv_s2d(p, ins[0])
+            else:
+                cur = conv(p, ins[0], s=s, g=g, act=act)
         elif m == "DWConv":
             cur = conv(p.child("dw"), ins[0], s=a[2] if len(a) > 2 else 1,
                        g=ins[0].shape[1])

@@ -47,6 +47,7 @@ from kuzu_torch.ops.flash_attention import (
     materialised_area_attention,
     xla_attention,
 )
+from kuzu_torch.ops.s2d import s2d_strided_conv
 
 BN_MOMENTUM = 0.97  # flax momentum: ra = 0.97 ra + 0.03 batch statistic
 
@@ -108,18 +109,37 @@ def nchw(t: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
 
 class Conv(nn.Module):
     """Conv2d + BatchNorm + SiLU (``act``) as flax ``Conv``; padding is
-    ``k // 2``."""
+    ``k // 2``.
+
+    ``impl="s2d"`` computes an eligible convolution (k3, s2, p1, even H and
+    W, channels divisible by the groups: JAX's gate) as a dense k2
+    convolution over a space-to-depth packing (``ops/s2d.py``), the same
+    math up to summation order; anything else takes the native convolution.
+    The parameters stay the 3 x 3 kernel either way."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
-                 act: bool = True):
+                 act: bool = True, impl: str = "native"):
         super().__init__()
+        if impl not in ("native", "s2d"):
+            raise ValueError(f"Conv impl '{impl}': 'native' or 's2d'")
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = act
+        self.impl = impl
+
+    def s2d_eligible(self, x: torch.Tensor) -> bool:
+        """JAX's gate (``kuzu/models/yolo/modules.py:85-88``)."""
+        c = self.conv
+        return (self.impl == "s2d" and c.kernel_size == (3, 3) and c.stride == (2, 2)
+                and c.padding == (1, 1) and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+                and c.out_channels % c.groups == 0 and x.shape[1] % c.groups == 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
-        y = conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding, 1, c.groups)
+        if self.s2d_eligible(x):
+            y = s2d_strided_conv(x, c.weight.to(x.dtype), c.groups)
+        else:
+            y = conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding, 1, c.groups)
         y = flax_batch_norm(self.bn, y)
         return F.silu(y) if self.act else y
 

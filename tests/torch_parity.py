@@ -58,7 +58,9 @@ def flax_variables(model, sd: dict | None = None,
         if slot.rows is not None:
             t = t[slot.rows[0]:slot.rows[1]]
         arr = t.cpu().numpy()
-        if len(slot.shape) == 4:
+        if slot.layout == "conv_transpose":  # (in, out, kh, kw) -> flax's unflipped HWIO
+            arr = np.ascontiguousarray(arr.transpose(2, 3, 0, 1)[::-1, ::-1])
+        elif len(slot.shape) == 4:
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         put(("params", *path), arr.T if slot.transpose else arr)
     for path, tensor, _ in _targets(model):
