@@ -5,9 +5,9 @@ Positional mode / task tokens plus ``k=v`` overrides with typed coercion, as
 the reference's ``yolo`` entry point. ``device=`` picks the device (the card
 by default; ``device=cpu`` for the CPU). The JAX CLI's
 ``force_cpu_if_requested`` and its XLA compilation cache have no torch
-counterpart and are left out. ``track``, ``tune``, ``export`` and
-``benchmark`` parse and then raise ``NotImplementedError`` (ROADMAP.md
-section 1 item 16).
+counterpart and are left out. ``track`` runs ``Model.track``; ``tune``,
+``export`` and ``benchmark`` parse and then raise ``NotImplementedError``
+(ROADMAP.md section 1 item 16).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Model facade, the public entry point (counterpart of
-``kuzu/api/model.py``): ``Model(...).train() / .val() / .predict()``.
+``kuzu/api/model.py``): ``Model(...).train() / .val() / .predict() /
+.track()``.
 
 A task name maps to its trainer, validator and predictor classes; the port's
 task modules (``detect``, ``segment``, ``pose``, ``obb``, ``classify``,
@@ -21,8 +22,7 @@ from kuzu_torch.core.config import Config, load_config
 
 _TASK_REGISTRY: dict[str, dict[str, Callable]] = {}
 
-UNPORTED = ("ROADMAP.md section 1 item 16: the tracker, tuner, exporter and benchmark "
-            "tools are not ported")
+UNPORTED = "ROADMAP.md section 1 item 16: the tuner, exporter and benchmark tools are not ported"
 
 
 def register_task(name: str, **components: Callable) -> None:
@@ -126,7 +126,48 @@ class Model:
 
     def track(self, source: Any, tracker: str = "bytetrack", persist: bool = False,
               **kwargs: Any):
-        raise NotImplementedError(f"Model.track: {UNPORTED}")
+        """Predict frames in order and associate detections across them (the
+        reference ``Model.track``): the per-frame ``Results``, their boxes
+        the tracked ones, carrying ``.boxes.id``.
+
+        ``tracker``: ``"bytetrack"``, or ``"botsort"`` (camera-motion
+        compensated; it needs cv2 and raises naming it where cv2 is not
+        installed). ``persist=True`` keeps the tracker's state across calls
+        (streaming). The keys ``track_high_thresh``, ``track_low_thresh``,
+        ``match_thresh``, ``new_track_thresh`` and ``track_buffer`` go to the
+        tracker, the rest to ``predict``."""
+        import numpy as np
+
+        from kuzu_torch.api.results import Boxes
+        from kuzu_torch.pipeline.tracker import BoTSORT, ByteTracker
+
+        tk_kwargs = {k: kwargs.pop(k) for k in ("track_high_thresh", "track_low_thresh",
+                                                "match_thresh", "new_track_thresh",
+                                                "track_buffer") if k in kwargs}
+        results = self.predict(source, **kwargs)
+        if not persist or getattr(self, "_tracker_obj", None) is None:
+            cls = BoTSORT if str(tracker).startswith("botsort") else ByteTracker
+            self._tracker_obj = cls(**tk_kwargs)
+        tk = self._tracker_obj
+        for r in results:
+            extra = {}
+            if isinstance(tk, BoTSORT):
+                if r.orig_img is not None:
+                    extra["frame"] = r.orig_img
+                elif r.path:
+                    from kuzu_torch.data.image_io import imread_rgb
+
+                    extra["frame"] = imread_rgb(r.path)
+            tracks = tk.update(r.boxes.xyxy, r.boxes.conf, r.boxes.cls, **extra)
+            if tracks:
+                r.boxes = Boxes(np.stack([t.box for t in tracks]),
+                                np.array([t.score for t in tracks]),
+                                np.array([t.cls for t in tracks]), r.boxes.orig_shape,
+                                ids=np.array([t.track_id for t in tracks]))
+            else:
+                r.boxes = Boxes(np.zeros((0, 4)), np.zeros((0,)), np.zeros((0,)),
+                                r.boxes.orig_shape, ids=np.zeros((0,)))
+        return results
 
     def tune(self, iterations: int = 10, **kwargs: Any) -> dict:
         raise NotImplementedError(f"Model.tune: {UNPORTED}")

@@ -45,6 +45,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """flax's ``nn.leaky_relu``: ``where(x >= 0, x, slope x)``, whose
+    gradient at 0 is 1 (torch's ``F.leaky_relu`` takes ``slope`` there, and
+    a zero-bias layer over a blank region sits at exactly 0)."""
+    return torch.where(x >= 0, x, slope * x)
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             rng: torch.Generator | None) -> torch.Tensor:
     """flax's ``nn.Dropout``: with ``train`` and ``rate > 0``, each entry
@@ -130,6 +137,16 @@ def flax_init_(root: nn.Module, generator: torch.Generator) -> nn.Module:
             if name == "pos_embed":
                 p.normal_(0.0, 0.02, generator=generator)
     return root
+
+
+@torch.no_grad()
+def conv_transpose_init_(m: nn.ConvTranspose2d, generator: torch.Generator) -> None:
+    """flax's ``ConvTranspose`` init in distribution: lecun normal over the
+    kernel's ``kh kw cin`` fan-in, bias zero."""
+    cin, _, kh, kw = m.weight.shape
+    std = math.sqrt(1.0 / (cin * kh * kw)) / 0.87962566103423978
+    nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    m.bias.zero_()
 
 
 class Dense(nn.Linear):
@@ -241,15 +258,18 @@ class MultiHeadAttention(nn.Module):
     cross-attention's keys and values of the memory, as :meth:`kv_heads`
     gives them, batch B' with B a multiple of B'), the keys and values are
     not recomputed; each group of B / B' consecutive queries shares one
-    memory (a beam's hypotheses)."""
+    memory (a beam's hypotheses). ``kv_dim`` is the width of a
+    cross-attention's ``kv`` where it differs from ``dim`` (flax's Dense
+    takes its input width from the input)."""
 
     def __init__(self, dim: int, num_heads: int, attn_impl: str = "einsum",
-                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 kv_dim: int | None = None):
         super().__init__()
         self.num_heads, self.attn_impl, self.dropout = num_heads, attn_impl, dropout
         self.q = Dense(dim, dim, dtype)
-        self.k = Dense(dim, dim, dtype)
-        self.v = Dense(dim, dim, dtype)
+        self.k = Dense(kv_dim or dim, dim, dtype)
+        self.v = Dense(kv_dim or dim, dim, dtype)
         self.out = Dense(dim, dim, dtype)
 
     def _kernel_route(self, x: torch.Tensor, train: bool) -> bool:

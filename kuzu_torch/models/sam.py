@@ -41,6 +41,7 @@ from kuzu_torch.models.layers import (
     Mlp,
     MultiHeadAttention,
     PatchEmbed,
+    conv_transpose_init_,
     dtype_products,
     flax_init_,
     gelu,
@@ -264,11 +265,7 @@ def init_sam_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     flax_init_(model, generator)
     for m in model.modules():
         if isinstance(m, nn.ConvTranspose2d):
-            cin, _, kh, kw = m.weight.shape
-            std = math.sqrt(1.0 / (cin * kh * kw)) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-            m.bias.zero_()
+            conv_transpose_init_(m, generator)
         elif isinstance(m, FourierPE):
             m.gauss.normal_(0.0, 1.0, generator=generator).mul_(m.scale)
         elif isinstance(m, PromptEncoder):

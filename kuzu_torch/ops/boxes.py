@@ -26,15 +26,16 @@ def box_area(box: torch.Tensor) -> torch.Tensor:
 
 
 def box_iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU of two xyxy box sets: (N, 4) x (M, 4) -> (N, M).
+    """Pairwise IoU of two xyxy box sets: (..., N, 4) x (..., M, 4) ->
+    (..., N, M), batched over the leading axes.
 
     The operation order is the reference's: ``inter / ((a1 + a2 - inter) + EPS)``.
     """
-    lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
-    rb = torch.minimum(boxes1[:, None, 2:4], boxes2[None, :, 2:4])
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:4], boxes2[..., None, :, 2:4])
     wh = (rb - lt).clamp(min=0)
     inter = wh[..., 0] * wh[..., 1]
-    union = box_area(boxes1)[:, None] + box_area(boxes2)[None, :] - inter
+    union = box_area(boxes1)[..., :, None] + box_area(boxes2)[..., None, :] - inter
     return inter / (union + EPS)
 
 

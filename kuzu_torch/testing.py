@@ -617,6 +617,40 @@ def bwd_f32_over(out, ref) -> tuple[float, int]:
     return float(err.max()), int((err > 2e-5 * float(ref.float().abs().max())).sum())
 
 
+# K4 f32 on a path's own inputs whose gradient sums cancel (dQ of attention
+# over many near-identical tokens, blank page patches in SAM2's encoder:
+# dQ_i = scale sum_j dS_ij K_j with sum_j dS_ij = 0): there the plain f32
+# version's own rounding takes much of BWD_F32_TOL, and a 3xTF32 product's
+# unit roundoff is 4x f32's (the lo x lo term dropped: 2^-22 against
+# 2^-24). A tensor over BWD_F32_TOL is then held against the same
+# arithmetic in f64 (attention_bwd_f64): the kernel's largest error no more
+# than BWD_F32_COND times the plain f32 version's, and every planted fault
+# farther than that (or over BWD_F32_TOL in another tensor).
+BWD_F32_COND = 4.0
+
+
+def attention_bwd_f64(q, k, v, do, num_heads: int, out, lse):
+    """(dq, dk, dv) in f64 by ``area_attention_bwd_plain``'s arithmetic on
+    the same inputs: P = exp2(log2(e) S - lse) from the forward's base-2
+    ``lse``, D = rowsum(dO o out) from its ``out``."""
+    g, n, c = q.shape
+    hd = c // num_heads
+    scale = hd**-0.5
+
+    def heads(t):
+        return t.double().reshape(g, n, num_heads, hd).transpose(1, 2)
+
+    qh, kh, vh, doh = heads(q) * scale, heads(k), heads(v), heads(do)
+    p = torch.exp2(qh @ kh.transpose(-1, -2) / math.log(2.0) - lse.double()[..., None])
+    ds = p * (doh @ vh.transpose(-1, -2) - (doh * heads(out)).sum(-1, keepdim=True))
+
+    def back(t):
+        return t.transpose(1, 2).reshape(g, n, c)
+
+    return back((ds @ kh) * scale), back(ds.transpose(-1, -2) @ qh), \
+        back(p.transpose(-1, -2) @ doh)
+
+
 def attention_bwd_exact(q, k, v, do, num_heads: int, lse=None, *, tile: int = 64,
                         skip_last_query_tile: bool = False, d_zero: bool = False,
                         dq_scale: bool = True, one_part: bool = False,

@@ -238,10 +238,12 @@ def test_model_predict_on_a_port_run_dir(detect_run):
     assert [r.to_json() for r in model(str(pages), conf=0.001, max_det=20)] == \
         [r.to_json() for r in got]
     assert YOLO(str(run)).task == "detect"
-    for name in ("track", "tune", "export", "benchmark"):
+    tracked = model.track(str(pages), conf=0.001, max_det=20)
+    assert len(tracked) == 3 and all(r.boxes.id is not None and len(r.boxes.id) == len(r)
+                                     for r in tracked)
+    for name in ("tune", "export", "benchmark"):
         with pytest.raises(NotImplementedError, match="item 16"):
-            getattr(model, name)(source=str(pages)) if name == "track" else \
-                getattr(model, name)()
+            getattr(model, name)()
     assert Model("crnn").task == "ctc" and Model("trocr_base").task == "recognize"
 
 
