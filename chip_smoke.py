@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py 10   # the build and phase 10 alone, no result line
-                               # (likewise 16, 17 and 18)
+                               # (likewise 5, 16, 17, 18, 19 and 20)
 
 The second form times the training step of one checkout on its own, so
 that two commits can be compared in one call on one card.
@@ -249,10 +249,27 @@ Phases, each raising on failure:
    held against its plain version), ids on every ``Results`` and ids that
    follow persisting boxes, ``ObjectCounter`` and ``Heatmap`` (card
    against CPU), ms a frame, whether cv2 imports (without it, BoT-SORT's
-   error names cv2). ``python3 chip_smoke.py 19`` runs the build and
-   phase 19 alone;
-20. the ``kernels`` JSON line, then the card's name and power limit;
-21. last line: ``{"ok": true, "device": {...}}``.
+   error names cv2); in (d), a CVAE forward with neither noise nor a
+   generator copies no noise from the host. ``python3 chip_smoke.py 19``
+   runs the build and phase 19 alone;
+20. (after 19) the deployable artifact and the facade's tools: (a) each
+   ``kuzu_torch::`` operator (K1, K2, K3's forward in bf16 and f32) on
+   CUDA tensors at phase 3's shapes: ``torch.library.opcheck``, against
+   its plain version, its fake implementation's shape and dtype, and the
+   operator boundary's host cost a call; (b) TRACK's run dir exported
+   through ``Model.export`` (yolov12x@640 b8, NMS in) and reloaded by
+   ``AutoBackend``: export and reload seconds, the ``.pt2``'s size, its
+   operator nodes (K1 1, K2 16), one call's launches by the counters and
+   the profiler, its detections equal to the eager predictor's, ms/img of
+   both and the idle share of one profiled call; (c) yolov12n@640 b8 in
+   f32 through ``AutoBackend``, equal to the eager f32 path with TF32
+   off; (d) ``Model("yolov12x").benchmark`` at b1 and b8; (e)
+   ``Model("yolov12n").tune(iterations=2)`` at 128 on a seeded YOLO
+   folder; (f) ``Results.plot`` / ``save`` of one (b) frame, and the cv2
+   build's video backends. ``python3 chip_smoke.py 20`` runs the build and
+   phase 20 alone, ``python3 chip_smoke.py 5`` phase 5;
+21. the ``kernels`` JSON line, then the card's name and power limit;
+22. last line: ``{"ok": true, "device": {...}}``.
 
 Phase 3's plain references run with TF32 off for cuBLAS and cuDNN
 (``full_f32_references``); every later phase runs at torch's defaults,
@@ -6794,6 +6811,7 @@ def generative_steps(dev) -> dict:
         return cvae_loss(recon, imgs.to(d), mu, logvar)[0]
 
     out = dict(cvae=card_vs_cpu_step(dev, cvae, loss_fn, f"19d CVAE cvae_loss step b{n}"))
+    out["cvae"]["noise_copies"] = cvae_noise_copies(dev, cvae, imgs, labels)
 
     n = GAN_BATCH
     gen = flax_init_(StackGenerator(VOCAB, base_ch=GAN_BASE_CH), torch.Generator().manual_seed(1))
@@ -6852,6 +6870,45 @@ def generative_steps(dev) -> dict:
     del sides
     torch.cuda.empty_cache()
     return out
+
+
+def cvae_noise_copies(dev, cvae, imgs, labels) -> int:
+    """19d: a CVAE forward on the card with neither noise nor a generator
+    draws its noise on the card: the profile of one forward (its trace
+    holding kernels, else taken again) has no host-to-device copy of the
+    noise's size (a copy without a size counts as one)."""
+    import copy
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    model = copy.deepcopy(cvae).to(dev).eval()
+    x, y = imgs.to(dev), labels.to(dev)
+    with torch.no_grad():
+        mu = model.encoder(x, y)[0]
+        noise_bytes = mu.numel() * 4
+        model(x, y)
+        torch.cuda.synchronize()
+        for _ in range(4):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model(x, y)
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+            if any(e.get("cat") == "kernel" for e in events):
+                break
+    require(any(e.get("cat") == "kernel" for e in events), "19d a CVAE forward's profile")
+    htod = [e.get("args", {}).get("bytes") for e in events
+            if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    copies = sum(1 for b in htod if b in (None, noise_bytes))
+    print(f"19d CVAE forward without a generator: host-to-device copies {htod} (bytes), of the "
+          f"noise's {noise_bytes} bytes {copies} (must be 0: the noise is drawn on the card)")
+    require(copies == 0, "19d the CVAE's noise is drawn on the card")
+    return copies
 
 
 def _named(gen, discs) -> dict:
@@ -7012,6 +7069,375 @@ def last_models_phase(dev, launches: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 20
+
+EXPORT_F32 = ("yolov12n", 640, 8)  # 20c: model, image size, batch
+TUNE = ("yolov12n", 128, 2)  # 20e: model, image size, iterations (one short epoch each)
+
+
+def _fake_args(mode, args):
+    return [[mode.from_tensor(w) for w in a] if isinstance(a, list)
+            else mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def operator_checks(dev) -> dict:
+    """20a: each ``kuzu_torch::`` operator on CUDA tensors at phase 3's
+    shapes (K1 at B=8, K=2048; K2 at G=32 chunks of na=400, C=384, 12
+    heads, hidden 576; K3 bf16 at G=32, N=400, C=64, 2 heads; K3 f32 at
+    TROCR_K3), inside :func:`full_f32_references` as phase 3:
+    ``torch.library.opcheck`` (schema, fake implementation, dispatch); the
+    operator against its plain version (K1's keeps equal, K2 within
+    ABLOCK_TOL, K3 within ATTN_TOL / ATTN_F32_TOL); the fake
+    implementation's shape, dtype and device against the real output's.
+    Then the operator boundary's host cost: K1 at B=1, K=64 (a launch the
+    host outpaces) called 200 times through the operator and through its
+    launch function directly, host microseconds a call."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from kuzu_torch.ops import nms_kernel
+    from kuzu_torch.ops.flash_attention import area_attention_plain, attention_scale
+    from kuzu_torch.ops.fused_ablock import fused_ablock_plain
+    from kuzu_torch.ops.nms_kernel import suppress_reference
+    from kuzu_torch.testing import ablock_over, attention_f32_over, attention_over
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def plain3(q, k, v, heads):
+        return area_attention_plain(q, k, v, heads, attention_scale(q, heads))
+
+    def keeps(out, ref):
+        return int((out != ref).sum()), 0, 1.0
+
+    na, c, heads, hid = 400, 384, 12, 576
+    weights = [rnd(c, 2 * c, scale=c ** -0.5), rnd(1, 2 * c, dtype=torch.float32, scale=0.1),
+               rnd(c, c, scale=c ** -0.5), rnd(1, c, dtype=torch.float32, scale=0.1),
+               rnd(c, hid, scale=c ** -0.5), rnd(1, hid, dtype=torch.float32, scale=0.1),
+               rnd(hid, c, scale=hid ** -0.5), rnd(1, c, dtype=torch.float32, scale=0.1)]
+    gf, nf, cf, hf = TROCR_K3
+    ops = torch.ops.kuzu_torch
+    cases = {
+        "nms_keep": (ops.nms_keep, (*nms_inputs(dev), 0.45), suppress_reference, keeps),
+        "fused_ablock": (ops.fused_ablock, (*(rnd(32, na, c) for _ in range(3)), weights, 1,
+                                            heads), fused_ablock_plain, ablock_over),
+        "area_attention bf16": (ops.area_attention, (*(rnd(32, 400, 64) for _ in range(3)), 2),
+                                plain3, attention_over),
+        "area_attention f32": (ops.area_attention,
+                               (*(rnd(gf, nf, cf, dtype=torch.float32) for _ in range(3)), hf),
+                               plain3, attention_f32_over),
+    }
+    out = {}
+    with full_f32_references():
+        for name, (op, args, plain, over) in cases.items():
+            checks = torch.library.opcheck(op, args)
+            real, ref = op(*args), plain(*args)
+            with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+                fake = op(*_fake_args(mode, args))
+            torch.cuda.synchronize()
+            err, n_over, close = over(real, ref)
+            same = (fake.shape, fake.dtype, fake.device) == (real.shape, real.dtype, real.device)
+            ok = n_over == 0 and (close > 0.999 if over is ablock_over else err == 0
+                                  if over is keeps else True)
+            print(f"20a kuzu_torch::{name}: opcheck {sorted(checks.items())}; against the plain "
+                  f"version: {'keep mismatches' if name == 'nms_keep' else 'max_abs_err'} "
+                  f"{err:.4g}, over tolerance {n_over}; fake {tuple(fake.shape)} {fake.dtype} "
+                  f"{fake.device} == real: {same}")
+            require(all(v == "SUCCESS" for v in checks.values()) and ok and same
+                    and bool(torch.isfinite(real.float()).all()), f"20a kuzu_torch::{name}")
+            out[name] = dict(opcheck=checks, max_abs_err=err, over=n_over, fake_equal=same)
+    boxes, valid = nms_inputs(dev, 1, 64, seed=5)
+
+    def host_us(fn, n: int = 200) -> float:
+        for _ in range(10):
+            fn(boxes, valid, 0.45)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(boxes, valid, 0.45)
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    through = [host_us(ops.nms_keep), host_us(nms_kernel.launch)]
+    through += [host_us(ops.nms_keep), host_us(nms_kernel.launch)]
+    cost = dict(operator_us=min(through[0::2]), launch_us=min(through[1::2]), runs_us=through)
+    print(f"20a the operator boundary: K1 at B=1, K=64, host time a call through "
+          f"kuzu_torch::nms_keep {cost['operator_us']:.2f} us, through its launch function "
+          f"{cost['launch_us']:.2f} us (the lesser of 2 runs of 200 calls each: {through})")
+    out["boundary"] = cost
+    return out
+
+
+def export_full_width(dev, launches: dict) -> dict:
+    """20b: TRACK's run dir (yolov12x@640, nc 1, seeded, BatchNorm
+    calibrated, box head set) exported through ``Model.export`` (``nms``,
+    batch 8) into a temporary directory, reloaded by ``AutoBackend``: the
+    graph's operator nodes (K1 1, K2 16); one reloaded call's launches by
+    the counters (K1 1, K2 16, no plain call) and by the profiler (K2's
+    attention kernel 16 times, K1's sweep once); its detections equal to
+    the eager predictor's (``AutoBackend`` on the run dir, ``DetectPredictor.
+    _fwd``) on the same f32 frames in [0, 1], and, printed, on their uint8
+    pixels; export and reload seconds, the ``.pt2``'s MB; ms/img of eager
+    and exported calls (CUDA events, median of 10) and the idle share of
+    one profiled call of each. Returns the results, the frames and the
+    exported call's detections (20f draws them)."""
+    import tempfile
+    from pathlib import Path
+
+    from kuzu_torch.api.backend import AutoBackend
+    from kuzu_torch.api.model import Model
+    from kuzu_torch.ops.registry import graph_operators
+
+    name, sz, b = TRACK
+    frames = track_frames()
+    u8 = torch.from_numpy(np.stack(frames)).to(dev)
+    imgs = u8.float() / 255.0
+    kw = dict(conf=CONF, iou=0.7, max_det=TRACK_MAX_DET)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = track_run_dir(dev, Path(tmp), frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = Model(str(run), device=dev).export(format="stablehlo", nms=True, batch=b, **kw)
+        export_s = time.perf_counter() - t0
+        mb = blob.stat().st_size / 2**20
+        t0 = time.perf_counter()
+        exported = AutoBackend(blob)
+        reload_s = time.perf_counter() - t0
+        eager = AutoBackend(run, device=dev, **kw)
+        nodes = graph_operators(exported._fn)
+        print(f"20b {name}@{sz} b{b} exported through Model.export in {export_s:.1f} s, "
+              f"{mb:.1f} MB, reloaded by AutoBackend in {reload_s:.1f} s; operator nodes "
+              f"{nodes}, the .json's {exported.meta['operators']}; {exported.meta['in_avals']} -> "
+              f"{exported.meta['out_avals']}, device {exported.meta['device']}")
+        require(nodes == exported.meta["operators"]
+                == {"nms_keep": 1, "fused_ablock": 16, "area_attention": 0},
+                "20b the exported graph holds K1 once and K2 16 times")
+        exported(imgs), eager(imgs)  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        zero_counts()
+        got = exported(imgs)
+        torch.cuda.synchronize()
+        counts, plain = launch_counts(), plain_counts()
+        require(counts == want(nms=1, fused_ablock=16) and not any(plain.values()),
+                f"20b one exported call's launches {counts}, plain calls {plain}")
+        for k, v in counts.items():
+            launches[k] += v
+        ref = eager(imgs)
+        diff = {k: int((got[k] != ref[k]).sum()) for k in ref}
+        ref_u8 = eager(u8)
+        diff_u8 = {k: int((got[k] != ref_u8[k]).sum()) for k in ref_u8}
+        print(f"20b one exported call: launches {counts}; entries differing from the eager "
+              f"predictor on the same f32 frames {diff} (must be 0), on their uint8 pixels "
+              f"{diff_u8}; valid per frame {got['valid'].sum(1).tolist()}")
+        require(not any(diff.values()) and got["valid"].sum() > 0,
+                "20b the exported detections equal the eager predictor's")
+        prof = kernel_launch_counts(lambda: exported(imgs))
+        by = {kind: sum(n for k, n in prof.items() if pat in k) for kind, pat in
+              (("K2 attention", "attention_fwd_kernel"), ("K2 GEMMs", "gemm::gemm_kernel"),
+               ("K1 mask", "nms_mask"), ("K1 sweep", "nms_sweep"))}
+        print(f"20b the profiler's kernels of one exported call: {by}")
+        require(by["K2 attention"] == 16 and by["K1 sweep"] == 1,
+                "20b the profiler shows K2 16 times and K1 once")
+        calls = {"eager": lambda: eager(imgs), "exported": lambda: exported(imgs)}
+        rounds = {k: [] for k in calls}
+        for k in ("eager", "exported", "exported", "eager"):  # alternating, one process
+            rounds[k].append(time_ms(calls[k], reps=10, warmup=2) / b)
+        times = {f"{k}_ms_per_img": min(v) for k, v in rounds.items()}
+        bd = {k: device_breakdown(fn) for k, fn in calls.items()}
+        host = {k: host_ops(fn) for k, fn in calls.items()}
+        print(f"20b ms/img (CUDA events, median of 10 calls, the numpy copy of the outputs "
+              f"included; two rounds each, alternating): eager {rounds['eager']}, exported "
+              f"{rounds['exported']}; device ms / idle share of one call: exported "
+              f"{bd['exported']['busy_ms']:.3f} / {bd['exported']['idle_share']:.3f}, eager "
+              f"{bd['eager']['busy_ms']:.3f} / {bd['eager']['idle_share']:.3f}")
+    res = dict(export_s=export_s, reload_s=reload_s, pt2_mb=mb, nodes=nodes, launches=counts,
+               differing=diff, differing_uint8=diff_u8, profiler_kernels=by, **times,
+               rounds_ms_per_img=rounds, host_ops=host,
+               device_ms={k: v["busy_ms"] for k, v in bd.items()},
+               idle_share={k: v["idle_share"] for k, v in bd.items()})
+    return res, frames, got
+
+
+def host_ops(fn, top: int = 10) -> dict:
+    """The host's side of one call of ``fn`` (torch.profiler, CPU activity,
+    after one untimed call): its operator calls (``aten::`` and
+    ``kuzu_torch::``), the host ms they take in all (self time), and the
+    ``top`` operators by self time with their counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.key_averages() if e.key.startswith(("aten::", "kuzu_torch::"))]
+    ranked = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:top]
+    out = dict(wall_ms=wall, op_calls=sum(e.count for e in ops),
+               op_self_ms=sum(e.self_cpu_time_total for e in ops) / 1e3,
+               top={e.key: (e.count, round(e.self_cpu_time_total / 1e3, 3)) for e in ranked})
+    print(f"  host side of one call (profiled wall {wall:.3f} ms): {out['op_calls']} operator "
+          f"calls, {out['op_self_ms']:.3f} ms self time; top by self ms (count, ms): "
+          f"{out['top']}")
+    return out
+
+
+def export_f32(dev, launches: dict) -> dict:
+    """20c: yolov12n@640 b8 f32 (seeded; the module tree in eval mode)
+    exported by ``export_detector`` and run by ``AutoBackend`` (inside
+    ``f32_products``): its launches (K1 once: the f32 tree's attention is
+    materialised on the card), its detections equal to the eager f32 path
+    (``YoloGraph.forward``, TF32 off); printed, how many entries the same
+    program gives otherwise when called outside ``f32_products`` (TF32 on
+    for cuDNN, torch's default)."""
+    import tempfile
+    from pathlib import Path
+
+    from kuzu_torch.api.backend import AutoBackend
+    from kuzu_torch.api.export import export_detector
+    from kuzu_torch.models.yolo.detector import YoloDetector
+
+    name, sz, b = EXPORT_F32
+    det = YoloDetector(name, nc=80, imgsz=sz, device=dev).init(0)
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (b, sz, sz, 3), dtype=np.uint8)).to(dev).float() / 255.0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        blob = export_detector(det, Path(tmp) / "f32", batch=b, conf=CONF, iou=0.7,
+                               dtype=torch.float32)
+        backend = AutoBackend(blob)
+        seconds = time.perf_counter() - t0
+    backend(imgs)
+    torch.cuda.synchronize()
+    zero_counts()
+    got = backend(imgs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(counts == want(nms=1), f"20c one f32 exported call's launches {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    with torch.no_grad():
+        ref = det.select(det.decode(det.graph.eval()(imgs)), CONF, 0.7, 300)
+        raw = backend._fn(imgs)  # outside f32_products: TF32 convolutions
+    diff = {k: int((got[k] != ref[k].cpu().numpy()).sum()) for k in ref}
+    diff_tf32 = {k: int((raw[k] != ref[k]).sum()) for k in ref}
+    ms = time_ms(lambda: backend(imgs), reps=5, warmup=1) / b
+    print(f"20c {name}@{sz} b{b} f32 exported and reloaded in {seconds:.1f} s; launches {counts};"
+          f" entries differing from the eager f32 path (TF32 off) {diff} (must be 0); the same "
+          f"program called outside f32_products (TF32 on for cuDNN) {diff_tf32}; valid per "
+          f"image {got['valid'].sum(1).tolist()}; {ms:.4f} ms/img (median of 5)")
+    require(not any(diff.values()) and got["valid"].sum() > 0,
+            "20c the f32 program equals the eager f32 path")
+    return dict(seconds=seconds, launches=counts, differing=diff, differing_tf32=diff_tf32,
+                ms_per_img=ms)
+
+
+def benchmark_rows(dev) -> list:
+    """20d: ``Model("yolov12x").benchmark`` at 640, b1 and b8: ms/img and
+    TFLOP/s of the flop count of one call (``tools/profiling.flops_of``:
+    products and convolutions, K1 and K2 by their operators' formulas)."""
+    from kuzu_torch.api.model import Model
+    from kuzu_torch.tools.benchmarks import format_table
+
+    t0 = time.perf_counter()
+    rows = Model("yolov12x", device=dev).benchmark(imgsz=640, batches=(1, 8))["rows"]
+    print(f"20d Model('yolov12x').benchmark(imgsz=640, batches=(1, 8)) in "
+          f"{time.perf_counter() - t0:.1f} s:")
+    print(format_table(rows))
+    require(len(rows) == 2 and all(r["median_ms"] > 0 and r["tflops"] > 0 for r in rows),
+            "20d benchmark rows")
+    return rows
+
+
+def tune_run(dev) -> dict:
+    """20e: ``Model("yolov12n").tune(iterations=2)`` at 128, one short
+    epoch an iteration, on a seeded YOLO folder (``write_yolo_folder``: 8
+    training and 4 validation pages of 128 x 128, 2 classes): the CSV's
+    rows and the seconds an iteration."""
+    import tempfile
+    from pathlib import Path
+
+    from kuzu_torch.api.model import Model
+    from kuzu_torch.testing import write_yolo_folder
+
+    name, sz, iters = TUNE
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = write_yolo_folder(root / "data", {"train": 8, "val": 4}, hw=(sz, sz), nc=2)
+        t0 = time.perf_counter()
+        best = Model(name, device=dev).tune(iterations=iters, data=str(data), epochs=1,
+                                            imgsz=sz, batch=4, workers=0, project=str(root),
+                                            tune_dir=str(root / "tune"))
+        seconds = (time.perf_counter() - t0) / iters
+        rows = (root / "tune" / "tune_results.csv").read_text().splitlines()
+    print(f"20e Model('{name}').tune(iterations={iters}) at {sz}: {seconds:.1f} s an iteration; "
+          f"tune_results.csv:")
+    for line in rows:
+        print(f"  {line}")
+    require(len(rows) == iters + 1 and np.isfinite(best["best_fitness"]), "20e tune rows")
+    return dict(seconds_per_iteration=seconds, rows=rows, best_fitness=best["best_fitness"])
+
+
+def results_plot(frames, dets) -> dict:
+    """20f: ``Results.plot`` / ``save`` of 20b's first frame and its exported
+    detections (640 px, no letterbox), the PNG read back equal; which video
+    I/O backends this cv2 build has, and whether a clip it writes reads
+    back (``cv2.VideoWriter`` / ``VideoCapture``, MJPG in AVI)."""
+    import os
+    import tempfile
+
+    import cv2
+
+    from kuzu_torch.api.results import Boxes, Results
+
+    valid = dets["valid"][0]
+    r = Results(frames[0], "frame0", {0: "char"},
+                Boxes(dets["boxes"][0][valid], dets["scores"][0][valid],
+                      dets["classes"][0][valid], frames[0].shape[:2]))
+    with tempfile.TemporaryDirectory() as tmp:
+        plot = r.plot()
+        back = cv2.cvtColor(cv2.imread(str(r.save(os.path.join(tmp, "f.png")))),
+                            cv2.COLOR_BGR2RGB)
+        same = np.array_equal(back, plot)
+        changed = int((plot != frames[0]).any(-1).sum())
+        clip = os.path.join(tmp, "clip.avi")
+        vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 5, (64, 48))
+        for i in range(3):
+            vw.write(np.full((48, 64, 3), 40 * i, np.uint8))
+        vw.release()
+        cap = cv2.VideoCapture(clip)
+        read = 0
+        while cap.read()[0]:
+            read += 1
+        cap.release()
+    backends = [cv2.videoio_registry.getBackendName(b) for b in cv2.videoio_registry.getBackends()]
+    print(f"20f Results.plot of {len(r)} boxes on a {frames[0].shape} frame: {changed} pixels "
+          f"drawn; save read back equal: {same}; cv2 {cv2.__version__} video backends "
+          f"{backends}, a 3-frame MJPG clip written and read back: {read} frames")
+    require(same and changed > 0, "20f Results.plot / save")
+    return dict(boxes=len(r), pixels_drawn=changed, saved_equal=same, video_backends=backends,
+                clip_frames_read=read)
+
+
+def export_phase(dev, launches: dict) -> dict:
+    """Phase 20: 20a (the operators), 20b (the full-width export), 20c
+    (an f32 export), 20d (``Model.benchmark``), 20e (``Model.tune``), 20f
+    (``Results.plot`` / ``save``)."""
+    t0 = time.perf_counter()
+    out = dict(operators=operator_checks(dev))
+    out["export"], frames, dets = export_full_width(dev, launches)
+    out["export_f32"] = export_f32(dev, launches)
+    out["benchmark"] = benchmark_rows(dev)
+    out["tune"] = tune_run(dev)
+    out["results"] = results_plot(frames, dets)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 20: {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 KERNELS = {
@@ -7069,6 +7495,16 @@ def main() -> int:
         print(json.dumps({"last_models_track": last, "card": card}, default=str))
         print(card)
         return 0
+    if sys.argv[1:] == ["20"]:
+        export = export_phase(dev, dict.fromkeys(COUNTERS, 0))
+        print(json.dumps({"export_tools": export, "card": card}, default=str))
+        print(card)
+        return 0
+    if sys.argv[1:] == ["5"]:
+        e2e = full_width(dev, dict.fromkeys(COUNTERS, 0))[0]
+        print(json.dumps({"e2e_yolov12x_640_b8": e2e, "card": card}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["10"]:
         train = train_full_width(dev, dict.fromkeys(COUNTERS, 0))
         train["remat"] = remat_full_width(dev, dict.fromkeys(COUNTERS, 0))
@@ -7104,6 +7540,7 @@ def main() -> int:
     nas = nas_phase(dev, launches)
     sam = sam_phase(dev, launches)
     last = last_models_phase(dev, launches)
+    export = export_phase(dev, launches)
     files = recognizer_training["image_file_training"]["detector"]
     print(f"p2x@640 b8 bf16 training: from the PNG folder (14b) {files['ms_per_step']:.3f} "
           f"ms/step, {files['images_per_s']:.2f} images/s; on synthetic tensors (10) "
@@ -7131,6 +7568,7 @@ def main() -> int:
     print(json.dumps({"nas_encoders_simple_vit": nas, "card": card}, default=str))
     print(json.dumps({"layout_options_sam": sam, "card": card}, default=str))
     print(json.dumps({"last_models_track": last, "card": card}, default=str))
+    print(json.dumps({"export_tools": export, "card": card}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ Positional mode / task tokens plus ``k=v`` overrides with typed coercion, as
 the reference's ``yolo`` entry point. ``device=`` picks the device (the card
 by default; ``device=cpu`` for the CPU). The JAX CLI's
 ``force_cpu_if_requested`` and its XLA compilation cache have no torch
-counterpart and are left out. ``track`` runs ``Model.track``; ``tune``,
-``export`` and ``benchmark`` parse and then raise ``NotImplementedError``
-(ROADMAP.md section 1 item 16).
+counterpart and are left out. ``track`` runs ``Model.track``, ``tune``
+``Model.tune``, ``export`` ``Model.export`` (prints the ``.pt2`` path) and
+``benchmark`` ``Model.benchmark`` at the config's ``imgsz`` and ``batch``
+(prints its table).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ examples:
   python -m kuzu_torch.api.cli predict detect model=runs/detect/x/weights source=page.jpg
   python -m kuzu_torch.api.cli track detect model=runs/detect/x source=frames/ tracker=botsort
   python -m kuzu_torch.api.cli tune detect data=dataset.yaml iterations=10 epochs=3
+  python -m kuzu_torch.api.cli export detect model=runs/detect/x nms=True batch=8
+  python -m kuzu_torch.api.cli benchmark detect model=yolov12x imgsz=640 batch=8
 """
 
 
@@ -75,7 +78,12 @@ def main(argv: list[str] | None = None) -> int:
     elif mode == "export":
         result = model.export(**overrides)
     else:
-        result = model.benchmark(**overrides)
+        from kuzu_torch.tools.benchmarks import format_table
+
+        rows = model.benchmark(imgsz=int(cfg.get("imgsz", 640)),
+                               batches=(int(cfg.get("batch", 1)),))["rows"]
+        print(format_table(rows))
+        return 0
     if isinstance(result, dict):
         print(
             " ".join(
@@ -105,6 +113,8 @@ def main(argv: list[str] | None = None) -> int:
                     else ""
                 )
                 print(f"[{i}] {getattr(r, 'path', '')}: {n} boxes{tag}")
+    elif result is not None:  # export: the .pt2 path
+        print(result)
     return 0
 
 

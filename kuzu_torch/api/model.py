@@ -1,6 +1,6 @@
 """Model facade, the public entry point (counterpart of
 ``kuzu/api/model.py``): ``Model(...).train() / .val() / .predict() /
-.track()``.
+.track() / .tune() / .export() / .benchmark()``.
 
 A task name maps to its trainer, validator and predictor classes; the port's
 task modules (``detect``, ``segment``, ``pose``, ``obb``, ``classify``,
@@ -8,7 +8,8 @@ task modules (``detect``, ``segment``, ``pose``, ``obb``, ``classify``,
 ``models/fastsam.py``) register themselves on import through
 :func:`register_task`. As in JAX, a name guesses its task by markers only
 (``yolov8n-seg`` guesses detect): pass ``task`` for the other heads. Every component runs on
-``device`` (the card when None).
+``device`` (the card when None). ``Model("hub://<name>")`` resolves a run
+published in the local hub (``core/hub.py``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ import torch
 from kuzu_torch.core.config import Config, load_config
 
 _TASK_REGISTRY: dict[str, dict[str, Callable]] = {}
-
-UNPORTED = "ROADMAP.md section 1 item 16: the tuner, exporter and benchmark tools are not ported"
 
 
 def register_task(name: str, **components: Callable) -> None:
@@ -56,9 +55,10 @@ class Model:
 
     def __init__(self, model: str | Path, task: str | None = None,
                  device: torch.device | str | None = None, **kwargs: Any):
-        if str(model).startswith("hub://"):
-            raise NotImplementedError(f"{model}: the local model hub ({UNPORTED}) is not "
-                                      "ported")
+        if str(model).startswith("hub://"):  # local registry (core/hub.py)
+            from kuzu_torch.core.hub import resolve
+
+            model = resolve(model)
         self.model_spec = str(model)
         self.task = task or self._guess_task(self.model_spec)
         self.device = device
@@ -170,13 +170,35 @@ class Model:
         return results
 
     def tune(self, iterations: int = 10, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"Model.tune: {UNPORTED}")
+        """Evolutionary hyperparameter search — the reference ``Model.tune``
+        (``engine/model.py:817``): mutate the best-so-far hyps, run a short
+        training per iteration, track fitness in tune_results.csv."""
+        from kuzu_torch.tools.tuner import Tuner
+
+        tune_dir = kwargs.pop("tune_dir", "runs/tune")
+        seed = int(kwargs.get("seed", 0))
+
+        def train_fn(hyps: dict) -> float:
+            res = self.train(**{**kwargs, **hyps})
+            return float(res.get("fitness", 0.0))
+
+        tuner = Tuner(train_fn, save_dir=tune_dir, seed=seed)
+        fitness, hyps = tuner.run(iterations=int(iterations))
+        return {"best_fitness": fitness, **hyps}
 
     def export(self, **kwargs: Any):
-        raise NotImplementedError(f"Model.export: {UNPORTED}")
+        """The ``.pt2`` program of a detector run (``api/export.py``;
+        ``format``, ``nms``, ``batch``, ``conf``, ``iou``, ``max_det`` from the
+        config), exported on ``device``."""
+        exporter = self._component("exporter")
+        return exporter(self._cfg("export", **kwargs), device=self.device).run()
 
     def benchmark(self, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"Model.benchmark: {UNPORTED}")
+        """Rows of ``tools/benchmarks.py::benchmark_detectors`` for this
+        model's architecture on ``device``."""
+        from kuzu_torch.tools.benchmarks import benchmark_model
+
+        return benchmark_model(self, **kwargs)
 
 
 class YOLO(Model):

@@ -7,8 +7,9 @@ access, iteration, ``filter``, ``save_txt``, ``to_json``, ``summary``),
 predictors' extras; JAX keeps the last two in ``kuzu/tasks/pose.py`` and
 ``kuzu/tasks/obb.py``) hold numpy arrays, as the reference's do. ``Masks.full`` repeats
 cv2's ``INTER_NEAREST`` with index arithmetic. ``Results.plot`` and
-``save`` draw text with cv2's fonts, which the port does not have: they
-raise ``NotImplementedError`` (ROADMAP.md).
+``save`` draw and write with cv2 (its rectangles, Hershey font and PNG /
+JPEG writer), as JAX's do; where cv2 is not installed they raise an
+``ImportError`` naming it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,15 @@ from pathlib import Path
 from typing import Any, Iterator
 
 import numpy as np
+
+
+def _cv2(what: str):
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{what} draws and writes with OpenCV (cv2), which is not "
+                          "installed") from e
+    return cv2
 
 
 class Boxes:
@@ -178,17 +188,35 @@ class Results:
         return Results(self.orig_img, self.path, self.names, self.boxes[keep], self.speed)
 
     def plot(self, line_width: int = 2, font_scale: float = 0.5) -> np.ndarray:
-        """Annotated RGB image: the reference draws with cv2's rectangles and
-        fonts, which the port does not have."""
-        raise NotImplementedError(
-            "Results.plot draws with cv2's fonts, which the port does not have; see "
-            "ROADMAP.md section 1 item 16")
+        """Annotated RGB image: each box as cv2's rectangle and its label in
+        ``FONT_HERSHEY_SIMPLEX`` with ``LINE_AA``, in a colour a class, by
+        JAX's formula."""
+        cv2 = _cv2("Results.plot")
+        img = (
+            self.orig_img.copy()
+            if self.orig_img is not None
+            else np.full((*self.boxes.orig_shape, 3), 255, np.uint8)
+        )
+        for (x1, y1, x2, y2), s, c in zip(
+            self.boxes.xyxy.astype(int), self.boxes.conf, self.boxes.cls
+        ):
+            color = (int(37 * (c + 1)) % 255, int(91 * (c + 2)) % 255, 60)
+            cv2.rectangle(img, (x1, y1), (x2, y2), color, line_width)
+            label = f"{self.names.get(int(c), c)} {s:.2f}"
+            cv2.putText(
+                img, label, (x1, max(y1 - 3, 10)), cv2.FONT_HERSHEY_SIMPLEX,
+                font_scale, color, 1, cv2.LINE_AA,
+            )
+        return img
 
     def save(self, out_path: str | Path) -> Path:
-        """The annotated image as a file: needs :meth:`plot`."""
-        raise NotImplementedError(
-            "Results.save writes Results.plot's cv2 drawing, which the port does not "
-            "have; see ROADMAP.md section 1 item 16")
+        """:meth:`plot`'s image written by ``cv2.imwrite`` (its format from
+        the suffix)."""
+        cv2 = _cv2("Results.save")
+        out_path = Path(out_path)
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(out_path), cv2.cvtColor(self.plot(), cv2.COLOR_RGB2BGR))
+        return out_path
 
     def save_txt(self, out_path: str | Path, save_conf: bool = True) -> Path:
         """YOLO-format lines: cls cx cy w h [conf], normalized."""

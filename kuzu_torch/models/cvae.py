@@ -116,9 +116,9 @@ class CVAE(nn.Module):
                 noise: torch.Tensor | None = None, generator: torch.Generator | None = None):
         with dtype_products(self.dtype):
             mu, logvar = self.encoder(images, labels)
-            if noise is None:
+            if noise is None:  # drawn where the generator lives, else beside mu
                 noise = torch.randn(mu.shape, generator=generator,
-                                    device=generator.device if generator else "cpu")
+                                    device=generator.device if generator else mu.device)
             z = mu + torch.exp(0.5 * logvar) * noise.to(mu.device)
             return self.decoder(z, labels), mu, logvar
 

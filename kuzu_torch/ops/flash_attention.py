@@ -16,7 +16,9 @@ products, whatever ``torch.backends.cuda.matmul.allow_tf32`` says), as the
 TPU kernels take any dtype and compute in f32. For area attention q, k, v are head-packed ``(G, N, C)``: head h owns
 channels ``[h*hd, (h+1)*hd)``; flash attention takes ``(BH, N, D)`` with the
 heads folded into the batch. Each wrapper runs its plain version for a CPU
-tensor and launches its kernel for a CUDA tensor. :func:`xla_attention` is
+tensor and launches its kernel for a CUDA tensor; :func:`area_attention`'s
+inference route (no log-sum-exp) does so through the operator
+``kuzu_torch::area_attention`` (``ops/registry.py``). :func:`xla_attention` is
 the materialised attention used where the kernels' gate fails, and the route
 :func:`flash_attention_auto` takes below its crossover.
 """
@@ -181,6 +183,11 @@ def _tma_stride(t: torch.Tensor, n: int) -> int:
     return stride
 
 
+def attention_scale(q: torch.Tensor, num_heads: int) -> float:
+    """1 / sqrt(head width) of (G, N, C) head-packed ``q``."""
+    return 1.0 / ((q.shape[-1] // num_heads) ** 0.5)
+
+
 def area_attention(
     q: torch.Tensor,  # (G, N, C) bf16 or f32, heads packed along C
     k: torch.Tensor,
@@ -200,19 +207,34 @@ def area_attention(
     g, n, c = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
-    scale = 1.0 / ((c // num_heads) ** 0.5)
+    if q.device.type != "cpu":
+        if q.device.type != "cuda":
+            raise ValueError(f"area_attention takes CPU or CUDA tensors, got {q.device}")
+        if q.dtype not in (torch.bfloat16, torch.float32) or not all(
+                t.dtype == q.dtype and t.device == q.device for t in (k, v)):
+            raise ValueError("area_attention kernel takes bf16 or f32 q/k/v of one dtype on "
+                             "one device")
+        if not area_attention_fwd_fits(n, c, num_heads, q.dtype):
+            raise ValueError(f"area_attention kernel cannot take N={n}, C={c}, "
+                             f"heads={num_heads}")
+    if not return_lse:  # the inference route: the operator kuzu_torch::area_attention
+        return torch.ops.kuzu_torch.area_attention(q, k, v, num_heads)
     if q.device.type == "cpu":
         area_attention.plain_calls += 1
-        return area_attention_plain(q, k, v, num_heads, scale, return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"area_attention takes CPU or CUDA tensors, got {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or not all(
-            t.dtype == q.dtype and t.device == q.device for t in (k, v)):
-        raise ValueError("area_attention kernel takes bf16 or f32 q/k/v of one dtype on one "
-                         "device")
-    if not area_attention_fwd_fits(n, c, num_heads, q.dtype):
-        raise ValueError(f"area_attention kernel cannot take N={n}, C={c}, "
-                         f"heads={num_heads}")
+        return area_attention_plain(q, k, v, num_heads, attention_scale(q, num_heads), True)
+    return _launch(q, k, v, num_heads, True)
+
+
+def launch_area_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          num_heads: int) -> torch.Tensor:
+    """The forward kernel without the log-sum-exp on CUDA tensors that
+    :func:`area_attention` has checked (the operator's CUDA implementation)."""
+    return _launch(q, k, v, num_heads, False)
+
+
+def _launch(q, k, v, num_heads: int, return_lse: bool):
+    g, n, c = q.shape
+    scale = attention_scale(q, num_heads)
     out = torch.empty((g, n, c), dtype=q.dtype, device=q.device)
     lse = out_lo = None
     if return_lse:

@@ -8,9 +8,10 @@ chunk of ``na`` tokens, with BN folded into the weights::
     x₁ = x + (o + pe)·Wp + bp            out = x₁ + W₂·silu(W₁·x₁ + b₁) + b₂
 
 ``v`` and its 5x5 depthwise ``pe`` are computed outside. :func:`fused_ablock`
-runs :func:`fused_ablock_plain` for a CPU tensor and launches the kernels for
-a CUDA tensor: four products on the wgmma GEMM of ``csrc/gemm.cuh`` around
-the forward attention of ``csrc/attention_fwd.cuh``.
+calls the operator ``kuzu_torch::fused_ablock`` (``ops/registry.py``), which
+runs :func:`fused_ablock_plain` for a CPU tensor and launches the kernels
+(:func:`launch`) for a CUDA tensor: four products on the wgmma GEMM of
+``csrc/gemm.cuh`` around the forward attention of ``csrc/attention_fwd.cuh``.
 """
 
 from __future__ import annotations
@@ -143,17 +144,23 @@ def fused_ablock(
     area: int,
     heads: int,
 ) -> torch.Tensor:
+    """The block through the operator ``kuzu_torch::fused_ablock``
+    (``ops/registry.py``): the plain version for CPU tensors, the kernels
+    for CUDA tensors, whose shapes, dtypes and devices are checked here."""
     b_, n, c = x.shape
     if n % area:
         raise ValueError(f"N={n} is not a multiple of area={area}")
-    if x.device.type == "cpu":
-        fused_ablock.plain_calls += 1
-        return fused_ablock_plain(x, v, pe, weights, area, heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ablock takes CPU or CUDA tensors, got {x.device}")
+    if x.device.type != "cpu":
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_ablock takes CPU or CUDA tensors, got {x.device}")
+        _check_kernel_args(x, v, pe, weights, area, heads)
+    return torch.ops.kuzu_torch.fused_ablock(x, v, pe, list(weights), area, heads)
+
+
+def _check_kernel_args(x, v, pe, weights, area: int, heads: int) -> None:
+    b_, n, c = x.shape
     na = n // area
-    wqk, bqk, wp, bp, w1, b1, w2, b2 = weights
-    hidden = w1.shape[1]
+    hidden = weights[4].shape[1]
     if not fused_ablock_fits(na, c, heads, hidden):
         raise ValueError(f"fused_ablock kernel cannot take na={na}, C={c}, "
                          f"heads={heads}, hidden={hidden}")
@@ -164,10 +171,19 @@ def fused_ablock(
         if tuple(w.shape) != shp or w.dtype != want or w.device != x.device:
             raise ValueError(f"weight {i}: {tuple(w.shape)} {w.dtype} {w.device}, "
                              f"want {shp} {want} {x.device}")
+    if any(t.dtype != torch.bfloat16 or t.shape != x.shape or t.device != x.device
+           for t in (x, v, pe)):
+        raise ValueError("fused_ablock kernel takes bf16 x/v/pe of one shape")
+
+
+def launch(x, v, pe, weights, area: int, heads: int) -> torch.Tensor:
+    """The kernels on CUDA tensors that :func:`fused_ablock` has checked
+    (the operator's CUDA implementation)."""
+    b_, n, c = x.shape
+    na = n // area
+    hidden = weights[4].shape[1]
     # x, v and the weights go through TMA tensor maps: 16-byte aligned bases
     acts = [_build.aligned(t) for t in (x, v, pe)]
-    if any(t.dtype != torch.bfloat16 or t.shape != x.shape for t in acts):
-        raise ValueError("fused_ablock kernel takes bf16 x/v/pe of one shape")
     ws = [_build.aligned(w) for w in weights]
     m = b_ * n
     qk = torch.empty((m, 2 * c), dtype=x.dtype, device=x.device)

@@ -1,9 +1,11 @@
 """Greedy NMS keep-mask: the CUDA kernel ``csrc/nms.cu`` and its plain version.
 
 Replaces ``kuzu/ops/pallas_nms.py::pallas_suppress`` (behind
-``kuzu/ops/nms.py::batched_suppress``). :func:`batched_suppress` runs the
+``kuzu/ops/nms.py::batched_suppress``). :func:`batched_suppress` calls the
+operator ``kuzu_torch::nms_keep`` (``ops/registry.py``), which runs the
 plain PyTorch recurrence :func:`suppress_reference` for a CPU tensor and
-launches the kernel for a CUDA tensor; there is no fallback between them.
+launches the kernel (:func:`launch`) for a CUDA tensor; there is no fallback
+between them.
 """
 
 from __future__ import annotations
@@ -72,22 +74,28 @@ def _kernel_fn():
 def batched_suppress(
     boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
 ) -> torch.Tensor:
-    """Batched greedy keep-mask (B, K) bool for score-sorted (B, K, 4) boxes.
+    """Batched greedy keep-mask (B, K) bool for score-sorted (B, K, 4) boxes,
+    through the operator ``kuzu_torch::nms_keep`` (``ops/registry.py``): the
+    plain recurrence for CPU tensors, the kernel for CUDA tensors.
 
     Any K: the kernel masks the ragged tail itself, so the 128-padding the
     TPU kernel needs is gone."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
         raise ValueError(f"bad shapes {tuple(boxes.shape)} / {tuple(valid.shape)}")
-    if boxes.device.type == "cpu":
-        batched_suppress.plain_calls += 1
-        return suppress_reference(boxes, valid, iou_threshold)
-    if boxes.device.type != "cuda" or valid.device != boxes.device:
-        raise ValueError(f"batched_suppress takes CPU or CUDA tensors, got {boxes.device}")
+    if boxes.device.type != "cpu":
+        if boxes.device.type != "cuda" or valid.device != boxes.device:
+            raise ValueError(f"batched_suppress takes CPU or CUDA tensors, got {boxes.device}")
+        if sweep_smem_bytes(boxes.shape[1]) > SMEM_LIMIT:
+            raise ValueError(f"batched_suppress kernel takes K <= 405504, got K={boxes.shape[1]}")
+    return torch.ops.kuzu_torch.nms_keep(boxes, valid, float(iou_threshold))
+
+
+def launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The kernel on CUDA tensors that :func:`batched_suppress` has checked
+    (the operator's CUDA implementation)."""
     b, k, _ = boxes.shape
     boxes = boxes.float().contiguous()
     valid_u8 = valid.to(torch.uint8).contiguous()
-    if sweep_smem_bytes(k) > SMEM_LIMIT:
-        raise ValueError(f"batched_suppress kernel takes K <= 405504, got K={k}")
     mask = torch.empty((b, mask_words(k)), dtype=torch.int64, device=boxes.device)
     keep = torch.empty((b, k), dtype=torch.uint8, device=boxes.device)
     err = _kernel_fn()(

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import yaml
 
+from kuzu_torch.api.export import Exporter
 from kuzu_torch.api.model import register_task
 from kuzu_torch.api.results import Boxes, Results
 from kuzu_torch.core.callbacks import LOGGER
@@ -408,4 +409,5 @@ register_task(
     trainer=DetectTrainer,
     validator=DetectValidator,
     predictor=DetectPredictor,
+    exporter=Exporter,
 )

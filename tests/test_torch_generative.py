@@ -127,6 +127,29 @@ def test_cvae_draws_its_noise_from_the_generator(cvae):
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
+def test_cvae_noise_is_drawn_on_the_models_device(monkeypatch):
+    """Without a generator the noise is drawn on mu's device (a CVAE on the
+    card draws it there, with no copy from the host); with one, on the
+    generator's. A CVAE on the meta device shows the device asked for."""
+    from kuzu_torch.models.cvae import CVAE
+
+    asked = []
+    randn = torch.randn
+
+    def spy(*args, **kwargs):
+        asked.append(torch.device(kwargs["device"]))
+        return randn(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "randn", spy)
+    model = CVAE(num_classes=5, latent_dim=16).to("meta")
+    imgs, labels = torch.zeros(2, 128, 128, 1, device="meta"), torch.tensor([0, 1], device="meta")
+    with torch.no_grad():
+        recon = model(imgs, labels)[0]
+        model(imgs, labels, generator=torch.Generator())
+    assert recon.device.type == "meta"
+    assert asked == [torch.device("meta"), torch.device("cpu")]
+
+
 # ------------------------------------------------------------ StackGAN
 
 

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from kuzu_torch.data.image_io import write_png
-from kuzu_torch.testing import box_head, detections_match, mixed_pages
+from kuzu_torch.testing import box_head, detections_match, mixed_pages, write_yolo_folder
 
 SHAPES = [(160, 120), (100, 150), (128, 128)]
 CAL_MATCH = 0.9  # f32 maps summed in another order: near-equal boxes may swap in NMS
@@ -222,7 +222,7 @@ def detect_run(tmp_path_factory):
     return run, pages
 
 
-def test_model_predict_on_a_port_run_dir(detect_run):
+def test_model_predict_on_a_port_run_dir(detect_run, tmp_path):
     from kuzu_torch.api.model import YOLO, Model
     from kuzu_torch.core.config import load_config
     from kuzu_torch.tasks.detect import DetectPredictor
@@ -241,9 +241,18 @@ def test_model_predict_on_a_port_run_dir(detect_run):
     tracked = model.track(str(pages), conf=0.001, max_det=20)
     assert len(tracked) == 3 and all(r.boxes.id is not None and len(r.boxes.id) == len(r)
                                      for r in tracked)
-    for name in ("tune", "export", "benchmark"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            getattr(model, name)()
+    # tune, export and benchmark run on the run dir: one short tuning
+    # iteration from its weights, the default export (the .pt2 program and
+    # its .json under the run), one benchmark row of its architecture
+    data = write_yolo_folder(tmp_path / "data", {"train": 2, "val": 1}, hw=(48, 64), nc=2)
+    tuned = model.tune(iterations=1, model="yolov12n", pretrained=str(run / "weights"),
+                       data=str(data), epochs=1, imgsz=64, batch=2, workers=0,
+                       project=str(tmp_path), tune_dir=str(tmp_path / "tune"))
+    assert np.isfinite(tuned["best_fitness"]) and "lr0" in tuned
+    blob = model.export()
+    assert blob == run / "export" / "detector.pt2" and blob.with_suffix(".json").exists()
+    rows = model.benchmark(imgsz=64, batches=(1,))["rows"]
+    assert [(r["model"], r["batch"]) for r in rows] == [("yolov12n", 1)]
     assert Model("crnn").task == "ctc" and Model("trocr_base").task == "recognize"
 
 

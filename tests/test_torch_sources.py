@@ -156,6 +156,8 @@ def test_results_views_and_exports_match_jax(tmp_path):
     assert [r.to_json() for r in got] == [r.to_json() for r in want]
     np.testing.assert_array_equal(got.boxes[1:4].xyxy, want.boxes[1:4].xyxy)
     assert got.speed == {"inference_ms": 1.5}
-    for fn in (got.plot, lambda: got.save(tmp_path / "plot.png")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    # plot draws with cv2 as JAX's does, byte for byte; save writes it
+    plot = got.plot()
+    assert plot.tobytes() == want.plot().tobytes()
+    saved = cv2.imread(str(got.save(tmp_path / "plot.png")))
+    np.testing.assert_array_equal(cv2.cvtColor(saved, cv2.COLOR_BGR2RGB), plot)
